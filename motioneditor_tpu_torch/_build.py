@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels, and count their launches.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc -shared`` call into a
-shared library with a plain C interface, loaded with ``ctypes``. The build
-happens at the first kernel launch, never at import, into
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The build happens at the
+first kernel launch, never at import, into
 ``<checkout>/build/cuda_kernels/`` keyed by a hash of the sources and
 flags, so an unchanged tree reuses its library and an edited one rebuilds.
 
@@ -29,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -72,16 +73,36 @@ def build() -> tuple[Path, str]:
     if out.is_file():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    try:
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for obj, proc in jobs:
+            text, _ = proc.communicate()
+            log.append(text)
+            if proc.returncode != 0:
+                failed.append(f"{obj.name} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "\n".join(log))
+        tmp = out.with_name(f"{tag}.tmp")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
+                              capture_output=True, text=True)
+    finally:  # no compile outlives a failure, no object file outlives the build
+        for obj, job in jobs:
+            if job.poll() is None:
+                job.kill()
+            job.wait()
+            obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return out, "\n".join(log) + proc.stdout + proc.stderr
 
 
 @functools.cache
@@ -102,6 +123,32 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, causal, dtype, stream
     ]
     lib.me_temporal_attention.restype = i32
+    lib.me_video_attention_fwd_res.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,            # q, k, v, out, lse
+        i32, i32, i32, i32, i32,            # B, F, N, H, d
+        f32, i32, i32, ptr,                 # scale, mode, dtype, stream
+    ]
+    lib.me_video_attention_fwd_res.restype = i32
+    lib.me_video_attention_bwd_dq.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, out, dout, lse
+        ptr, ptr,                           # delta, dq
+        i32, i32, i32, i32, i32,            # B, F, N, H, d
+        f32, i32, i32, ptr,                 # scale, mode, dtype, stream
+    ]
+    lib.me_video_attention_bwd_dq.restype = i32
+    lib.me_video_attention_bwd_dkv.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, dout, lse, delta
+        ptr, ptr,                           # dk_part, dv_part
+        i32, i32, i32, i32, i32,            # B, F, N, H, d
+        f32, i32, i32, ptr,                 # scale, mode, dtype, stream
+    ]
+    lib.me_video_attention_bwd_dkv.restype = i32
+    lib.me_temporal_attention_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, dout, dq, dk, dv
+        i32, i32, i32, i32, i32,            # B, F, N, H, d
+        f32, i32, i32, ptr,                 # scale, causal, dtype, stream
+    ]
+    lib.me_temporal_attention_bwd.restype = i32
     return lib
 
 

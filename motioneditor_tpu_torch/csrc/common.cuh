@@ -49,5 +49,30 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// K/V source frames of the video attention modes, shared by the forward
+// (video_attention.cu) and the backward (video_attention_bwd.cu) so both
+// read the same frames: normal [f] | sparse_causal [0, f-1] |
+// motion_frame [f-1, f] | dense [0..F-1] | injection [f-1, f, f], with f-1
+// clamped to 0 (frame 0 reads frame 0 twice).
+enum Mode { NORMAL = 0, SPARSE_CAUSAL = 1, MOTION_FRAME = 2, DENSE = 3, INJECTION = 4 };
+
+__host__ __device__ __forceinline__ int num_passes(int mode, int F) {
+  if (mode == NORMAL) return 1;
+  if (mode == DENSE) return F;
+  if (mode == INJECTION) return 3;
+  return 2;
+}
+
+__host__ __device__ __forceinline__ int pass_frame(int mode, int pass, int f) {
+  const int prev = f > 0 ? f - 1 : 0;
+  switch (mode) {
+    case NORMAL: return f;
+    case SPARSE_CAUSAL: return pass == 0 ? 0 : prev;
+    case DENSE: return pass;
+    default: return pass == 0 ? prev : f;  // motion_frame; injection [f-1|f|f]
+  }
+}
 
 }  // namespace me

@@ -6,6 +6,10 @@
 //       (_kernel_nomax / _kernel_maxsafe, pallas_call at video_flash.py:248)
 //   K2  motioneditor_tpu/ops/video_flash.py  _video_injection
 //       (_inj_kernel_nomax / _inj_kernel_maxsafe, pallas_call at :591)
+//   K4  motioneditor_tpu/ops/video_flash_bwd.py  video_flash_fwd_res
+//       (_fwd_res_nomax / _fwd_res_maxsafe, pallas_call at video_flash_bwd.py:229):
+//       K1's body, which also writes lse = m + ln(l) per (query row, head)
+//       in fp32 for the backward kernels (video_attention_bwd.cu)
 //
 // What it computes. For query frame f of batch row b and head h, softmax
 // attention over the keys of the source frames chosen by `mode`:
@@ -41,7 +45,13 @@ constexpr int BQ = 64;   // queries per block
 constexpr int BK = 32;   // keys per tile
 constexpr int NTHREADS = 128;
 
-enum Mode { NORMAL = 0, SPARSE_CAUSAL = 1, MOTION_FRAME = 2, DENSE = 3, INJECTION = 4 };
+using me::DENSE;
+using me::INJECTION;
+using me::MOTION_FRAME;
+using me::NORMAL;
+using me::SPARSE_CAUSAL;
+using me::num_passes;
+using me::pass_frame;
 
 struct Params {
   const void* q;
@@ -51,27 +61,11 @@ struct Params {
   const void* v2;
   const float* mask; // K2: [F, N] fg mask, indexed by the key's frame
   void* out;
+  float* lse;        // K4 only: [B, F, N, H] natural-log log-sum-exp, else null
   int B, F, N, H, d;
   float scale_log2;  // softmax scale * log2(e): scores live in log2 units
   int mode;
 };
-
-__device__ __forceinline__ int num_passes(int mode, int F) {
-  if (mode == NORMAL) return 1;
-  if (mode == DENSE) return F;
-  if (mode == INJECTION) return 3;
-  return 2;
-}
-
-__device__ __forceinline__ int pass_frame(int mode, int pass, int f) {
-  const int prev = f > 0 ? f - 1 : 0;
-  switch (mode) {
-    case NORMAL: return f;
-    case SPARSE_CAUSAL: return pass == 0 ? 0 : prev;
-    case DENSE: return pass;
-    default: return pass == 0 ? prev : f;  // motion_frame; injection [f-1|f|f]
-  }
-}
 
 template <int DP>
 struct Smem {
@@ -270,6 +264,10 @@ __global__ void __launch_bounds__(NTHREADS) video_attention_kernel(Params p) {
       }
     }
   }
+  if (p.lse != nullptr && tid < BQ && q0 + tid < p.N) {
+    // scores are in log2 units: lse = (m + log2 l) * ln 2
+    p.lse[((size_t)bf * p.N + q0 + tid) * p.H + h] = (row_m[tid] + log2f(row_l[tid])) * me::kLn2;
+  }
 }
 
 template <typename T, int DP>
@@ -305,7 +303,22 @@ extern "C" int me_video_attention(const void* q, const void* k, const void* v,
                                   void* out, int B, int F, int N, int H, int d,
                                   float scale, int mode, int dtype, void* stream) {
   if (d % 8 != 0 || d > 160 || mode < 0 || mode > 4) return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, k2, v2, static_cast<const float*>(mask), out,
+  Params p{q, k, v, k2, v2, static_cast<const float*>(mask), out, nullptr,
+           B, F, N, H, d, scale * me::kLog2e, mode};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dtype == 0 ? dispatch<float>(p, st) : dispatch<__nv_bfloat16>(p, st);
+  return (int)err;
+}
+
+// K4: the forward of modes 0-3 that also writes the log-sum-exp of every
+// (query row, head) as fp32 [B, F, N, H] for the backward (video_attention_bwd.cu).
+extern "C" int me_video_attention_fwd_res(const void* q, const void* k, const void* v,
+                                          void* out, float* lse, int B, int F, int N, int H,
+                                          int d, float scale, int mode, int dtype,
+                                          void* stream) {
+  if (d % 8 != 0 || d > 160 || mode < 0 || mode > 3 || lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, nullptr, nullptr, nullptr, out, lse,
            B, F, N, H, d, scale * me::kLog2e, mode};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? dispatch<float>(p, st) : dispatch<__nv_bfloat16>(p, st);

@@ -19,6 +19,15 @@ their inputs. Bound on the H100 and design notes: see the .cu source.
 
 Each wrapper takes the plain PyTorch version only for CPU tensors; a CUDA
 tensor launches the kernel or raises.
+
+Gradients, chosen as the JAX package chooses its VJPs: under autograd the
+frame-selection modes go through ``VideoFlashAttentionFn``
+(ops/video_flash_bwd.py: the residual-saving forward K4 and the backward
+kernels K5/K6, as JAX's ``flash_vjp_attention``); dense mode and the
+injection attention run their kernel forward and take the VJP of their
+plain version, recomputed in the backward (JAX's ``kernel_with_xla_vjp``,
+ops/diffable.py). The kernel's residual-saving forward is taken only when a
+gradient is needed: grad mode on and some input requiring grad.
 """
 
 from __future__ import annotations
@@ -88,9 +97,35 @@ def _check_shapes(name, q, heads, *others):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(q.shape)}")
 
 
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class KernelWithPlainVJP(torch.autograd.Function):
+    """``kernel_fn(*tensors)`` forward; the backward recomputes
+    ``plain_fn(*tensors)`` under autograd and returns its VJP (the port of
+    JAX's ``kernel_with_xla_vjp``, ops/diffable.py)."""
+
+    @staticmethod
+    def forward(ctx, kernel_fn, plain_fn, *tensors):
+        ctx.plain_fn = plain_fn
+        ctx.save_for_backward(*tensors)
+        return kernel_fn(*tensors)
+
+    @staticmethod
+    def backward(ctx, dout):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = ctx.plain_fn(*xs)
+            wrt = [x for x in xs if x.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, dout))
+        return (None, None, *(next(grads) if n else None for n in need))
+
+
 def video_flash_attention(q, k, v, mode: str, scale: float, heads: int) -> torch.Tensor:
     """Spatial video attention on [B, F, N, C] with in-kernel head packing
-    and frame-selected K/V. Returns q's shape and dtype."""
+    and frame-selected K/V. Returns q's shape and dtype; differentiable."""
     if q.device.type == "cpu":
         return video_flash_attention_plain(q, k, v, mode, scale, heads)
     name = "video_flash_attention"
@@ -98,6 +133,19 @@ def video_flash_attention(q, k, v, mode: str, scale: float, heads: int) -> torch
     _build.check_operands(name, (q, k, v))
     if mode not in _MODE_CODES:
         raise ValueError(f"{name}: unknown mode {mode}")
+    if needs_grad(q, k, v):
+        if mode == DENSE:
+            return KernelWithPlainVJP.apply(
+                lambda *t: _video_flash_kernel(*t, mode, scale, heads),
+                lambda *t: video_flash_attention_plain(*t, mode, scale, heads), q, k, v)
+        from motioneditor_tpu_torch.ops.video_flash_bwd import VideoFlashAttentionFn
+
+        return VideoFlashAttentionFn.apply(q, k, v, mode, scale, heads)
+    return _video_flash_kernel(q, k, v, mode, scale, heads)
+
+
+def _video_flash_kernel(q, k, v, mode, scale, heads):
+    name = "video_flash_attention"
     b, f, n, c = q.shape
     out = torch.empty_like(q)
     code = _build.kernels().me_video_attention(
@@ -133,18 +181,30 @@ def video_injection_attention_plain(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, sca
 def video_injection_attention(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale: float,
                               heads: int) -> torch.Tensor:
     """Fused fg/bg injection attention of the edit rows on [B, F, N, C];
-    ``mask`` is the [F, N] fg mask, indexed by the key's frame."""
+    ``mask`` is the [F, N] fg mask, indexed by the key's frame.
+    Differentiable through the plain version's VJP."""
     if q_tgt.device.type == "cpu":
         return video_injection_attention_plain(
             q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale, heads)
     name = "video_injection_attention"
     _check_shapes(name, q_tgt, heads, k_src, v_src, k_tgt, v_tgt)
     _build.check_operands(name, (q_tgt, k_src, v_src, k_tgt, v_tgt))
-    b, f, n, c = q_tgt.shape
-    mask = mask.to(torch.float32).contiguous()
+    f, n = q_tgt.shape[1:3]
     if mask.shape != (f, n):
         raise ValueError(f"{name}: mask shape {tuple(mask.shape)} != {(f, n)}")
+    mask = mask.to(torch.float32).contiguous()
     _build.check_operands(name, (mask,), dtype=torch.float32)
+    args = (q_tgt, k_src, v_src, k_tgt, v_tgt, mask)
+    if needs_grad(*args):
+        return KernelWithPlainVJP.apply(
+            lambda *t: _video_injection_kernel(*t, scale, heads),
+            lambda *t: video_injection_attention_plain(*t, scale, heads), *args)
+    return _video_injection_kernel(*args, scale, heads)
+
+
+def _video_injection_kernel(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale, heads):
+    name = "video_injection_attention"
+    b, f, n, c = q_tgt.shape
     out = torch.empty_like(q_tgt)
     code = _build.kernels().me_video_attention(
         q_tgt.data_ptr(), k_src.data_ptr(), v_src.data_ptr(), k_tgt.data_ptr(),

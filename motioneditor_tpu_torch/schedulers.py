@@ -1,4 +1,5 @@
-"""DDIM scheduler math (port of motioneditor_tpu/schedulers.py).
+"""DDIM scheduler math: the step and the inversion step (port of
+motioneditor_tpu/schedulers.py).
 
 SD-1.5 schedule: scaled-linear betas, 1000 train steps, steps_offset=1,
 set_alpha_to_one=False, epsilon prediction. Tables are computed in float64
@@ -66,3 +67,23 @@ def ddim_step(schedule: DiffusionSchedule, model_output: torch.Tensor, timestep:
     pred_x0 = (sample32 - beta_t.sqrt().item() * eps32) / alpha_t.sqrt().item()
     direction = (1.0 - alpha_prev).sqrt().item() * eps32
     return (alpha_prev.sqrt().item() * pred_x0 + direction).to(sample.dtype)
+
+
+def ddim_inverse_step(schedule: DiffusionSchedule, model_output: torch.Tensor, timestep: int,
+                      sample: torch.Tensor, num_inference_steps: int) -> torch.Tensor:
+    """One DDIM inversion step x_{t - ratio} -> x_t, given the model output
+    at ``sample`` with conditioning timestep ``timestep``. The "from"
+    timestep is clamped at 999 and takes final_alpha_cumprod below 0. In
+    fp32, returned in the sample's dtype."""
+    acp = schedule.alphas_cumprod
+    timestep = int(timestep)
+    from_t = min(timestep - schedule.num_train_timesteps // num_inference_steps,
+                 schedule.num_train_timesteps - 1)
+    alpha_from = acp[from_t] if from_t >= 0 else schedule.final_alpha_cumprod
+    alpha_to = acp[timestep]
+    beta_from = 1.0 - alpha_from
+    sample32 = sample.float()
+    eps32 = model_output.float()
+    x0 = (sample32 - beta_from.sqrt().item() * eps32) / alpha_from.sqrt().item()
+    direction = (1.0 - alpha_to).sqrt().item() * eps32
+    return (alpha_to.sqrt().item() * x0 + direction).to(sample.dtype)

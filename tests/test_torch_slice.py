@@ -5,7 +5,8 @@ At 16x16 latents no attention site reaches the kernels' size gates, so both
 packages take their plain paths here; the kernels are held against the JAX
 Pallas kernels in tests/test_torch_video_flash.py and
 tests/test_torch_temporal_flash.py. Tolerances are those of
-tests/test_full_oracle.py (one injected UNet forward; the multi-step loop).
+tests/test_full_oracle.py (one injected UNet forward; the multi-step loop),
+also for the segment that reads one null-text uncond embedding per step.
 """
 
 import dataclasses
@@ -107,12 +108,17 @@ def test_injected_unet_forward_matches_jax(weights):
     assert_close(out, ref, atol=3e-4, rtol=1e-4)
 
 
-def test_denoise_segment_matches_jax(weights):
+@pytest.mark.parametrize("per_step_uncond", [False, True])
+def test_denoise_segment_matches_jax(weights, per_step_uncond):
+    """Two injected steps; with ``per_step_uncond`` step idx reads the
+    null-text embedding seg_uncond[idx] [1, L, D] broadcast to cond's shape
+    (editor.py:475-479) and the shared uncond goes unused."""
     unet_tree, cn_tree, cn_jax_config, unet, cn = weights
     rng = np.random.default_rng(4)
     lat0 = normal(rng, (2, F, HW, HW, 4), 0.3)
     cond = normal(rng, (2, 7, 16), 0.3)
     uncond = normal(rng, (2, 7, 16), 0.3)
+    seg_uncond = normal(rng, (2, 1, 7, 16), 0.3)
     skel = rng.random((2, F, 8 * HW, 8 * HW, 3)).astype(np.float32)
     masks = _masks(rng)
     num_steps, guidance = 50, 7.5
@@ -122,13 +128,13 @@ def test_denoise_segment_matches_jax(weights):
     cond_emb_jax = jax_precompute_cond_embedding(cn_params, jnp.asarray(skel))
     seg_fn = _jit_denoise_segment(
         JAX_TINY, cn_jax_config, JaxSchedule(), num_steps,
-        JaxInjectionSpec.from_start_layer(10), guidance, 1.0, True, False,
+        JaxInjectionSpec.from_start_layer(10), guidance, 1.0, True, per_step_uncond,
     )
     ref, _ = seg_fn(
         to_jax(unet_tree), cn_params, jnp.asarray(lat0),
         jnp.asarray(seg_ts), jnp.asarray(cond), jnp.asarray(uncond),
-        jnp.zeros((len(seg_ts), 1, 1, 1)), cond_emb_jax,
-        {k: jnp.asarray(v) for k, v in masks.items()}, jnp.zeros(()),
+        jnp.asarray(seg_uncond) if per_step_uncond else jnp.zeros((len(seg_ts), 1, 1, 1)),
+        cond_emb_jax, {k: jnp.asarray(v) for k, v in masks.items()}, jnp.zeros(()),
     )
 
     with torch.no_grad():
@@ -137,8 +143,9 @@ def test_denoise_segment_matches_jax(weights):
     out = denoise_segment(
         unet, TINY, cn, controlnet_config(TINY), DiffusionSchedule(), num_steps,
         InjectionSpec.from_start_layer(10), guidance, 1.0, torch.from_numpy(lat0),
-        seg_ts, torch.from_numpy(cond), torch.from_numpy(uncond), cond_emb,
-        {k: torch.from_numpy(v) for k, v in masks.items()},
+        seg_ts, torch.from_numpy(cond), None if per_step_uncond else torch.from_numpy(uncond),
+        cond_emb, {k: torch.from_numpy(v) for k, v in masks.items()},
+        seg_uncond=torch.from_numpy(seg_uncond) if per_step_uncond else None,
     )
     assert out.shape == lat0.shape
     assert torch.isfinite(out).all()

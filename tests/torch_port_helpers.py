@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from motioneditor_tpu.models.unet import UNetConfig as JaxUNetConfig
+from motioneditor_tpu.models.unet import init_unet
 
 TINY_KW = dict(
     block_out_channels=(32, 64, 64, 64),
@@ -65,3 +66,20 @@ def assert_close(port_out, jax_out, atol, rtol=0.0):
         port_out.detach().float().numpy(), np.asarray(jax_out, np.float32),
         atol=atol, rtol=rtol,
     )
+
+
+def tensor(a):
+    """A float32 torch tensor holding a copy of the numpy or JAX array ``a``."""
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def tiny_unet(seed: int = 1):
+    """The tiny video UNet with seeded random weights, as a JAX parameter
+    tree and as the port's module (eval mode, fp32)."""
+    from motioneditor_tpu_torch.models.from_jax import unet_state_dict
+    from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
+
+    tree = random_params(lambda: init_unet(jax.random.PRNGKey(0), JAX_TINY), seed=seed)
+    unet = UNet3DConditionModel(UNetConfig(**TINY_KW)).eval()
+    unet.load_state_dict(unet_state_dict(tree))
+    return to_jax(tree), unet
