@@ -8,7 +8,12 @@ Phases, each raising on failure:
   3. kernels  each forward CUDA kernel against its plain PyTorch version on
               the card, at the denoise step's shapes (B=2, F=8, (N, C) in
               {(4096, 320), (1024, 640)}, 8 heads) in bf16 and fp32 (TF32
-              off), with CUDA-event times of both
+              off), with CUDA-event times of both; the split-head kernels
+              (K8 flash_attention, K9 fused_injection_attention) at the auto
+              path's shapes (q [2, 8, 8, N, d], K/V over 2N keys, (N, d) in
+              {(4096, 40), (1024, 80)}); one PyTorch library call where one
+              computes the same function (scaled_dot_product_attention for
+              K8, K1's normal mode and K3 causal), timed as a yardstick
   3b. bwd     the backward kernels (K4 residual-saving forward, K5 dq, K6
               dk/dv partials, K7 temporal) against their plain versions and
               autograd of the plain forward, at the null-text shapes (B=1,
@@ -31,6 +36,19 @@ Phases, each raising on failure:
               injected edit over the last 2 steps with the optimized
               per-step uncond embeddings; asserts finite outputs and the
               per-step launch counts, prints ms per step and peak memory
+  7. pipe     MotionEditorPipeline from frames to frames at full width with
+              the VAE and the CLIP text encoder (StubTokenizer), bf16, 512px,
+              8 frames, random init from the seed: encode_video ->
+              null_text_inversion -> the edit (mask mode) -> decode, on a
+              5-step schedule with start_step 3 (3 vanilla steps, 2
+              injected); asserts a finite [2, 8, 512, 512, 3] video in
+              [0, 1] and the launch counts, prints the time of each part
+  8. auto     the denoise segment in auto-mask mode at full width, bf16, 3
+              steps; asserts the per-step launch counts, prints ms per step
+  8b. check   tiny fp32 checks, kernel path against plain path: an auto
+              segment (K8 at its real call site) and the split-head branch
+              of the mask injection at a head dim the packed kernels
+              decline (d = 9), where K8 and K9 launch
 Then one JSON line of per-kernel results, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -76,6 +94,20 @@ EXPECTED_PER_NULL_STEP = {
     "temporal_flash_attention": 30,
     "temporal_flash_attention_bwd": 10,
 }
+# per auto-mode segment step: UNet blocks 0-3 (4) + ControlNet 0-3 (4) + adapter
+# 0-5 x 2 (12); blocks 10-15 run K8 three times each (source rows, fg, bg)
+EXPECTED_PER_AUTO_STEP = {
+    "video_flash_attention": 20,
+    "temporal_flash_attention": 16,
+    "flash_attention": 18,
+}
+PIPE_STEPS, PIPE_START = 5, 3  # phase 7: 3 vanilla steps, then 2 injected
+# a vanilla step launches what an injected one does, but for K2: blocks 10-15
+# run K1 on all four rows instead of K1 on the source rows and K2 on the edit rows
+EXPECTED_PER_VANILLA_STEP = {"video_flash_attention": 26, "temporal_flash_attention": 16}
+AUTO_SHAPES = ((4096, 40), (1024, 80))  # (N, d) of the auto path's K8 / K9 calls
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense (no tensor cores in fp32)
+PEAK_BYTES = 3.35e12
 KERNEL_INFO = {
     "video_flash_attention": ("motioneditor_tpu_torch/csrc/video_attention.cu",
                               "motioneditor_tpu/ops/video_flash.py:248"),
@@ -91,7 +123,12 @@ KERNEL_INFO = {
                             "motioneditor_tpu/ops/video_flash_bwd.py:437"),
     "temporal_flash_attention_bwd": ("motioneditor_tpu_torch/csrc/temporal_attention_bwd.cu",
                                      "motioneditor_tpu/ops/temporal_flash.py:190"),
+    "flash_attention": ("motioneditor_tpu_torch/csrc/split_attention.cu",
+                        "motioneditor_tpu/ops/flash_attention.py:222"),
+    "fused_injection_attention": ("motioneditor_tpu_torch/csrc/split_attention.cu",
+                                  "motioneditor_tpu/ops/injection_flash.py:268"),
 }
+SPLIT_KERNELS = ("flash_attention", "fused_injection_attention")
 FORWARD_KERNELS = ("video_flash_attention", "video_injection_attention",
                    "temporal_flash_attention")
 BACKWARD_KERNELS = ("video_flash_fwd_res", "video_flash_bwd_dq", "video_flash_bwd_dkv",
@@ -132,6 +169,47 @@ def logit_bound(q, k, heads: int, scale: float) -> float:
     return qn * kn * scale
 
 
+def bound(flops: float, moved: float, dtype) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the peak rate of their type and the bytes over the memory rate."""
+    dt = str(dtype).replace("torch.", "")
+    ops_ms = flops / PEAK_FLOPS[dt] * 1e3
+    bytes_ms = moved / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": moved}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def video_work(name: str, variant: str, q) -> float:
+    """Operations of the packed-head kernels on q [B, F, N, C]: two products
+    (QK^T, PV) of 2*d flops per (query, key, head); the causal temporal
+    kernel forms F(F+1)/2 frame pairs per site."""
+    b, f, n, c = q.shape
+    if name == "temporal_flash_attention":
+        return 4.0 * b * n * c * f * (f + 1) / 2
+    keys = {"normal": n, "sparse_causal": 2 * n, "motion_frame": 2 * n, "dense": f * n,
+            "injection": 3 * n}[variant]  # injection: 2N source keys scored once, N target
+    return 4.0 * b * f * n * keys * c
+
+
+def library_time(dtype, ref, fn) -> float:
+    """The time of one PyTorch library call ``fn``, a yardstick only, after
+    checking that it computes ``ref`` within the kernels' tolerance."""
+    import torch
+
+    torch.testing.assert_close(fn().float(), ref.float(), **tolerance(dtype))
+    return time_ms(fn)
+
+
+def split_logit_bound(q, k, scale: float) -> float:
+    """Upper bound on |q.k| * scale for split-head [..., H, N, d] operands."""
+    return q.float().norm(dim=-1).amax().item() * k.float().norm(dim=-1).amax().item() * scale
+
+
 def phase_kernels(device):
     """Each kernel against its plain version at the slice's shapes."""
     import torch
@@ -147,8 +225,19 @@ def phase_kernels(device):
         video_injection_attention_plain,
     )
 
+    from torch.nn.functional import scaled_dot_product_attention as library_sdpa
+
     gen = torch.Generator(device=device).manual_seed(SEED)
     results = {name: {"max_abs_err": 0.0} for name in FORWARD_KERNELS}
+
+    def split(x):  # [B, F, N, C] -> [B*F, H, N, d], a view
+        b, f, n, c = x.shape
+        return x.view(b * f, n, HEADS, c // HEADS).transpose(1, 2)
+
+    def temporal(x):  # [B, F, N, C] -> [B*N, H, F, d], a view
+        b, f, n, c = x.shape
+        return x.view(b, f, n, HEADS, c // HEADS).permute(0, 2, 3, 1, 4).flatten(0, 1)
+
     for dtype in (torch.bfloat16, torch.float32):
         for n, c in KERNEL_SHAPES:
             shape = (2, FRAMES, n, c)
@@ -157,9 +246,9 @@ def phase_kernels(device):
             mask = (torch.rand((FRAMES, n), generator=gen, device=device) > 0.5).float()
             scale = (c // HEADS) ** -0.5
             if dtype == torch.bfloat16:
-                bound = max(logit_bound(q, k, HEADS, scale), logit_bound(q, k2, HEADS, scale))
-                if bound >= LOGIT_CAP:
-                    raise AssertionError(f"bf16 inputs reach logit {bound} >= {LOGIT_CAP}")
+                top = max(logit_bound(q, k, HEADS, scale), logit_bound(q, k2, HEADS, scale))
+                if top >= LOGIT_CAP:
+                    raise AssertionError(f"bf16 inputs reach logit {top} >= {LOGIT_CAP}")
             cases = [
                 (("video_flash_attention", mode),
                  lambda m=mode: video_flash_attention(q, k, v, m, scale, HEADS),
@@ -180,19 +269,99 @@ def phase_kernels(device):
                 ref = plain_fn()
                 err = (out.float() - ref.float()).abs().max().item()
                 torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
-                del out, ref
                 ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
                 dt = str(dtype).replace("torch.", "")
-                log(f"[kernels] {name} {variant} {dt} N={n} C={c}: max_abs_err={err:.3e} "
-                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
                 r = results[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
-                main_case = (dtype == torch.bfloat16 and n == 4096
-                             and variant in ("motion_frame", "injection", "causal"))
-                if main_case:
+                main_bf16 = dtype == torch.bfloat16 and n == 4096
+                lib = ""
+                if main_bf16 and variant in ("normal", "causal"):
+                    # the library call gets its layout for free: split-head views of
+                    # q, k, v, or [B*N, H, F, d] copies made before the timing
+                    view = split if variant == "normal" else temporal
+                    lq, lk, lv = view(q), view(k), view(v)
+                    lib_fn = lambda: library_sdpa(  # noqa: E731
+                        lq, lk, lv, is_causal=variant == "causal", scale=scale)
+                    r["library_ms"] = library_time(dtype, view(ref), lib_fn)
+                    del lq, lk, lv
+                    r["library_at"] = f"bf16 B=2 F={FRAMES} N={n} C={c} {variant}"
+                    lib = f", library {r['library_ms']:.3f} ms"
+                del out, ref
+                log(f"[kernels] {name} {variant} {dt} N={n} C={c}: max_abs_err={err:.3e} "
+                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}")
+                if main_bf16 and variant in ("motion_frame", "injection", "causal"):
                     r["ms"], r["plain_ms"] = ms, plain_ms
                     r["at"] = f"bf16 B=2 F={FRAMES} N={n} C={c} {variant}"
+                    extra = (k2, v2, mask) if variant == "injection" else ()
+                    r.update(bound(video_work(name, variant, q), nbytes(q, k, v, q, *extra),
+                                   dtype))
                 torch.cuda.empty_cache()
+    results.update(phase_split_kernels(device, gen))
+    return results
+
+
+def phase_split_kernels(device, gen):
+    """K8 and K9 against their plain versions at the auto path's shapes."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as library_sdpa
+
+    from motioneditor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from motioneditor_tpu_torch.ops.injection_flash import (
+        fused_injection_attention,
+        fused_injection_attention_plain,
+    )
+
+    results = {name: {"max_abs_err": 0.0} for name in SPLIT_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        for n, d in AUTO_SHAPES:
+            lead = (2, FRAMES, HEADS)
+            q, kt, vt = (torch.randn((*lead, n, d), generator=gen, device=device).to(dtype)
+                         for _ in range(3))
+            k, v = (torch.randn((*lead, 2 * n, d), generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+            mask = (torch.rand((FRAMES, 2 * n), generator=gen, device=device) > 0.5).float()
+            scale = d ** -0.5
+            if dtype == torch.bfloat16:
+                b_ = max(split_logit_bound(q, k, scale), split_logit_bound(q, kt, scale))
+                if b_ >= LOGIT_CAP:
+                    raise AssertionError(f"bf16 inputs reach logit {b_} >= {LOGIT_CAP}")
+            main = dtype == torch.bfloat16 and n == 4096
+            at = f"{dt} q [2, {FRAMES}, {HEADS}, {n}, {d}], 2N source keys"
+            cases = (
+                ("flash_attention", lambda: flash_attention(q, k, v, scale),
+                 lambda: flash_attention_plain(q, k, v, scale),
+                 4.0 * q.numel() * 2 * n, nbytes(q, k, v, q)),
+                ("fused_injection_attention",
+                 lambda: fused_injection_attention(q, k, v, mask, kt, vt, scale),
+                 lambda: fused_injection_attention_plain(q, k, v, mask, kt, vt, scale),
+                 4.0 * q.numel() * 3 * n, nbytes(q, k, v, mask, kt, vt, q)),
+            )
+            for name, kernel_fn, plain_fn, flops, moved in cases:
+                out = kernel_fn()
+                torch.cuda.synchronize()
+                ref = plain_fn()
+                err = (out.float() - ref.float()).abs().max().item()
+                torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
+                ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+                r = results[name]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                lib = ""
+                if name == "flash_attention":
+                    lib_fn = lambda: library_sdpa(q.flatten(0, 1), k.flatten(0, 1),  # noqa: E731
+                                                  v.flatten(0, 1), scale=scale)
+                    lib_ms = library_time(dtype, ref.flatten(0, 1), lib_fn)
+                    lib = f", library {lib_ms:.3f} ms"
+                    if main:
+                        r["library_ms"], r["library_at"] = lib_ms, at
+                del out, ref
+                log(f"[kernels] {name} {at}: max_abs_err={err:.3e} kernel {ms:.3f} ms, "
+                    f"plain {plain_ms:.3f} ms{lib}")
+                if main:
+                    r.update(ms=ms, plain_ms=plain_ms, at=at, **bound(flops, moved, dtype))
+                torch.cuda.empty_cache()
+            del q, k, v, kt, vt, mask
+            torch.cuda.empty_cache()
     return results
 
 
@@ -246,11 +415,11 @@ def phase_bwd_kernels(device):
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     results = {name: {"max_abs_err": 0.0} for name in BACKWARD_KERNELS}
 
-    def record(name, err, ms, plain_ms, main_case, at):
+    def record(name, err, ms, plain_ms, main_case, at, flops, moved):
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main_case:
-            r["ms"], r["plain_ms"], r["at"] = ms, plain_ms, at
+            r.update(ms=ms, plain_ms=plain_ms, at=at, **bound(flops, moved, dtype))
 
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).replace("torch.", "")
@@ -275,7 +444,12 @@ def phase_bwd_kernels(device):
                           (lse - lse_ref).abs().max().item())
                 del out, lse
                 ms_fwd, plain_fwd_ms = time_ms(fwd), time_ms(fwd_plain)
-                record("video_flash_fwd_res", err, ms_fwd, plain_fwd_ms, main_case, at)
+                # the forward's 2 products per (query, key, head); dq recomputes S and
+                # forms dP and dQ (3), dk/dv form S, dP, dV and dK (4)
+                work = video_work("video_flash_attention", mode, q)
+                lse_bytes = nbytes(lse_ref)
+                record("video_flash_fwd_res", err, ms_fwd, plain_fwd_ms, main_case, at, work,
+                       nbytes(q, k, v, q) + lse_bytes)
 
                 dq_fn = lambda: video_flash_bwd_dq(  # noqa: E731
                     q, k, v, out_ref, lse_ref, do, mode, scale, HEADS)
@@ -299,9 +473,11 @@ def phase_bwd_kernels(device):
                 auto_ms = time_ms(lambda: plain_autograd(
                     lambda *t: video_flash_attention_plain(*t, mode, scale, HEADS), (q, k, v), do))
                 record("video_flash_bwd_dq", max(err_plain, err_auto), ms_dq, plain_ms,
-                       main_case, at)
+                       main_case, at, 1.5 * work, nbytes(q, k, v, q, do, q) + 2 * lse_bytes)
+                slots = 1 if mode == "normal" else 2  # fp32 dk / dv partials per source slot
                 record("video_flash_bwd_dkv", max(err_plain, err_auto), ms_dkv, plain_ms,
-                       main_case, at)
+                       main_case, at, 2.0 * work,
+                       nbytes(q, k, v, do) + 2 * lse_bytes + 2 * slots * q.numel() * 4)
                 log(f"[bwd] {at}: max_abs_err fwd_res {err:.3e}, bwd vs plain {err_plain:.3e}, "
                     f"vs autograd {err_auto:.3e}; fwd_res {ms_fwd:.3f} ms (plain "
                     f"{plain_fwd_ms:.3f}), dq {ms_dq:.3f} ms, dkv {ms_dkv:.3f} ms, plain bwd "
@@ -323,7 +499,8 @@ def phase_bwd_kernels(device):
             log(f"[bwd] temporal {at}: max_abs_err {err:.3e}; kernel {ms:.3f} ms, "
                 f"plain {plain_ms:.3f} ms")
             record("temporal_flash_attention_bwd", err, ms, plain_ms,
-                   dtype == torch.bfloat16 and n == 4096, at)
+                   dtype == torch.bfloat16 and n == 4096, at,
+                   2.5 * video_work("temporal_flash_attention", "causal", q), 7 * nbytes(q))
             del q, k, v, do
             torch.cuda.empty_cache()
     return results
@@ -607,6 +784,219 @@ def phase_null_text(device):
                    "edit_ms_per_step": timings["edit"], "null_text_peak_gib": peak_gb}
 
 
+def scaled(counts: dict, steps: int) -> dict:
+    return {k: n * steps for k, n in counts.items()}
+
+
+def add_counts(*counts: dict) -> dict:
+    out: dict = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def phase_pipeline(device):
+    """MotionEditorPipeline from frames to frames at full width, bf16:
+    encode_video -> null_text_inversion -> the edit -> decode."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.models.clip_text import CLIPTextModel, StubTokenizer
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.models.vae import AutoencoderKL
+    from motioneditor_tpu_torch.pipelines.editor import MotionEditorPipeline
+
+    dtype = torch.bfloat16
+    t_all = time.perf_counter()
+    unet, cn = build_models(*pipeline_configs(), device, dtype, SEED + 10)
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    with torch.device(device):
+        vae, text = AutoencoderKL(), CLIPTextModel()
+    for m in (vae, text):
+        init_params(m, gen)
+        m.to(dtype).eval()
+    pipe = MotionEditorPipeline(unet=unet, vae=vae, text_encoder=text, controlnet=cn,
+                                tokenizer=StubTokenizer(), unet_config=pipeline_configs()[0])
+    size = 8 * LATENT
+    video = (torch.rand((1, FRAMES, size, size, 3), generator=gen, device=device) * 2 - 1)
+    skeleton = torch.rand((FRAMES, size, size, 3), generator=gen, device=device)
+    masks = torch.zeros((FRAMES, size, size), device=device)
+    masks[:, size // 4: 3 * size // 4, size // 3: 2 * size // 3] = 1.0  # the protagonist's box
+    prompts = ["a man is dancing", "a man is jumping"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, paths = {}, {}
+
+    def timed(part, fn, path=None):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[part] = (time.perf_counter() - t0) * 1e3
+        if path is not None:
+            paths[path] = dict(_build.launch_counts)
+        return out
+
+    t_run = time.perf_counter()
+    timed("prompt_encode_ms", lambda: pipe.encode_prompt(prompts))
+    latents = timed("vae_encode_ms", lambda: pipe.encode_video(
+        video.to(dtype), generator=torch.Generator(device=device).manual_seed(SEED + 12)))
+    x_t, uncond = timed("null_text_inversion_ms", lambda: pipe.null_text_inversion(
+        latents, prompts[0], num_steps=PIPE_STEPS), "pipeline_inversion")
+    lat = timed("edit_ms", lambda: pipe(
+        prompts, torch.cat([x_t, x_t]), skeleton, source_masks=masks, uncond_embeddings=uncond,
+        num_inference_steps=PIPE_STEPS, start_step=PIPE_START, decode=False), "pipeline_edit")
+    out = timed("vae_decode_ms", lambda: pipe.decode_latents(lat))
+    metrics = {k: v for k, v in times.items() if k.endswith("ms")}
+    metrics.update(
+        inversion_null_text_ms_per_step=times["null_text_inversion_ms"] / PIPE_STEPS,
+        edit_ms_per_step=times["edit_ms"] / PIPE_STEPS,
+        run_s=time.perf_counter() - t_run, total_s=time.perf_counter() - t_all,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[pipe] {json.dumps(metrics)}")
+    log(f"[pipe] launches {paths}")
+    if out.shape != (2, FRAMES, size, size, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"pipeline output {tuple(out.shape)} is not a finite video")
+    if out.min() < 0 or out.max() > 1:
+        raise AssertionError("pipeline output leaves [0, 1]")
+    expect_counts("pipeline_inversion", paths["pipeline_inversion"], add_counts(
+        scaled(EXPECTED_PER_INVERSION_STEP, PIPE_STEPS),
+        scaled(EXPECTED_PER_NULL_STEP, PIPE_STEPS)), 1)
+    expect_counts("pipeline_edit", paths["pipeline_edit"], add_counts(
+        scaled(EXPECTED_PER_VANILLA_STEP, PIPE_START),
+        scaled(EXPECTED_PER_STEP, PIPE_STEPS - PIPE_START)), 1)
+    del pipe, vae, text, out
+    return unet, cn, paths, metrics
+
+
+def pipeline_configs():
+    from motioneditor_tpu_torch.models.controlnet import controlnet_config
+    from motioneditor_tpu_torch.models.unet import UNetConfig
+
+    return UNetConfig(), controlnet_config()
+
+
+def phase_auto(device, unet, cn):
+    """The denoise segment in auto-mask mode at full width, bf16, 3 steps."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import (
+        InjectionSpec,
+        prepare_injection_masks,
+    )
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.pipelines.editor import denoise_segment
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    dtype = torch.bfloat16
+    config, cn_config = pipeline_configs()
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    lat = torch.randn((2, FRAMES, LATENT, LATENT, 4), generator=gen, device=device).to(dtype)
+    cond, uncond = (torch.randn((2, 77, 768), generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+    image = torch.rand((2, FRAMES, 8 * LATENT, 8 * LATENT, 3), generator=gen,
+                       device=device).to(dtype)
+    src = torch.zeros((FRAMES, LATENT, LATENT), device=device)
+    src[:, 16:48, 20:44] = 1.0
+    masks = {k: m.to(dtype) for k, m in prepare_injection_masks(src, FRAMES).items()}
+    with torch.no_grad():
+        cond_emb = precompute_cond_embedding(cn, image)
+    schedule = DiffusionSchedule()
+    all_ts = schedule.inference_timesteps(50)
+    spec = InjectionSpec.from_start_layer(10, mask_mode="auto", auto_token_idx=(1,))
+
+    def run(ts):
+        return denoise_segment(unet, config, cn, cn_config, schedule, 50, spec, 7.5, 1.0, lat,
+                               ts, cond, uncond, cond_emb, masks)
+
+    run(all_ts[4:5])  # warm-up step
+    torch.cuda.synchronize()
+    steps = all_ts[4:7]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run(steps)
+    torch.cuda.synchronize()
+    ms_per_step = (time.perf_counter() - t0) * 1e3 / len(steps)
+    launches = dict(_build.launch_counts)
+    log(f"[auto] {len(steps)} steps, {ms_per_step:.1f} ms/step, launches {launches}")
+    if out.shape != lat.shape or not torch.isfinite(out).all():
+        raise AssertionError("auto segment output is not finite")
+    expect_counts("auto", launches, EXPECTED_PER_AUTO_STEP, len(steps))
+    return launches, ms_per_step
+
+
+def phase_split_check(device):
+    """Tiny fp32 checks of K8 and K9 at their call sites, kernel path
+    against plain path: an auto segment, and the mask injection at a head
+    dim the packed kernels decline."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import (
+        InjectionSpec,
+        injected_spatial_attention,
+    )
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.ops.attention import Attention
+    from motioneditor_tpu_torch.ops.video_flash import video_flash_supported
+    from motioneditor_tpu_torch.pipelines.editor import denoise_segment
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    config, cn_config, unet, cn, gen = build_tiny_models(device, SEED + 14)
+    f, hw = 3, 32
+    lat = 0.3 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
+    cond, uncond = (0.3 * torch.randn((2, 7, 16), generator=gen, device=device)
+                    for _ in range(2))
+    image = torch.rand((2, f, 8 * hw, 8 * hw, 3), generator=gen, device=device)
+    masks = {(s, s): (torch.rand((f, s * s, 1), generator=gen, device=device) > 0.5).float()
+             for s in (32, 16, 8, 4)}
+    with torch.no_grad():
+        cond_emb = precompute_cond_embedding(cn, image)
+    schedule = DiffusionSchedule()
+    spec = InjectionSpec.from_start_layer(10, mask_mode="auto", auto_token_idx=(1, 2),
+                                          auto_thres=0.3)
+    outs = {}
+    for use_flash in (True, False):
+        _build.reset_launch_counts()
+        outs[use_flash] = denoise_segment(
+            unet, config, cn, cn_config, schedule, 50, spec, 7.5, 1.0, lat,
+            schedule.inference_timesteps(50)[4:6], cond, uncond, cond_emb, masks,
+            use_flash=use_flash)
+        torch.cuda.synchronize()
+        if use_flash and not _build.launch_counts["flash_attention"]:
+            raise AssertionError(f"the auto segment skipped K8: {_build.launch_counts}")
+    err = (outs[True] - outs[False]).abs().max().item()
+    log(f"[split-check] 2-step fp32 auto segment, kernel vs plain path: max_abs_err={err:.3e}")
+    if not torch.isfinite(outs[True]).all() or err > 2e-3:
+        raise AssertionError(f"auto kernel path disagrees with the plain path: {err}")
+
+    c, heads, n = 36, 4, 1024  # d = 9
+    if video_flash_supported(c, heads):
+        raise AssertionError("the packed kernels were meant to decline d = 9")
+    with torch.device(device):
+        attn = Attention(c, heads=heads)
+    with torch.no_grad():
+        for prm in attn.parameters():
+            prm.uniform_(-c ** -0.5, c ** -0.5, generator=gen)
+        x = 0.5 * torch.randn((4, f, n, c), generator=gen, device=device)
+        mask = (torch.rand((f, n, 1), generator=gen, device=device) > 0.5).float()
+        _build.reset_launch_counts()
+        got = injected_spatial_attention(attn, x, heads, mask)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        want = injected_spatial_attention(attn, x, heads, mask, use_flash=False)
+    err = (got - want).abs().max().item()
+    log(f"[split-check] split-head mask injection, C={c} heads={heads} N={n}: launches "
+        f"{launches}, kernel vs plain path max_abs_err={err:.3e}")
+    expect_counts("split_head", launches, {"flash_attention": 1,
+                                           "fused_injection_attention": 1}, 1)
+    if err > 2e-5:
+        raise AssertionError(f"split-head kernels disagree with the plain path: {err}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -642,17 +1032,28 @@ def main() -> int:
     phase_null_check(device)
     paths, null_metrics = phase_null_text(device)
     paths["denoise"] = launches
+    unet, cn, pipe_paths, pipe_metrics = phase_pipeline(device)
+    paths.update(pipe_paths)
+    paths["auto"], auto_ms = phase_auto(device, unet, cn)
+    del unet, cn
+    torch.cuda.empty_cache()
+    paths["split_head"] = phase_split_check(device)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = results[name]
+        launched = sum(p.get(name, 0) for p in paths.values())
+        if not launched:
+            raise AssertionError(f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(p.get(name, 0) for p in paths.values()),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "at": r["at"],
+            "launches": launched, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"), "at": r["at"],
+            "library_at": r.get("library_at"), "flops": r["flops"], "bytes": r["bytes"],
         })
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
+                      "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
                       "launches_by_path": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

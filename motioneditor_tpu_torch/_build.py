@@ -149,12 +149,20 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, causal, dtype, stream
     ]
     lib.me_temporal_attention_bwd.restype = i32
+    lib.me_split_attention.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, k2, v2, mask, out
+        ctypes.POINTER(ctypes.c_longlong),  # 18 strides: (G, H, N) of q, k, v, k2, v2, out
+        i32, i32, i32, i32, i32, i32, i32,  # G, H, Nq, Nk, Nt, F, d
+        f32, i32, i32, ptr,                 # scale, mode, dtype, stream
+    ]
+    lib.me_split_attention.restype = i32
     return lib
 
 
-def check_operands(name: str, tensors, dtype=None) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor of one supported
-    dtype on one device (``dtype`` forces a specific dtype)."""
+def check_operands(name: str, tensors, dtype=None, contiguous: bool = True) -> None:
+    """Raise unless every tensor is a CUDA tensor of one supported dtype on
+    one device (``dtype`` forces a specific dtype), contiguous unless
+    ``contiguous`` is False."""
     want = dtype or tensors[0].dtype
     if want not in DTYPE_CODES:
         raise TypeError(f"{name}: unsupported dtype {want}")
@@ -164,7 +172,7 @@ def check_operands(name: str, tensors, dtype=None) -> None:
             raise ValueError(f"{name}: all operands must be on {dev}, got {t.device}")
         if t.dtype != want:
             raise TypeError(f"{name}: expected {want}, got {t.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
 
 

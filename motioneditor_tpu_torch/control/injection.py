@@ -1,5 +1,5 @@
 """Attention injection as static dispatch (port of
-motioneditor_tpu/control/injection.py, mask and mutual modes).
+motioneditor_tpu/control/injection.py: the mask, mutual and auto modes).
 
 Branch-axis convention (size-4 leading axis): [recon_u, edit_u, recon_c,
 edit_c]. Source rows are (0, 2), target (edit) rows (1, 3), and the temporal
@@ -37,8 +37,10 @@ TGT_TO_SRC = (0, 0, 2, 2)  # temporal K/V source row per branch row
 class InjectionSpec:
     """Static injection configuration for one timestep segment; the same
     fields and defaults as the JAX ``InjectionSpec``. ``mask_mode`` "mask"
-    is the fg/bg K/V decomposition, "mutual" reads source K/V wholesale;
-    "auto" is not ported yet."""
+    is the fg/bg K/V decomposition, "mutual" reads source K/V wholesale,
+    "auto" recomposes fg and bg attention with a mask derived from the
+    current step's 16x16 cross-attention maps (``auto_token_idx`` picks the
+    anchor tokens, ``auto_thres`` binarizes)."""
 
     active: bool = False
     spatial_layers: Tuple[bool, ...] = (False,) * NUM_TRANSFORMER_BLOCKS
@@ -50,6 +52,10 @@ class InjectionSpec:
     @property
     def mask_fgbg(self) -> bool:
         return self.mask_mode == "mask"
+
+    @property
+    def collect_cross_maps(self) -> bool:
+        return self.mask_mode == "auto"
 
     @staticmethod
     def from_start_layer(
@@ -126,6 +132,7 @@ def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
     Target rows: Q unchanged; K = [K_src*m, K_src*(1-m), K_tgt_cur],
     V = [V_src, V_src, V_tgt_cur]. Without a mask (or mask_fgbg=False) the
     target rows read the source rows' [prev, cur] K/V wholesale."""
+    from motioneditor_tpu_torch.ops.injection_flash import fused_injection_attention
     from motioneditor_tpu_torch.ops.video_flash import (
         video_flash_attention,
         video_flash_supported,
@@ -157,21 +164,26 @@ def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
         out = torch.stack([out_src[0], out_tgt[0], out_src[1], out_tgt[1]], dim=0)
         return linear(p.to_out[0], out)
 
-    k_mf = select_kv(k, MOTION_FRAME)  # [4, F, 2N, C]
-    v_mf = select_kv(v, MOTION_FRAME)
-    out_src = sdpa(split_heads(q[src], heads), split_heads(k_mf[src], heads),
-                   split_heads(v_mf[src], heads), scale)
-    if use_mask:
-        m = motion_frame_mask(mask_n).to(k.dtype)  # [F, 2N, 1]
-        k_src = k_mf[src]
-        v_src = v_mf[src]
-        k_inj = torch.cat([k_src * m, k_src * (1.0 - m), k[tgt]], dim=2)
-        v_inj = torch.cat([v_src, v_src, v[tgt]], dim=2)
+    # split-head branch, for head dims the packed kernels decline: K8 for
+    # the source rows (through sdpa) and K9 for the masked edit rows
+    k_mf = select_kv(k[src], MOTION_FRAME)  # [2, F, 2N, C]
+    v_mf = select_kv(v[src], MOTION_FRAME)
+    q_t = split_heads(q[tgt], heads)
+    out_src = sdpa(split_heads(q[src], heads), split_heads(k_mf, heads),
+                   split_heads(v_mf, heads), scale, use_flash=use_flash)
+    if not use_mask:
+        out_tgt = sdpa(q_t, split_heads(k_mf, heads), split_heads(v_mf, heads), scale,
+                       use_flash=use_flash)
+    elif use_flash and n >= _FLASH_MIN_Q:
+        out_tgt = fused_injection_attention(
+            q_t, split_heads(k_mf, heads), split_heads(v_mf, heads),
+            motion_frame_mask(mask_n)[..., 0], split_heads(k[tgt], heads),
+            split_heads(v[tgt], heads), scale)
     else:
-        k_inj = k_mf[src]
-        v_inj = v_mf[src]
-    out_tgt = sdpa(split_heads(q[tgt], heads), split_heads(k_inj, heads),
-                   split_heads(v_inj, heads), scale)
+        m = motion_frame_mask(mask_n).to(k.dtype)  # [F, 2N, 1]
+        k_inj = torch.cat([k_mf * m, k_mf * (1.0 - m), k[tgt]], dim=2)
+        v_inj = torch.cat([v_mf, v_mf, v[tgt]], dim=2)
+        out_tgt = sdpa(q_t, split_heads(k_inj, heads), split_heads(v_inj, heads), scale)
     out = torch.stack([out_src[0], out_tgt[0], out_src[1], out_tgt[1]], dim=0)
     return linear(p.to_out[0], merge_heads(out))
 
@@ -179,3 +191,62 @@ def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
 def injected_temporal_kv(x: torch.Tensor) -> torch.Tensor:
     """Every branch row reads the reconstruction row of its CFG half."""
     return x[list(TGT_TO_SRC)]
+
+
+def aggregate_cross_attn_mask(cross_maps, token_idx: Tuple[int, ...], res: int,
+                              thres: float) -> torch.Tensor:
+    """The auto mask from the collected 16x16 cross-attention maps, a list
+    of [4F, 256, L] mean-over-heads probabilities: averaged over the list,
+    summed over ``token_idx``, min-max normalized per map, the cond-edit rows
+    (3F:) nearest-resized to res x res and binarized at ``>= thres``.
+    Returns [F, res*res, 1]."""
+    agg = torch.stack(list(cross_maps), dim=1).mean(dim=1)  # [4F, 256, L]
+    img = agg[..., list(token_idx)].sum(-1)  # [4F, 256]
+    n16 = int(round(img.shape[-1] ** 0.5))
+    img = img.reshape(-1, n16, n16)
+    lo = img.amin(dim=(1, 2), keepdim=True)
+    hi = img.amax(dim=(1, 2), keepdim=True)
+    img = (img - lo) / torch.clamp(hi - lo, min=1e-8)
+    f = img.shape[0] // 4
+    tgt = nearest_resize(img[3 * f:, :, :, None], (res, res))[..., 0]
+    return (tgt >= thres).to(img.dtype).reshape(f, res * res, 1)
+
+
+def injected_spatial_attention_auto(p: Attention, x: torch.Tensor, heads: int,
+                                    source_mask_n: Optional[torch.Tensor], cross_maps,
+                                    token_idx: Tuple[int, ...], thres: float,
+                                    use_flash: bool = True) -> torch.Tensor:
+    """FullySelfAttentionControlMaskAuto forward. x: [4, F, N, C].
+
+    Source rows: motion-frame attention over their own [prev, cur] K/V.
+    Target rows attend only to the source rows' [prev, cur] K/V, twice: once
+    with K and V multiplied by the fg mask, once by the bg mask (masked keys
+    score 0 and keep their softmax weight), and the two outputs are
+    recomposed with the auto mask from ``cross_maps``. Without maps or
+    without a source mask the target rows read the source K/V wholesale."""
+    b, f, n, c = x.shape
+    if b != 4:
+        raise ValueError("injection requires the 4-row branch axis")
+    q = linear(p.to_q, x)
+    k = linear(p.to_k, x)
+    v = linear(p.to_v, x)
+    scale = (q.shape[-1] // heads) ** -0.5
+    k_mf = select_kv(k[list(SRC_ROWS)], MOTION_FRAME)  # [2, F, 2N, C]
+    v_mf = select_kv(v[list(SRC_ROWS)], MOTION_FRAME)
+    out_src = sdpa(split_heads(q[list(SRC_ROWS)], heads), split_heads(k_mf, heads),
+                   split_heads(v_mf, heads), scale, use_flash=use_flash)
+    q_t = split_heads(q[list(TGT_ROWS)], heads)
+    if not cross_maps or source_mask_n is None:
+        out_tgt = sdpa(q_t, split_heads(k_mf, heads), split_heads(v_mf, heads), scale,
+                       use_flash=use_flash)
+    else:
+        m = motion_frame_mask(source_mask_n).to(k.dtype)  # [F, 2N, 1]
+        out_fg = sdpa(q_t, split_heads(k_mf * m, heads), split_heads(v_mf * m, heads), scale,
+                      use_flash=use_flash)
+        out_bg = sdpa(q_t, split_heads(k_mf * (1 - m), heads),
+                      split_heads(v_mf * (1 - m), heads), scale, use_flash=use_flash)
+        sm = aggregate_cross_attn_mask(cross_maps, token_idx, int(round(n ** 0.5)), thres)
+        sm = sm.reshape(1, f, 1, n, 1).to(out_fg.dtype)  # over rows and heads
+        out_tgt = out_fg * sm + out_bg * (1 - sm)
+    out = torch.stack([out_src[0], out_tgt[0], out_src[1], out_tgt[1]], dim=0)
+    return linear(p.to_out[0], merge_heads(out))

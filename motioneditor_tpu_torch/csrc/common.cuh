@@ -1,9 +1,12 @@
-// Shared helpers for the attention kernels: 8-wide vector loads/stores that
-// convert between the storage dtype (fp32 or bf16) and fp32 registers.
+// Shared helpers for the attention kernels: 8-wide vector and scalar
+// loads/stores that convert between the storage dtype (fp32 or bf16) and
+// fp32 registers.
 //
-// Every operand is a contiguous [B, F, N, C] tensor whose head dim d is a
-// multiple of 8, so an 8-element chunk of one head never straddles a head
-// and starts on a 16-byte (bf16) or 32-byte (fp32) boundary.
+// The 8-wide forms need an 8-element chunk that starts on a 16-byte
+// boundary: true of every contiguous [B, F, N, C] operand whose head dim d
+// is a multiple of 8 (the packed-head kernels), and checked by the host for
+// the strided operands of split_attention.cu, which takes the scalar forms
+// otherwise.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +44,10 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
 }
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 

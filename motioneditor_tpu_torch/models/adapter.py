@@ -93,7 +93,8 @@ def _per_frame_cross_attention(p: Attention, q_tokens, kv_tokens, use_flash: boo
     scale = (inner // heads) ** -0.5
     if use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads):
         return linear(p.to_out[0], video_flash_attention(q, k, v, NORMAL, scale, heads))
-    out = sdpa(split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale)
+    out = sdpa(split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale,
+               use_flash=use_flash)
     return linear(p.to_out[0], merge_heads(out))
 
 

@@ -1,10 +1,10 @@
 """JAX parameter trees -> this package's state_dicts.
 
 Takes the nested parameter dicts of ``motioneditor_tpu`` (``init_unet``,
-``init_controlnet``, or any tree with the same structure) with numpy-
-convertible leaves, and returns flat ``{diffusers key: torch.Tensor}``
-dicts for ``load_state_dict``. Layout changes are the inverse of
-motioneditor_tpu/models/weights.py:
+``init_controlnet``, ``init_vae``, ``init_clip_text``, or any tree with the
+same structure) with numpy-convertible leaves, and returns flat
+``{checkpoint key: torch.Tensor}`` dicts for ``load_state_dict``. Layout
+changes are the inverse of motioneditor_tpu/models/weights.py:
 
   linear kernel [in, out]        -> weight [out, in]
   conv kernel HWIO               -> weight OIHW
@@ -146,6 +146,54 @@ def controlnet_state_dict(tree) -> Dict[str, torch.Tensor]:
     for i, zc in enumerate(tree["controlnet_down_blocks"]):
         _conv(sd, f"controlnet_down_blocks.{i}", zc)
     _conv(sd, "controlnet_mid_block", tree["controlnet_mid_block"])
+    return sd
+
+
+def _vae_attention(sd, key, p):
+    # a real SD-1.5 checkpoint keeps the legacy names (weights.py:261-280)
+    _norm(sd, f"{key}.group_norm", p["group_norm"])
+    for name, src in (("query", "to_q"), ("key", "to_k"), ("value", "to_v"),
+                      ("proj_attn", "to_out")):
+        _lin(sd, f"{key}.{name}", p[src])
+
+
+def vae_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """VAE tree (``init_vae``) -> state_dict; the inverse of ``port_vae``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for half, blocks in (("encoder", "down_blocks"), ("decoder", "up_blocks")):
+        t = tree[half]
+        _conv(sd, f"{half}.conv_in", t["conv_in"])
+        for i, block in enumerate(t[blocks]):
+            _block(sd, f"{half}.{blocks}.{i}", block)
+        for j, rp in enumerate(t["mid_block"]["resnets"]):
+            _resnet(sd, f"{half}.mid_block.resnets.{j}", rp)
+        _vae_attention(sd, f"{half}.mid_block.attentions.0", t["mid_block"]["attentions"][0])
+        _norm(sd, f"{half}.conv_norm_out", t["conv_norm_out"])
+        _conv(sd, f"{half}.conv_out", t["conv_out"])
+    _conv(sd, "quant_conv", tree["quant_conv"])
+    _conv(sd, "post_quant_conv", tree["post_quant_conv"])
+    return sd
+
+
+def clip_text_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """CLIP text tree (``init_clip_text``) -> state_dict (keys text_model.*);
+    the inverse of ``port_clip_text``."""
+    pre = "text_model"
+    n_pos = np.shape(tree["position_embedding"])[0]
+    sd: Dict[str, torch.Tensor] = {
+        f"{pre}.embeddings.token_embedding.weight": _t(tree["token_embedding"]),
+        f"{pre}.embeddings.position_embedding.weight": _t(tree["position_embedding"]),
+        f"{pre}.embeddings.position_ids": torch.arange(n_pos)[None],
+    }
+    for i, lp in enumerate(tree["layers"]):
+        key = f"{pre}.encoder.layers.{i}"
+        _norm(sd, f"{key}.layer_norm1", lp["layer_norm1"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin(sd, f"{key}.self_attn.{name}", lp[name])
+        _norm(sd, f"{key}.layer_norm2", lp["layer_norm2"])
+        _lin(sd, f"{key}.mlp.fc1", lp["fc1"])
+        _lin(sd, f"{key}.mlp.fc2", lp["fc2"])
+    _norm(sd, f"{pre}.final_layer_norm", tree["final_layer_norm"])
     return sd
 
 

@@ -33,10 +33,13 @@ def zero_init(m: nn.Module) -> nn.Module:
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init with the JAX package's rules (models/layers.py init_*):
     linear and conv weights and biases uniform in +-1/sqrt(fan_in); norms
-    ones / zeros; temporal convs and modules marked by ``zero_init`` zero.
+    ones / zeros; temporal convs and modules marked by ``zero_init`` zero;
+    embeddings normal with std ``init_std`` (0.02 unless the module sets it).
     Draws from ``generator``, which must live on the parameters' device."""
     for m in model.modules():
-        if isinstance(m, nn.Conv1d) or getattr(m, "zero_init", False):
+        if isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, getattr(m, "init_std", 0.02), generator=generator)
+        elif isinstance(m, nn.Conv1d) or getattr(m, "zero_init", False):
             for t in m.parameters(recurse=False):
                 t.zero_()
         elif isinstance(m, (nn.Linear, nn.Conv2d)):
@@ -115,6 +118,11 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's GELU approximation x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
@@ -166,6 +174,12 @@ class TimestepEmbedding(nn.Module):
 
 def timestep_embedding_mlp(p: TimestepEmbedding, t_emb: torch.Tensor) -> torch.Tensor:
     return linear(p.linear_2, silu(linear(p.linear_1, t_emb)))
+
+
+def downsample_conv2d_2x(p: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The VAE encoder's downsample: pad one row and column at the bottom and
+    right (the asymmetric (0, 1, 0, 1) pad), then a VALID stride-2 conv."""
+    return conv2d(p, F.pad(x, (0, 0, 0, 1, 0, 1)), stride=2, padding="VALID")
 
 
 def upsample_conv2d_2x(p: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

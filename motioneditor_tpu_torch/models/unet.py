@@ -20,6 +20,7 @@ from torch import nn
 from motioneditor_tpu_torch.control.injection import (
     InjectionSpec,
     injected_spatial_attention,
+    injected_spatial_attention_auto,
     injected_temporal_kv,
 )
 from motioneditor_tpu_torch.models.layers import (
@@ -253,6 +254,10 @@ class AttnContext:
     injection: Optional[InjectionSpec] = None
     injection_masks: Optional[Dict[Tuple[int, int], torch.Tensor]] = None
     use_flash: bool = True
+    # the 16x16 cross-attention maps of this forward, in forward order, for
+    # the auto-mask injection: later injected blocks read the maps that
+    # earlier blocks appended; None collects nothing
+    cross_maps: Optional[list] = None
 
 
 def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
@@ -264,18 +269,23 @@ def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
 
     h = layer_norm(p.norm1, tokens)
     if spatial_gate:
-        if inj.mask_mode not in ("mask", "mutual"):
-            raise NotImplementedError(f"injection mask_mode {inj.mask_mode!r}")
         mask_n = None if ctx.injection_masks is None else ctx.injection_masks.get(hw)
-        attn1_out = injected_spatial_attention(p.attn1, h, ctx.heads, mask_n, inj.mask_fgbg,
-                                               use_flash=ctx.use_flash)
+        if inj.mask_mode == "auto":
+            attn1_out = injected_spatial_attention_auto(
+                p.attn1, h, ctx.heads, mask_n, ctx.cross_maps or [], inj.auto_token_idx,
+                inj.auto_thres, use_flash=ctx.use_flash)
+        else:
+            attn1_out = injected_spatial_attention(p.attn1, h, ctx.heads, mask_n,
+                                                   inj.mask_fgbg, use_flash=ctx.use_flash)
     else:
         attn1_out = spatial_self_attention(p.attn1, h, attn1_mode, ctx.heads,
                                            use_flash=ctx.use_flash)
     # plain add + LN: what JAX runs, its fused add+LN kernel being off by default
     tokens = tokens + attn1_out
     h = layer_norm(p.norm2, tokens)
-    tokens = tokens + cross_attention(p.attn2, h, ctx.encoder_hidden_states, ctx.heads)
+    collect = ctx.cross_maps is not None and tokens.shape[2] == 256
+    tokens = tokens + cross_attention(p.attn2, h, ctx.encoder_hidden_states, ctx.heads,
+                                      collect_maps_into=ctx.cross_maps if collect else None)
     h = layer_norm(p.norm3, tokens)
     ff_out = feed_forward(p.ff, h)
     if hasattr(p, "attn_temp"):
@@ -340,9 +350,10 @@ def unet_apply(
     c = config
     b = sample.shape[0]
     temb = time_embedding(model, c, timesteps, b, sample.dtype)
+    collect = injection is not None and injection.active and injection.collect_cross_maps
     ctx = AttnContext(encoder_hidden_states=encoder_hidden_states, heads=c.attention_heads,
                       injection=injection, injection_masks=injection_masks,
-                      use_flash=use_flash)
+                      use_flash=use_flash, cross_maps=[] if collect else None)
 
     def mode_for(use_st: bool) -> str:
         return NORMAL if normal_infer else c.attn1_mode(use_st)

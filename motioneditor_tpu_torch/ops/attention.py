@@ -10,9 +10,10 @@ Video tokens are [B, F, N, C] (B = branch/batch, F = frames, N = H*W):
   temporal      attention over the frame axis, causal additive mask
 
 ``sdpa`` is the plain form: matmul scores in fp32, fp32 softmax, then P.V
-in the value dtype. The hand-written CUDA kernels (ops/video_flash.py,
-ops/temporal_flash.py) run at the same call sites as the JAX Pallas
-kernels, behind the same size gates.
+in the value dtype; with ``use_flash`` it routes long sequences to the
+split-head kernel (ops/flash_attention.py). The hand-written CUDA kernels
+(ops/video_flash.py, ops/temporal_flash.py, ops/flash_attention.py) run at
+the same call sites as the JAX Pallas kernels, behind the same size gates.
 """
 
 from __future__ import annotations
@@ -64,13 +65,27 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, n, h * d)
 
 
-def sdpa(q, k, v, scale: float, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Scaled dot-product attention over [..., H, N, D] with fp32 softmax."""
+def sdpa(q, k, v, scale: float, bias: Optional[torch.Tensor] = None,
+         use_flash: bool = False) -> torch.Tensor:
+    """Scaled dot-product attention over [..., H, N, D] with fp32 softmax.
+    ``use_flash`` routes to the split-head flash kernel
+    (ops/flash_attention.py) at ``q.shape[-2] >= _FLASH_MIN_Q`` without a
+    bias, as JAX's sdpa does; every call site that JAX routes passes it."""
+    if use_flash and bias is None and q.shape[-2] >= _FLASH_MIN_Q:
+        from motioneditor_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, scale)
+    probs = attention_probs(q, k, scale, bias).to(v.dtype)
+    return torch.matmul(probs, v)
+
+
+def attention_probs(q, k, scale: float, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fp32 softmax probabilities over [..., H, Nq, Nk] (the explicit form the
+    16x16 cross-attention map collection needs)."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias.float()
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.matmul(probs, v)
+    return torch.softmax(scores, dim=-1)
 
 
 def former_frame_index(f: int) -> torch.Tensor:
@@ -116,14 +131,17 @@ def spatial_self_attention(p: Attention, x: torch.Tensor, mode: str, heads: int,
         out = video_flash_attention(q, k, v, mode, scale, heads)
         return linear(p.to_out[0], out)
     out = sdpa(split_heads(q, heads), split_heads(select_kv(k, mode), heads),
-               split_heads(select_kv(v, mode), heads), scale)
+               split_heads(select_kv(v, mode), heads), scale, use_flash=use_flash)
     return linear(p.to_out[0], merge_heads(out))
 
 
 def cross_attention(p: Attention, x: torch.Tensor, encoder_states: torch.Tensor,
-                    heads: int) -> torch.Tensor:
+                    heads: int, collect_maps_into: Optional[list] = None) -> torch.Tensor:
     """Text cross-attention. x: [B, F, N, C]; encoder_states: [B, L, D_text]
-    (the same text for every frame)."""
+    (the same text for every frame). ``collect_maps_into``: when given,
+    appends the mean-over-heads probabilities [(B F), N, L], the maps the
+    auto-mask injection reads."""
+    b, f, n, _ = x.shape
     q = linear(p.to_q, x)
     k = linear(p.to_k, encoder_states)
     v = linear(p.to_v, encoder_states)
@@ -131,7 +149,12 @@ def cross_attention(p: Attention, x: torch.Tensor, encoder_states: torch.Tensor,
     qh = split_heads(q, heads)  # [B, F, H, N, D]
     kh = split_heads(k, heads)[:, None]  # [B, 1, H, L, D], broadcast over frames
     vh = split_heads(v, heads)[:, None]
-    return linear(p.to_out[0], merge_heads(sdpa(qh, kh, vh, scale)))
+    if collect_maps_into is None:
+        return linear(p.to_out[0], merge_heads(sdpa(qh, kh, vh, scale)))
+    probs = attention_probs(qh, kh, scale)  # [B, F, H, N, L]
+    collect_maps_into.append(probs.mean(dim=2).reshape(b * f, n, probs.shape[-1]))
+    out = torch.matmul(probs.to(vh.dtype), vh)
+    return linear(p.to_out[0], merge_heads(out))
 
 
 def causal_temporal_bias(f: int, device=None) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""DDIM inversion, null-text optimization and the two-branch injected
-denoise loop (port of motioneditor_tpu/pipelines/editor.py:
-_jit_ddim_invert, _jit_null_optimization, _jit_denoise_segment, and the
-chaining of MotionEditorPipeline.null_text_inversion).
+"""The MotionEditor pipeline: DDIM inversion, null-text optimization and
+the two-branch injected denoise loop (port of
+motioneditor_tpu/pipelines/editor.py: _jit_ddim_invert,
+_jit_null_optimization, _jit_denoise_segment and MotionEditorPipeline).
 
 Inversion runs the video UNet on the clip's latents, stepping the DDIM
 schedule backwards. Null-text optimization then fits one uncond text
@@ -13,19 +13,43 @@ run here). The edit's denoise step batches the latents and text as 4 rows
 only; zeroes its mid residual on the recon rows; runs the video UNet with
 the adapter, fg/bg attention injection and temporal K/V injection; applies
 CFG and the DDIM step. The JAX ``lax.scan``/``while_loop`` loops are Python
-loops here. Prompt-to-prompt, local blend and sharding are not ported yet.
+loops here. ``MotionEditorPipeline`` chains these phases from prompts and
+frames to frames, with the VAE and the CLIP text encoder. Prompt-to-prompt
+and local blend are not ported yet, and the port runs on one device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from motioneditor_tpu_torch.control.injection import InjectionSpec
-from motioneditor_tpu_torch.models.controlnet import ControlNetModel, controlnet_apply
+from motioneditor_tpu_torch.control.injection import (
+    InjectionSpec,
+    prepare_injection_masks,
+    segment_step_ranges,
+)
+from motioneditor_tpu_torch.models.clip_text import (
+    CLIPTextConfig,
+    CLIPTextModel,
+    clip_text_apply,
+    tokenize,
+)
+from motioneditor_tpu_torch.models.controlnet import (
+    ControlNetModel,
+    controlnet_apply,
+    controlnet_config,
+    precompute_cond_embedding,
+)
 from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig, unet_apply
+from motioneditor_tpu_torch.models.vae import (
+    AutoencoderKL,
+    VAEConfig,
+    vae_decode_video,
+    vae_encode_video,
+)
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule, ddim_inverse_step, ddim_step
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -237,3 +261,142 @@ def denoise_segment(
         eps_g = eps_u + guidance_scale * (eps_c - eps_u)
         lat = ddim_step(schedule, eps_g, t, lat, num_steps)
     return lat
+
+
+@dataclasses.dataclass
+class MotionEditorPipeline:
+    """The models, their configs and the tokenizer. The UNet's parameter
+    dtype is the compute dtype of every phase (null-text keeps its embedding,
+    Adam state and DDIM math in fp32); text embeddings are cast to it."""
+
+    unet: UNet3DConditionModel
+    vae: AutoencoderKL
+    text_encoder: CLIPTextModel
+    controlnet: ControlNetModel
+    tokenizer: object
+    unet_config: UNetConfig = UNetConfig()
+    controlnet_config: Optional[UNetConfig] = None
+    vae_config: VAEConfig = VAEConfig()
+    text_config: CLIPTextConfig = CLIPTextConfig()
+    schedule: DiffusionSchedule = DiffusionSchedule()
+    use_flash: bool = True
+
+    def __post_init__(self):
+        if self.controlnet_config is None:
+            self.controlnet_config = controlnet_config(self.unet_config)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(self.unet.parameters()).dtype
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.unet.parameters()).device
+
+    # -- encoders -------------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_prompt(self, prompts: Sequence[str]) -> torch.Tensor:
+        """[len(prompts), 77, 768] text embeddings in the UNet's dtype."""
+        ids = tokenize(self.tokenizer, prompts, self.text_config.max_position_embeddings)
+        emb = clip_text_apply(self.text_encoder, ids.to(self.device), self.text_config)
+        return emb.to(self.dtype)
+
+    @torch.no_grad()
+    def encode_video(self, video: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, F, H, W, 3] in [-1, 1] -> latents [B, F, h, w, 4] (x0.18215),
+        sampled from ``generator`` (the mean without one)."""
+        return vae_encode_video(self.vae, video, generator=generator, config=self.vae_config)
+
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """latents [B, F, h, w, 4] -> video [B, F, H, W, 3] in [0, 1]."""
+        img = vae_decode_video(self.vae, latents, config=self.vae_config)
+        return torch.clamp(img / 2 + 0.5, 0.0, 1.0)
+
+    # -- inversion ------------------------------------------------------------
+
+    def ddim_invert(self, latents: torch.Tensor, prompt: str = "", num_inv_steps: int = 50,
+                    normal_infer: bool = True) -> torch.Tensor:
+        """Plain DDIM inversion under ``prompt``; ``normal_infer`` turns the
+        video attention variants off. Returns x_T."""
+        final, _ = ddim_invert(
+            self.unet, self.unet_config, self.schedule, latents, self.encode_prompt([prompt]),
+            num_inv_steps, normal_infer=normal_infer, use_flash=self.use_flash)
+        return final
+
+    def null_text_inversion(self, latents: torch.Tensor, prompt: str, num_steps: int = 50,
+                            null_inner_steps: int = 1, null_base_lr: float = 1e-2,
+                            guidance_scale: float = 7.5, null_normal_infer: bool = False,
+                            early_stop_epsilon: float = 1e-5):
+        """Returns (x_T, uncond embeddings [num_steps, 1, 77, 768] in fp32)."""
+        compute = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[self.dtype]
+        return null_text_inversion(
+            self.unet, self.unet_config, self.schedule, latents, self.encode_prompt([prompt]),
+            self.encode_prompt([""]), num_steps=num_steps, inner_steps=null_inner_steps,
+            base_lr=null_base_lr, guidance_scale=guidance_scale,
+            null_normal_infer=null_normal_infer, early_stop_epsilon=early_stop_epsilon,
+            compute_dtype=compute, use_flash=self.use_flash)
+
+    # -- two-branch edit --------------------------------------------------------
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        prompts: Sequence[str],
+        latents: torch.Tensor,
+        target_skeleton: torch.Tensor,
+        source_masks: Optional[torch.Tensor] = None,
+        uncond_embeddings: Optional[torch.Tensor] = None,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        controlnet_conditioning_scale: float = 1.0,
+        start_step: int = 4,
+        start_layer: int = 10,
+        p2p_controller=None,
+        local_blend=None,
+        decode: bool = True,
+    ) -> torch.Tensor:
+        """The two-branch edit. prompts: [source prompt, target prompt];
+        latents: [2, F, h, w, 4], the inverted seed for both branches;
+        target_skeleton: [F, H, W, 3] in [0, 1], the ControlNet's
+        conditioning; source_masks: [F, H, W] protagonist masks for the fg/bg
+        injection (None: target rows read the source K/V wholesale);
+        uncond_embeddings: optional per-step null-text embeddings
+        [num_inference_steps, 1, 77, 768]. Steps [0, start_step) run vanilla,
+        the rest inject from transformer block ``start_layer`` on. Returns
+        [2, F, H, W, 3] in [0, 1] ([reconstruction, edit]), or the latents
+        when ``decode`` is False."""
+        if p2p_controller is not None or local_blend is not None:
+            raise NotImplementedError(
+                "prompt-to-prompt control and LocalBlend come with the p2p slice of the port")
+        if len(prompts) != 2 or latents.shape[0] != 2:
+            raise ValueError("the edit takes [source, target] prompts and 2 latent rows")
+        if uncond_embeddings is not None and len(uncond_embeddings) < num_inference_steps:
+            raise ValueError(f"{len(uncond_embeddings)} uncond embeddings for "
+                             f"{num_inference_steps} steps")
+        f = latents.shape[1]
+        cond = self.encode_prompt(list(prompts))  # [2, 77, 768]
+        uncond = None
+        if uncond_embeddings is None:
+            uncond = self.encode_prompt([""]).expand(cond.shape)
+        masks = None
+        if source_masks is not None:
+            h, w = latents.shape[2:4]
+            masks = prepare_injection_masks(
+                source_masks, f, tuple((h >> i, w >> i) for i in range(4)))
+        ts = self.schedule.inference_timesteps(num_inference_steps)
+        spec = InjectionSpec.from_start_layer(start_layer)
+        # both CFG rows see the target skeleton; its embedding is step-invariant
+        cond_image = target_skeleton.to(self.dtype)[None].expand(2, *target_skeleton.shape)
+        cond_embedding = precompute_cond_embedding(self.controlnet, cond_image)
+        lat = latents
+        for lo, hi, injected in segment_step_ranges(num_inference_steps, start_step=start_step):
+            lat = denoise_segment(
+                self.unet, self.unet_config, self.controlnet, self.controlnet_config,
+                self.schedule, num_inference_steps, spec if injected else None, guidance_scale,
+                controlnet_conditioning_scale, lat, ts[lo:hi], cond, uncond, cond_embedding,
+                masks, use_flash=self.use_flash,
+                seg_uncond=None if uncond_embeddings is None else uncond_embeddings[lo:hi])
+        return self.decode_latents(lat) if decode else lat

@@ -1,7 +1,9 @@
 """Import hygiene of the port: every module of motioneditor_tpu_torch
-imports with JAX and Triton blocked, leaves neither in sys.modules and
-builds no kernel. Runs in a subprocess because tests/conftest.py imports
-JAX into this one."""
+imports with JAX, Triton and the JAX package (motioneditor_tpu) blocked,
+leaves none of them in sys.modules and builds no kernel; nor does importing
+a module pull in yaml, PIL, imageio or transformers, which the GPU host
+lacks. Runs in a subprocess because tests/conftest.py imports JAX into this
+one."""
 
 import os
 import subprocess
@@ -12,9 +14,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROBE = r"""
 import importlib, pkgutil, sys
 
+BLOCKED = ("jax", "jaxlib", "triton", "motioneditor_tpu")
+LAZY = ("yaml", "PIL", "imageio", "transformers")
+
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "triton"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -25,7 +30,7 @@ for name in names:
     importlib.import_module(name)
 from motioneditor_tpu_torch import _build
 assert _build.kernels.cache_info().currsize == 0, "a kernel was built at import"
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + LAZY)
 assert not bad, bad
 print(" ".join(names))
 """
@@ -37,7 +42,8 @@ def test_port_imports_without_jax_or_triton():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 17  # every module of the port was imported
-    assert {"motioneditor_tpu_torch.ops.video_flash_bwd",
-            "motioneditor_tpu_torch.ops.temporal_flash",
-            "motioneditor_tpu_torch.pipelines.editor"} <= names
+    assert len(names) >= 27  # every module of the port was imported
+    assert {f"motioneditor_tpu_torch.{m}" for m in (
+        "ops.video_flash_bwd", "ops.temporal_flash", "pipelines.editor", "models.vae",
+        "models.clip_text", "ops.flash_attention", "ops.injection_flash", "configs",
+        "inference", "data.dataset", "utils.video")} <= names

@@ -7,7 +7,9 @@ a fixture, never at import). Run on a GPU host with
 
 Shapes cover ragged token counts (not multiples of the 64-query / 32-key
 tiles), every supported head-dim bucket and F up to 24 (32 for the temporal
-backward). Forward outputs: fp32 runs with TF32 off, atol 2e-5; bf16 atol
+backward); the split-head kernels (K8, K9) also take strided head-split
+views, K/V broadcast over frames, and head dims up to 256, d = 9 among
+them (element loads in place of 16-byte vectors). Forward outputs: fp32 runs with TF32 off, atol 2e-5; bf16 atol
 3e-2 plus rtol 1.6e-2 (torch's bf16 default: one bf16 ulp of an output of
 magnitude 4 is already 0.031), on inputs whose logits stay far below the
 JAX bf16 kernels' clamp of 60. Gradients: fp32 rtol 1e-4, atol 1e-3; bf16
@@ -19,6 +21,12 @@ import pytest
 import torch
 
 from motioneditor_tpu_torch import _build
+from motioneditor_tpu_torch.ops.attention import split_heads
+from motioneditor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from motioneditor_tpu_torch.ops.injection_flash import (
+    fused_injection_attention,
+    fused_injection_attention_plain,
+)
 from motioneditor_tpu_torch.ops.temporal_flash import (
     temporal_flash_attention,
     temporal_flash_attention_bwd,
@@ -109,6 +117,58 @@ def test_temporal_flash_kernel(device, dtype, causal, b, f, n, c, heads):
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,kv_lead,h,nq,nk,d", [
+    ((2, 3), (2, 3), 8, 1024, 2048, 40),   # the auto path at 32x32, fewer frames
+    ((2, 2), (2, 2), 8, 333, 666, 80),     # ragged n
+    ((2,), (2,), 4, 200, 77, 9),           # d = 9: element loads
+    ((1, 2), (1, 1), 2, 130, 300, 160),    # K/V broadcast over frames
+    ((1,), (1,), 2, 100, 150, 256),        # the largest head dim
+])
+def test_flash_attention_kernel(device, dtype, lead, kv_lead, h, nq, nk, d):
+    gen = torch.Generator(device=device).manual_seed(7)
+    q = _rand((*lead, h, nq, d), dtype, device, gen)
+    k, v = (_rand((*kv_lead, h, nk, d), dtype, device, gen) for _ in range(2))
+    before = _build.launch_counts["flash_attention"]
+    out = flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention"] == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    ref = flash_attention_plain(q, k, v, d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,n,c,heads", [(2, 3, 1024, 320, 8), (2, 2, 333, 36, 4),
+                                           (1, 3, 200, 640, 8)])
+def test_flash_attention_kernel_on_split_views(device, dtype, b, f, n, c, heads):
+    """The head-split views of packed [B, F, N, C] tensors, read in place."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    q, k, v = (split_heads(_rand((b, f, n, c), dtype, device, gen), heads) for _ in range(3))
+    scale = (c // heads) ** -0.5
+    out = flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v, scale).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,h,nq,d", [(2, 4, 8, 1024, 40), (2, 3, 4, 333, 9),
+                                        (1, 2, 8, 200, 80), (1, 2, 2, 100, 200)])
+def test_fused_injection_kernel(device, dtype, b, f, h, nq, d):
+    gen = torch.Generator(device=device).manual_seed(9)
+    q = _rand((b, f, h, nq, d), dtype, device, gen)
+    ks, vs = (_rand((b, f, h, 2 * nq, d), dtype, device, gen) for _ in range(2))
+    kt, vt = (_rand((b, f, h, nq, d), dtype, device, gen) for _ in range(2))
+    mask = (torch.rand((f, 2 * nq), generator=gen, device=device) > 0.5).float()
+    before = _build.launch_counts["fused_injection_attention"]
+    out = fused_injection_attention(q, ks, vs, mask, kt, vt, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_injection_attention"] == before + 1
+    ref = fused_injection_attention_plain(q, ks, vs, mask, kt, vt, d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
 def test_wrapper_rejects_bad_operands(device):
     q = torch.zeros((1, 2, 64, 32), device=device)
     with pytest.raises(ValueError):
@@ -116,6 +176,11 @@ def test_wrapper_rejects_bad_operands(device):
                               "normal", 0.35, 4)
     with pytest.raises(TypeError):
         temporal_flash_attention(q.half(), q.half(), q.half(), 0.35, 4)
+    x = torch.zeros((1, 2, 64, 300), device=device)
+    with pytest.raises(ValueError):
+        flash_attention(x, x, x)  # head dim 300 > 256
+    with pytest.raises(ValueError):
+        fused_injection_attention(x, x, x, torch.zeros((2, 63), device=device), x, x, 0.1)
 
 
 def assert_grads_close(got, ref, dtype):
@@ -131,6 +196,20 @@ def assert_grads_close(got, ref, dtype):
 
 def _grad_case(row, dtype, device, gen):
     """(wrapper fn, plain fn, inputs, the kernels its grad path launches)."""
+    if row == "flash":
+        xs = [_rand((2, 3, 4, 200, 40), dtype, device, gen) for _ in range(3)]
+        return (lambda *t: flash_attention(*t, 40 ** -0.5),
+                lambda *t: flash_attention_plain(*t, 40 ** -0.5), xs, ("flash_attention",))
+    if row == "fused_injection":
+        xs = [_rand((2, 3, 4, n, 16), dtype, device, gen)
+              for n in (100, 200, 200, 100, 100)]
+        mask = (torch.rand((3, 200), generator=gen, device=device) > 0.5).float()
+
+        def with_mask(fn):
+            return lambda q, ks, vs, kt, vt: fn(q, ks, vs, mask, kt, vt, 0.25)
+
+        return (with_mask(fused_injection_attention), with_mask(fused_injection_attention_plain),
+                xs, ("fused_injection_attention",))
     if row == "temporal":
         b, f, n, c, heads = 2, 8, 200, 320, 8
         xs = [_rand((b, f, n, c), dtype, device, gen) for _ in range(3)]
@@ -154,12 +233,12 @@ def _grad_case(row, dtype, device, gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("row", MODES + ["injection", "temporal"])
+@pytest.mark.parametrize("row", MODES + ["injection", "temporal", "flash", "fused_injection"])
 def test_wrapper_gradients_match_plain(device, dtype, row):
     """Gradients flow through every kernel wrapper on a CUDA tensor: those of
     sum(out**2) with respect to every input match the plain version's, and
     the grad path launches its kernels (K4-K7, or the kernel forward with
-    the plain VJP for dense and injection)."""
+    the plain VJP for dense, injection, K8 and K9)."""
     gen = torch.Generator(device=device).manual_seed(5)
     fn, plain, xs, kernels = _grad_case(row, dtype, device, gen)
     xs = [x.requires_grad_() for x in xs]
