@@ -49,6 +49,24 @@ Phases, each raising on failure:
               segment (K8 at its real call site) and the split-head branch
               of the mask injection at a head dim the packed kernels
               decline (d = 9), where K8 and K9 launch
+  3c. norm    (run after phase 3b) the GroupNorm pair statistics (K10) at
+              [1, 32768, 320] (x, x) and (dy, x), [8, 4096, 320] and
+              [1, 512, 2560], and the fused add + LayerNorm (K11) at
+              [1, 8, 4096, 320] and [1, 8, 1024, 640], against their plain
+              versions in bf16 and fp32, with times; the GroupNorm Function's
+              dx, dscale and dbias against autograd of the plain group_norm;
+              F.group_norm and add + F.layer_norm timed as yardsticks
+  9. train check  a tiny fp32 stage-1 step and stage-2 step with
+              MOTIONEDITOR_FUSED_GN / _LN on and the kernels (K1, K3-K7, K10
+              forward and backward, K11), against the plain path with both
+              off: loss, the trainables' gradients, the parameters after one
+              AdamW step
+  10. train   stage 1 then stage 2 at full SD-1.5 width, random init from
+              the seed, bf16 frozen weights with fp32 masters, 512 px, 8
+              frames, batch 1, gradient checkpointing: a warm-up step and 3
+              steps each with both knobs on, asserting finite losses, that
+              only the trainables moved and the per-step launch counts; then
+              the same steps with both knobs off; ms per step and peak memory
 Then one JSON line of per-kernel results, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -56,7 +74,9 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -106,6 +126,32 @@ PIPE_STEPS, PIPE_START = 5, 3  # phase 7: 3 vanilla steps, then 2 injected
 # run K1 on all four rows instead of K1 on the source rows and K2 on the edit rows
 EXPECTED_PER_VANILLA_STEP = {"video_flash_attention": 26, "temporal_flash_attention": 16}
 AUTO_SHAPES = ((4096, 40), (1024, 80))  # (N, d) of the auto path's K8 / K9 calls
+# K10 [B, S, C] at 512 px and 8 frames: a pooled level-0 resnet GroupNorm, the
+# per-frame transformer one, the widest up-block input; K11 [B, F, N, C] at the
+# two gated levels
+PAIR_STATS_SHAPES = ((1, 32768, 320), (8, 4096, 320), (1, 512, 2560))
+ADD_LN_SHAPES = ((1, 8, 4096, 320), (1, 8, 1024, 640))
+TRAIN_STEPS = 3
+# per training step, gradient checkpointing on, both knobs on (derived in
+# PERF.md): stage 1 trains attn1.to_q / attn2.to_q / attn_temp of every block,
+# so the 10 gated attn1 sites take K4 (again in the recompute) and K5 / K6,
+# the 10 gated attn_temp sites K3 (twice) and K7; K10 61 forward + 58
+# recomputed + 58 backward; K11 30 forward + 30 recomputed
+EXPECTED_PER_STAGE1_STEP = {
+    "video_flash_fwd_res": 20, "video_flash_bwd_dq": 10, "video_flash_bwd_dkv": 10,
+    "temporal_flash_attention": 20, "temporal_flash_attention_bwd": 10,
+    "channel_pair_stats": 177, "add_layer_norm": 60,
+}
+# stage 2: the ControlNet (no grad) K1 4, K10 27, K11 8; the UNet's down path
+# (no grad) K1 4, K3 4; the adapter (blocks 0-5 gated) K4 12, K3 6; the up
+# path K4 6 + 6 recomputed, K3 6 + 6; backward K5 / K6 12 + 6, K7 6 + 6; K10
+# 61 forward + 33 recomputed + 34 backward; K11 30 forward + 18 recomputed
+EXPECTED_PER_STAGE2_STEP = {
+    "video_flash_attention": 8, "video_flash_fwd_res": 24, "video_flash_bwd_dq": 18,
+    "video_flash_bwd_dkv": 18, "temporal_flash_attention": 22,
+    "temporal_flash_attention_bwd": 12, "channel_pair_stats": 155, "add_layer_norm": 56,
+}
+NORM_KERNELS = ("channel_pair_stats", "add_layer_norm")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense (no tensor cores in fp32)
 PEAK_BYTES = 3.35e12
 KERNEL_INFO = {
@@ -127,6 +173,10 @@ KERNEL_INFO = {
                         "motioneditor_tpu/ops/flash_attention.py:222"),
     "fused_injection_attention": ("motioneditor_tpu_torch/csrc/split_attention.cu",
                                   "motioneditor_tpu/ops/injection_flash.py:268"),
+    "channel_pair_stats": ("motioneditor_tpu_torch/csrc/norm_stats.cu",
+                           "motioneditor_tpu/ops/gn_stats.py:78"),
+    "add_layer_norm": ("motioneditor_tpu_torch/csrc/add_layer_norm.cu",
+                       "motioneditor_tpu/ops/fused_norm.py:73"),
 }
 SPLIT_KERNELS = ("flash_attention", "fused_injection_attention")
 FORWARD_KERNELS = ("video_flash_attention", "video_injection_attention",
@@ -997,6 +1047,304 @@ def phase_split_check(device):
     return launches
 
 
+@contextlib.contextmanager
+def norm_knobs(on: bool):
+    """MOTIONEDITOR_FUSED_GN and MOTIONEDITOR_FUSED_LN set to ``on`` inside."""
+    keys = ("MOTIONEDITOR_FUSED_GN", "MOTIONEDITOR_FUSED_LN")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: "1" if on else "0" for k in keys})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def sum_tolerance(terms, got, ref, what: str) -> float:
+    """fp32 sums in two orders: |got - ref| <= 1e-4 x the sum of the terms'
+    magnitudes per channel (the summation error bound of either order at
+    these lengths is a few 1e-5 of it). Returns the max abs error."""
+    err = (got - ref).abs()
+    if (err > 1e-4 * terms).any():
+        raise AssertionError(f"{what}: off by {(err / terms).max().item():.3e} of |terms|")
+    return err.max().item()
+
+
+def phase_norm_kernels(device):
+    """K10 and K11 against their plain versions at the training path's
+    shapes; the GroupNorm Function's gradients against autograd of the plain
+    group_norm; F.group_norm and add + F.layer_norm as yardsticks."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from motioneditor_tpu_torch.models.layers import group_norm
+    from motioneditor_tpu_torch.ops.fused_norm import add_layer_norm, add_layer_norm_plain
+    from motioneditor_tpu_torch.ops.gn_stats import (
+        channel_pair_stats,
+        channel_pair_stats_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    results = {name: {"max_abs_err": 0.0, "library_ms": None} for name in NORM_KERNELS}
+    yardsticks = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        for shape in PAIR_STATS_SHAPES:
+            x = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5).to(dtype)
+            dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+            for pair, (a, b) in (("x,x", (x, x)), ("dy,x", (dy, x))):
+                fn = lambda: channel_pair_stats(a, b)  # noqa: E731
+                plain = lambda: channel_pair_stats_plain(a, b)  # noqa: E731
+                got = fn()
+                torch.cuda.synchronize()
+                ref = plain()
+                af, bf = a.float(), b.float()
+                err = max(sum_tolerance(af.abs().sum(1), got[0], ref[0], f"K10 s1 {shape}"),
+                          sum_tolerance((af * bf).abs().sum(1), got[1], ref[1], f"K10 s2 {shape}"))
+                del af, bf
+                again = fn()
+                if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                    raise AssertionError("K10 is not deterministic")
+                ms, plain_ms = time_ms(fn, reps=20), time_ms(plain, reps=20)
+                r = results["channel_pair_stats"]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                at = f"{dt} {list(shape)} ({pair})"
+                log(f"[norm] channel_pair_stats {at}: max_abs_err={err:.3e} kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms")
+                if dtype == torch.bfloat16 and shape == PAIR_STATS_SHAPES[0] and pair == "x,x":
+                    moved = nbytes(a) + 2 * got[0].numel() * 4
+                    r.update(ms=ms, plain_ms=plain_ms, at=at,
+                             **bound(3.0 * a.numel(), moved, dtype))
+                    # yardstick: one GroupNorm, statistics and normalization, on a
+                    # channels-first copy made before the timing
+                    xc = a.transpose(1, 2).contiguous()
+                    w = torch.ones(shape[-1], device=device, dtype=dtype)
+                    yardsticks["F.group_norm_ms"] = time_ms(
+                        lambda: F.group_norm(xc, 32, w, w, 1e-5), reps=20)
+                    yardsticks["F.group_norm_at"] = at
+                    del xc
+            del x, dy
+            torch.cuda.empty_cache()
+        for shape in ADD_LN_SHAPES:
+            t = torch.randn(shape, generator=gen, device=device).to(dtype)
+            d = (torch.randn(shape, generator=gen, device=device) * 0.5 + 0.2).to(dtype)
+            norm = nn.LayerNorm(shape[-1], device=device)
+            with torch.no_grad():
+                norm.weight.normal_(1.0, 0.3, generator=gen)
+                norm.bias.normal_(0.0, 0.2, generator=gen)
+            fn = lambda: add_layer_norm(norm, t, d)  # noqa: E731
+            plain = lambda: add_layer_norm_plain(t, d, norm.weight, norm.bias)  # noqa: E731
+            with torch.no_grad():
+                got = fn()
+                torch.cuda.synchronize()
+                ref = plain()
+                tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else tolerance(dtype)
+                for g, h in zip(got, ref):
+                    torch.testing.assert_close(g.float(), h.float(), **tol)
+                err = max((g.float() - h.float()).abs().max().item() for g, h in zip(got, ref))
+                ms, plain_ms = time_ms(fn, reps=20), time_ms(plain, reps=20)
+            r = results["add_layer_norm"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            at = f"{dt} {list(shape)}"
+            log(f"[norm] add_layer_norm {at}: max_abs_err={err:.3e} kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms")
+            if dtype == torch.bfloat16 and shape == ADD_LN_SHAPES[0]:
+                r.update(ms=ms, plain_ms=plain_ms, at=at,
+                         **bound(10.0 * t.numel(), nbytes(t, d, t, d), dtype))
+                with torch.no_grad():
+                    yardsticks["add+F.layer_norm_ms"] = time_ms(lambda: F.layer_norm(
+                        t + d, (shape[-1],), norm.weight.to(dtype), norm.bias.to(dtype)), reps=20)
+                yardsticks["add+F.layer_norm_at"] = at
+            del t, d, got, ref
+            torch.cuda.empty_cache()
+
+    # the GroupNorm Function (K10 both ways) against autograd of the plain GroupNorm
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((1, FRAMES, LATENT, LATENT, 320), generator=gen, device=device) * 2
+             + 0.5).to(dtype)
+        dy = torch.randn(x.shape, generator=gen, device=device).to(dtype)
+        p = nn.GroupNorm(32, 320, device=device)
+        with torch.no_grad():
+            p.weight.normal_(1.0, 0.3, generator=gen)
+            p.bias.normal_(0.0, 0.2, generator=gen)
+        grads = {}
+        for on in (True, False):
+            with norm_knobs(on):
+                xi = x.detach().requires_grad_()
+                p.zero_grad()
+                y = group_norm(p, xi, 32, 1e-5)
+                y.backward(dy)
+                grads[on] = (y.detach(), xi.grad, p.weight.grad.clone(), p.bias.grad.clone())
+        torch.testing.assert_close(grads[True][0].float(), grads[False][0].float(),
+                                   **(dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+                                      else tolerance(dtype)))
+        err = grad_error(grads[True][1:], grads[False][1:], dtype)
+        log(f"[norm] GroupNorm Function {str(dtype)[6:]} [1, {FRAMES}, {LATENT}, {LATENT}, 320]: "
+            f"dx, dscale, dbias vs plain autograd max_abs_err={err:.3e}")
+        del x, dy, grads
+        torch.cuda.empty_cache()
+    log(f"[norm] yardsticks {json.dumps(yardsticks)}")
+    return results, yardsticks
+
+
+def train_step(stage: str, state, cn, config, cn_config, lat, enc, skel, generator, **kw):
+    """One train step of ``stage`` through the training modules' entry."""
+    from motioneditor_tpu_torch.training import stage1, stage2
+
+    if stage == "stage1":
+        return stage1.train_step_stage1(state, lat, enc, generator, config, **kw)
+    return stage2.train_step_stage2(state, cn, lat, skel, enc, generator, config, cn_config, **kw)
+
+
+def phase_train_check(device):
+    """A tiny fp32 stage-1 step and stage-2 step, the kernel path (flash on,
+    both knobs on) against the plain path (flash off, both knobs off), on
+    the same noise (one seed): loss, the trainables' gradients and the
+    parameters after one step (Adam eps 1e-4, as tests/test_torch_training.py
+    takes it, so that the parameters' agreement follows from the
+    gradients')."""
+    import copy
+
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.training import stage1, stage2
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    config, cn_config, unet, cn, gen = build_tiny_models(device, SEED + 21)
+    cn.requires_grad_(False)
+    f, hw = 3, 32  # level-0 attention at N = 1024 reaches every gate
+    lat = 0.5 * torch.randn((1, f, hw, hw, 4), generator=gen, device=device)
+    enc = 0.5 * torch.randn((1, 7, 16), generator=gen, device=device)
+    skel = torch.rand((1, f, 8 * hw, 8 * hw, 3), generator=gen, device=device)
+    t = torch.tensor([437], device=device)
+    launched = {}
+    for stage, modules in (("stage1", stage1.TRAINABLE_MODULES),
+                           ("stage2", stage2.TRAINABLE_MODULES)):
+        out = {}
+        for kernels in (True, False):
+            state = make_train_state(copy.deepcopy(unet), modules,
+                                     make_optimizer(learning_rate=1e-3, eps=1e-4))
+            with norm_knobs(kernels):
+                _build.reset_launch_counts()
+                with torch.no_grad():  # the forward alone, for K10's backward count
+                    if stage == "stage1":
+                        stage1.stage1_loss(state.model, config, lat, enc, lat, t,
+                                           use_flash=kernels, remat=False)
+                    else:
+                        stage2.stage2_loss(state.model, cn, config, cn_config, lat, skel, enc,
+                                           lat, t, use_flash=kernels, remat=False)
+                fwd_pair_stats = _build.launch_counts["channel_pair_stats"]
+                _build.reset_launch_counts()
+                gen_step = torch.Generator(device=device).manual_seed(SEED + 22)
+                state, metrics = train_step(stage, state, cn, config, cn_config, lat, enc, skel,
+                                            gen_step, remat=False, use_flash=kernels)
+                torch.cuda.synchronize()
+                counts = dict(_build.launch_counts)
+            out[kernels] = (float(metrics["loss"]),
+                            {n: p.grad.clone() for n, p in state.trainable.items()},
+                            {n: p.detach().clone() for n, p in state.trainable.items()})
+            if kernels:
+                launched[stage] = counts
+                if counts.get("channel_pair_stats", 0) <= fwd_pair_stats:
+                    raise AssertionError(f"{stage}: K10's backward never launched: {counts}")
+            elif counts:
+                raise AssertionError(f"{stage}: the plain path launched kernels: {counts}")
+        (lk, gk, pk), (lp, gp, pp) = out[True], out[False]
+        top = max(g.abs().max().item() for g in gp.values())
+        gerr = max((gk[n] - gp[n]).abs().max().item() for n in gp) / top
+        perr = max((pk[n] - pp[n]).abs().max().item() for n in pp)
+        log(f"[train-check] {stage} tiny fp32 step, kernel vs plain path: loss {lk:.7f} vs "
+            f"{lp:.7f}, grad max err {gerr:.3e} of max |g|, param max err {perr:.3e}; "
+            f"launches {launched[stage]}")
+        if abs(lk - lp) > 1e-5 * abs(lp) or gerr > 1e-4 or perr > 1e-6:
+            raise AssertionError(f"{stage}: the kernel path disagrees with the plain path")
+    needed = ("video_flash_attention", "temporal_flash_attention") + BACKWARD_KERNELS + NORM_KERNELS
+    together = add_counts(*launched.values())
+    if not all(together.get(k) for k in needed):
+        raise AssertionError(f"the tiny training steps skipped a kernel: {together}")
+    return together
+
+
+def phase_train(device):
+    """Stage 1 then stage 2 at full width, bf16 frozen weights with fp32
+    masters, gradient checkpointing: both knobs on, then off."""
+    import math
+
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.models.controlnet import ControlNetModel
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.models.unet import UNet3DConditionModel
+    from motioneditor_tpu_torch.training import stage1, stage2
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    dtype = torch.bfloat16
+    config, cn_config = pipeline_configs()
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    lat = 0.18215 * torch.randn((1, FRAMES, LATENT, LATENT, 4), generator=gen, device=device)
+    enc = torch.randn((1, 77, 768), generator=gen, device=device)
+    skel = torch.rand((1, FRAMES, 8 * LATENT, 8 * LATENT, 3), generator=gen, device=device)
+    with torch.device(device):
+        cn = ControlNetModel(cn_config)
+    init_params(cn, gen)
+    cn.to(dtype).requires_grad_(False)
+    metrics, paths = {}, {}
+    for stage, modules, expected in (
+            ("stage1", stage1.TRAINABLE_MODULES, EXPECTED_PER_STAGE1_STEP),
+            ("stage2", stage2.TRAINABLE_MODULES, EXPECTED_PER_STAGE2_STEP)):
+        for on in (True, False):
+            key = "on" if on else "off"
+            with torch.device(device):
+                unet = UNet3DConditionModel(config)
+            init_params(unet, torch.Generator(device=device).manual_seed(SEED + 31))
+            state = make_train_state(unet, modules, make_optimizer(3e-5), frozen_dtype=dtype)
+            before = {n: p.detach().clone() for n, p in unet.named_parameters()}
+
+            def step(i):
+                g = torch.Generator(device=device).manual_seed(SEED + 40 + i)
+                return train_step(stage, state, cn, config, cn_config, lat, enc, skel, g,
+                                  remat=True, compute_dtype=dtype)[1]["loss"]
+
+            with norm_knobs(on):
+                step(0)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                losses = [step(i + 1) for i in range(TRAIN_STEPS)]
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+                launches = dict(_build.launch_counts)
+            losses = [float(x) for x in losses]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            metrics[f"{stage}_ms_per_step_knobs_{key}"] = ms
+            metrics[f"{stage}_peak_gib_knobs_{key}"] = peak
+            log(f"[train] {stage} knobs {key}: {TRAIN_STEPS} steps, {ms:.1f} ms/step, peak "
+                f"{peak:.2f} GiB, losses {losses}, launches {launches}")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{stage}: losses are not finite: {losses}")
+            moved = {n for n, p in unet.named_parameters() if not torch.equal(p, before[n])}
+            if not moved or not moved <= set(state.trainable):
+                raise AssertionError(f"{stage}: frozen parameters moved: "
+                                     f"{sorted(moved - set(state.trainable))[:5]}")
+            want = expected if on else {k: v for k, v in expected.items()
+                                        if k not in NORM_KERNELS}
+            expect_counts(f"{stage} knobs {key}", launches, want, TRAIN_STEPS)
+            if on:
+                paths[stage] = launches
+            del state, unet, before
+            torch.cuda.empty_cache()
+    del cn
+    torch.cuda.empty_cache()
+    return paths, metrics
+
+
 def main() -> int:
     import torch
 
@@ -1027,6 +1375,10 @@ def main() -> int:
     t0 = time.perf_counter()
     results.update(phase_bwd_kernels(device))
     log(f"[bwd] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    norm_results, yardsticks = phase_norm_kernels(device)
+    results.update(norm_results)
+    log(f"[norm] done in {time.perf_counter() - t0:.1f} s")
     launches, ms_per_step = phase_slice(device)
     phase_check(device)
     phase_null_check(device)
@@ -1038,6 +1390,13 @@ def main() -> int:
     del unet, cn
     torch.cuda.empty_cache()
     paths["split_head"] = phase_split_check(device)
+    t0 = time.perf_counter()
+    paths["train_check"] = phase_train_check(device)
+    log(f"[train-check] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_paths, train_metrics = phase_train(device)
+    paths.update(train_paths)
+    log(f"[train] done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1054,6 +1413,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
+                      "train": train_metrics, "norm_yardsticks": yardsticks,
                       "launches_by_path": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

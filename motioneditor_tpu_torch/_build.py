@@ -156,6 +156,20 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, mode, dtype, stream
     ]
     lib.me_split_attention.restype = i32
+    lib.me_pair_stats_chunks.argtypes = [i32]  # S
+    lib.me_pair_stats_chunks.restype = i32
+    lib.me_pair_stats.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,            # a, b, s1, s2, scratch
+        i32, i32, i32,                      # B, S, C
+        i32, ptr,                           # dtype, stream
+    ]
+    lib.me_pair_stats.restype = i32
+    lib.me_add_layer_norm.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # tokens, delta, w, b, summed, normed
+        ctypes.c_longlong, i32, f32,        # rows, C, eps
+        i32, ptr,                           # dtype, stream
+    ]
+    lib.me_add_layer_norm.restype = i32
     return lib
 
 

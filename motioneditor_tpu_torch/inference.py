@@ -8,8 +8,9 @@ The run is on the GPU unless ``--device cpu`` asks for the CPU; without a
 CUDA device and without that flag it raises. Without weights at
 ``pretrained_model_path`` every model is randomly initialized from the
 config's seed and prompts go through ``StubTokenizer`` (smoke-test mode).
-Loading real checkpoints, stage-1 state and adapter weights is not ported
-yet; a config that names them raises.
+The port's own training checkpoints load (``resume_from_checkpoint``,
+``adapter_weight_path``); diffusers weights and the reference's ``.pth``
+adapter do not yet, and a config that names them raises.
 """
 
 from __future__ import annotations
@@ -23,34 +24,56 @@ import numpy as np
 import torch
 
 from motioneditor_tpu_torch.configs import RunConfig, load_config, save_config
-from motioneditor_tpu_torch.models.clip_text import CLIPTextModel, StubTokenizer
+from motioneditor_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel, StubTokenizer
 from motioneditor_tpu_torch.models.controlnet import ControlNetModel, controlnet_config
 from motioneditor_tpu_torch.models.layers import init_params
 from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
-from motioneditor_tpu_torch.models.vae import AutoencoderKL
+from motioneditor_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from motioneditor_tpu_torch.pipelines.editor import MotionEditorPipeline
 
 
-def build_pipeline(cfg: RunConfig, device: torch.device) -> MotionEditorPipeline:
-    """Random-init models from ``cfg.seed`` in ``cfg.compute_dtype``, on
-    ``device``."""
-    for path in (osp.join(cfg.pretrained_model_path, "unet"), cfg.resume_from_checkpoint,
-                 cfg.adapter_weight_path):
-        if path and osp.exists(path):
-            raise NotImplementedError(f"loading weights ({path}) is not ported yet")
+def build_pipeline(cfg: RunConfig, device: torch.device, dtype: Optional[torch.dtype] = None,
+                   need_controlnet: bool = True, unet_config: Optional[UNetConfig] = None,
+                   vae_config: VAEConfig = VAEConfig(),
+                   text_config: CLIPTextConfig = CLIPTextConfig()) -> MotionEditorPipeline:
+    """Random-init models from ``cfg.seed`` in ``dtype`` (``cfg.compute_dtype``
+    when None), on ``device``, at SD-1.5's widths unless the model configs
+    say otherwise; then the port's own stage-1 checkpoint
+    (``resume_from_checkpoint``, a ``checkpoint-<N>/`` directory) and adapter
+    checkpoint (``adapter_weight_path``, a
+    ``controlnet_adapter_checkpoint-<N>/`` directory) when the config names
+    them (scripts/inference.py:84-111)."""
+    from motioneditor_tpu_torch.training.checkpoint import load_adapter, load_trainables
+
+    if osp.exists(osp.join(cfg.pretrained_model_path, "unet")):
+        raise NotImplementedError(
+            f"loading diffusers weights ({cfg.pretrained_model_path}) is not ported yet")
+    if cfg.adapter_weight_path and cfg.adapter_weight_path.endswith(".pth"):
+        raise NotImplementedError(
+            f"loading a reference adapter ({cfg.adapter_weight_path}) is not ported yet")
     print(f"WARNING: no pretrained weights at {cfg.pretrained_model_path}; "
           "using random init (smoke-test mode)")
-    unet_config = UNetConfig(use_sc_attn=cfg.use_sc_attn, use_st_attn=cfg.use_st_attn,
-                             st_attn_idx=cfg.st_attn_idx)
+    unet_config = unet_config or UNetConfig(
+        use_sc_attn=cfg.use_sc_attn, use_st_attn=cfg.use_st_attn, st_attn_idx=cfg.st_attn_idx)
     gen = torch.Generator(device=device).manual_seed(cfg.seed or 0)
     with torch.device(device):
-        models = dict(unet=UNet3DConditionModel(unet_config), vae=AutoencoderKL(),
-                      text_encoder=CLIPTextModel(),
-                      controlnet=ControlNetModel(controlnet_config(unet_config)))
+        models = dict(unet=UNet3DConditionModel(unet_config), vae=AutoencoderKL(vae_config),
+                      text_encoder=CLIPTextModel(text_config),
+                      controlnet=(ControlNetModel(controlnet_config(unet_config))
+                                  if need_controlnet else None))
     for m in models.values():
-        init_params(m, gen)
-        m.to(cfg.compute_dtype).eval()
+        if m is not None:
+            init_params(m, gen)
+            m.to(dtype or cfg.compute_dtype).eval()
+    unet = models["unet"]
+    if cfg.resume_from_checkpoint and osp.isdir(cfg.resume_from_checkpoint):
+        load_trainables(cfg.resume_from_checkpoint, unet)
+        print(f"restored stage-1 state from {cfg.resume_from_checkpoint}")
+    if cfg.adapter_weight_path and osp.isdir(cfg.adapter_weight_path):
+        load_adapter(cfg.adapter_weight_path, unet.controlnet_adapter)
+        print(f"loaded adapter weights from {cfg.adapter_weight_path}")
     return MotionEditorPipeline(tokenizer=StubTokenizer(), unet_config=unet_config,
+                                vae_config=vae_config, text_config=text_config,
                                 use_flash=cfg.use_flash_attention, **models)
 
 

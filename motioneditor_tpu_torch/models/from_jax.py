@@ -10,6 +10,8 @@ changes are the inverse of motioneditor_tpu/models/weights.py:
   conv kernel HWIO               -> weight OIHW
   temporal conv kernel [K, I, O] -> weight [O, I, K]
   norm scale / bias              -> weight / bias
+
+``trainable_names`` maps a JAX ``trainable_mask`` tree onto the same keys.
 """
 
 from __future__ import annotations
@@ -216,3 +218,20 @@ def module_state_dict(kind: str, tree) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     _MODULES[kind](sd, "", tree)
     return {k[1:]: v for k, v in sd.items()}  # drop the leading "."
+
+
+def _zip_map(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_zip_map(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
+def trainable_names(mask_tree, params_tree, convert=unet_state_dict) -> set:
+    """The parameter names that a JAX ``trainable_mask`` tree (boolean
+    leaves, the structure of ``params_tree``) marks trainable, under the
+    state_dict converter ``convert``."""
+    full = _zip_map(lambda m, p: np.full(np.shape(p), float(bool(m)), np.float32), mask_tree,
+                    params_tree)
+    return {k for k, v in convert(full).items() if bool(v.all())}

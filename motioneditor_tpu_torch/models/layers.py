@@ -99,8 +99,14 @@ def temporal_conv(p: nn.Conv1d, video: torch.Tensor, padding="SAME") -> torch.Te
 
 def group_norm(p: nn.Module, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-6):
     """GroupNorm over [B, ..., C]: fp32 stats per group over every interior
-    axis (so on a [B, F, H, W, C] video the stats pool across frames)."""
+    axis (so on a [B, F, H, W, C] video the stats pool across frames).
+    With MOTIONEDITOR_FUSED_GN on, the statistics and the gradient's
+    reductions run in the pair-stats kernel (ops/gn_stats.py)."""
+    from motioneditor_tpu_torch.ops import gn_stats
+
     b, c = x.shape[0], x.shape[-1]
+    if gn_stats.enabled() and c % num_groups == 0:
+        return gn_stats.group_norm_fused(p, x, num_groups, eps)
     xf = x.float().reshape(b, -1, num_groups, c // num_groups)
     var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, unbiased=False)
     out = (xf - mean) * torch.rsqrt(var + eps)
@@ -110,7 +116,13 @@ def group_norm(p: nn.Module, x: torch.Tensor, num_groups: int = 32, eps: float =
 
 def layer_norm(p: nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the channel axis with fp32 statistics."""
-    out = F.layer_norm(x.float(), (x.shape[-1],), p.weight.float(), p.bias.float(), eps)
+    return layer_norm_affine(x, p.weight, p.bias, eps)
+
+
+def layer_norm_affine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """``layer_norm`` with the weight and bias given as tensors."""
+    out = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
     return out.to(x.dtype)
 
 

@@ -1,5 +1,5 @@
 """Video-inflated SD-1.5 UNet with ControlNet residuals and the motion
-adapter (port of motioneditor_tpu/models/unet.py, inference forward).
+adapter (port of motioneditor_tpu/models/unet.py).
 
 ``UNet3DConditionModel`` holds the parameters under diffusers key names
 (plus the reference's temporal modules ``temp_conv1/2``, ``attn_temp``,
@@ -15,6 +15,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from motioneditor_tpu_torch.control.injection import (
@@ -38,6 +39,7 @@ from motioneditor_tpu_torch.models.layers import (
     upsample_conv3d_2x,
     zero_init,
 )
+from motioneditor_tpu_torch.ops import fused_norm
 from motioneditor_tpu_torch.ops.attention import (
     DENSE,
     MOTION_FRAME,
@@ -280,17 +282,24 @@ def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
     else:
         attn1_out = spatial_self_attention(p.attn1, h, attn1_mode, ctx.heads,
                                            use_flash=ctx.use_flash)
-    # plain add + LN: what JAX runs, its fused add+LN kernel being off by default
-    tokens = tokens + attn1_out
-    h = layer_norm(p.norm2, tokens)
+    # the residual add and the next LayerNorm: fused in one kernel with
+    # MOTIONEDITOR_FUSED_LN on, at JAX's call-site gate (flash on, N >= 512)
+    fuse_ln = ctx.use_flash and tokens.shape[2] >= 512 and fused_norm.enabled()
+
+    def add_norm(norm, tokens, delta):
+        if fuse_ln:
+            return fused_norm.add_layer_norm(norm, tokens, delta)
+        tokens = tokens + delta
+        return tokens, layer_norm(norm, tokens)
+
+    tokens, h = add_norm(p.norm2, tokens, attn1_out)
     collect = ctx.cross_maps is not None and tokens.shape[2] == 256
-    tokens = tokens + cross_attention(p.attn2, h, ctx.encoder_hidden_states, ctx.heads,
-                                      collect_maps_into=ctx.cross_maps if collect else None)
-    h = layer_norm(p.norm3, tokens)
+    attn2_out = cross_attention(p.attn2, h, ctx.encoder_hidden_states, ctx.heads,
+                                collect_maps_into=ctx.cross_maps if collect else None)
+    tokens, h = add_norm(p.norm3, tokens, attn2_out)
     ff_out = feed_forward(p.ff, h)
     if hasattr(p, "attn_temp"):
-        tokens = tokens + ff_out
-        ht = layer_norm(p.norm_temp, tokens)
+        tokens, ht = add_norm(p.norm_temp, tokens, ff_out)
         kv_override = injected_temporal_kv(ht) if temporal_gate else None
         tokens = tokens + temporal_self_attention_video(
             p.attn_temp, ht, ctx.heads, causal=True, kv_override=kv_override,
@@ -336,9 +345,12 @@ def unet_apply(
     down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
     mid_block_additional_residual: Optional[torch.Tensor] = None,
     use_flash: bool = True,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Full UNet forward. sample: [B, F, H, W, C_in]; timesteps: scalar or
-    [B]; encoder_hidden_states: [B, L, D_text].
+    [B]; encoder_hidden_states: [B, L, D_text]. ``remat`` is gradient
+    checkpointing: each resnet and each transformer block keeps only its
+    inputs and recomputes its activations in the backward pass.
 
     ControlNet residuals: 12 down + mid. With a 4-row branch axis and a
     4-row mid residual, the residuals are the 2-row edit-branch ControlNet
@@ -358,9 +370,16 @@ def unet_apply(
     def mode_for(use_st: bool) -> str:
         return NORMAL if normal_infer else c.attn1_mode(use_st)
 
+    def checkpointed(fn):
+        if not remat:
+            return fn
+        return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    @checkpointed
     def res(rp, hh):
         return resnet_block(rp, hh, temb, groups=c.norm_num_groups, eps=c.norm_eps)
 
+    @checkpointed
     def t2d(bp, hh, layer, mode):
         return transformer2d(bp, hh, ctx, layer, mode, groups=c.norm_num_groups,
                              eps=c.transformer_norm_eps)

@@ -102,9 +102,9 @@ def needs_grad(*tensors) -> bool:
 
 
 class KernelWithPlainVJP(torch.autograd.Function):
-    """``kernel_fn(*tensors)`` forward; the backward recomputes
-    ``plain_fn(*tensors)`` under autograd and returns its VJP (the port of
-    JAX's ``kernel_with_xla_vjp``, ops/diffable.py)."""
+    """``kernel_fn(*tensors)`` forward (one tensor or a tuple); the backward
+    recomputes ``plain_fn(*tensors)`` under autograd and returns its VJP
+    (the port of JAX's ``kernel_with_xla_vjp``, ops/diffable.py)."""
 
     @staticmethod
     def forward(ctx, kernel_fn, plain_fn, *tensors):
@@ -113,13 +113,14 @@ class KernelWithPlainVJP(torch.autograd.Function):
         return kernel_fn(*tensors)
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, *douts):
         need = ctx.needs_input_grad[2:]
         with torch.enable_grad():
             xs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
             out = ctx.plain_fn(*xs)
+            outs = out if isinstance(out, tuple) else (out,)
             wrt = [x for x in xs if x.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, dout))
+            grads = iter(torch.autograd.grad(outs, wrt, douts))
         return (None, None, *(next(grads) if n else None for n in need))
 
 

@@ -1,4 +1,5 @@
-"""DDIM scheduler math: the step and the inversion step (port of
+"""DDIM scheduler math: the step and the inversion step, and the DDPM
+forward noising and velocity target of training (port of
 motioneditor_tpu/schedulers.py).
 
 SD-1.5 schedule: scaled-linear betas, 1000 train steps, steps_offset=1,
@@ -87,3 +88,29 @@ def ddim_inverse_step(schedule: DiffusionSchedule, model_output: torch.Tensor, t
     x0 = (sample32 - beta_from.sqrt().item() * eps32) / alpha_from.sqrt().item()
     direction = (1.0 - alpha_to).sqrt().item() * eps32
     return (alpha_to.sqrt().item() * x0 + direction).to(sample.dtype)
+
+
+def _per_row(values: torch.Tensor, timesteps: torch.Tensor, ndim: int) -> torch.Tensor:
+    """values[timesteps] shaped [B, 1, ..., 1] to broadcast over a sample."""
+    v = values.to(timesteps.device)[timesteps.long()]
+    return v.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def ddpm_add_noise(schedule: DiffusionSchedule, sample: torch.Tensor, noise: torch.Tensor,
+                   timesteps: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0): sqrt(acp_t) x_0 + sqrt(1 - acp_t) noise per batch row,
+    in fp32, returned in the sample's dtype."""
+    acp = schedule.alphas_cumprod
+    sqrt_acp = _per_row(acp ** 0.5, timesteps, sample.ndim)
+    sqrt_one_minus = _per_row((1.0 - acp) ** 0.5, timesteps, sample.ndim)
+    out = sqrt_acp * sample.float() + sqrt_one_minus * noise.float()
+    return out.to(sample.dtype)
+
+
+def ddpm_velocity(schedule: DiffusionSchedule, sample: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+    """The v-prediction target sqrt(acp_t) noise - sqrt(1 - acp_t) x_0."""
+    acp = schedule.alphas_cumprod
+    sqrt_acp = _per_row(acp ** 0.5, timesteps, sample.ndim)
+    sqrt_one_minus = _per_row((1.0 - acp) ** 0.5, timesteps, sample.ndim)
+    return sqrt_acp * noise - sqrt_one_minus * sample

@@ -9,7 +9,10 @@ Shapes cover ragged token counts (not multiples of the 64-query / 32-key
 tiles), every supported head-dim bucket and F up to 24 (32 for the temporal
 backward); the split-head kernels (K8, K9) also take strided head-split
 views, K/V broadcast over frames, and head dims up to 256, d = 9 among
-them (element loads in place of 16-byte vectors). Forward outputs: fp32 runs with TF32 off, atol 2e-5; bf16 atol
+them (element loads in place of 16-byte vectors). The norm kernels (K10
+pair statistics, K11 add + LayerNorm) run at the training path's shapes
+and ragged ones, with their own tolerances stated at each test. Forward
+outputs: fp32 runs with TF32 off, atol 2e-5; bf16 atol
 3e-2 plus rtol 1.6e-2 (torch's bf16 default: one bf16 ulp of an output of
 magnitude 4 is already 0.031), on inputs whose logits stay far below the
 JAX bf16 kernels' clamp of 60. Gradients: fp32 rtol 1e-4, atol 1e-3; bf16
@@ -23,6 +26,8 @@ import torch
 from motioneditor_tpu_torch import _build
 from motioneditor_tpu_torch.ops.attention import split_heads
 from motioneditor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from motioneditor_tpu_torch.ops.fused_norm import add_layer_norm, add_layer_norm_plain
+from motioneditor_tpu_torch.ops.gn_stats import channel_pair_stats, channel_pair_stats_plain
 from motioneditor_tpu_torch.ops.injection_flash import (
     fused_injection_attention,
     fused_injection_attention_plain,
@@ -315,3 +320,120 @@ def test_temporal_flash_bwd_kernel(device, dtype, causal, b, f, n, c, heads):
     torch.cuda.synchronize()
     ref = temporal_flash_attention_bwd_plain(q, k, v, do, scale, heads, causal=causal)
     assert_grads_close(got, ref, dtype)
+
+
+PAIR_STATS_CASES = [
+    (1, 32768, 320),   # the pooled level-0 resnet GroupNorm at 512 px, 8 frames
+    (8, 4096, 320),    # the per-frame transformer GroupNorm
+    (1, 512, 2560),    # the widest up-block input
+    (3, 333, 100),     # ragged: S not a multiple of the 128-row chunk, C of the 64-channel tile
+    (2, 7, 32),        # a single partial chunk
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("b,s,c", PAIR_STATS_CASES)
+def test_channel_pair_stats_kernel(device, dtype, same, b, s, c):
+    """K10 against its plain version; both sum in fp32, in two orders: the
+    error is held to 1e-4 of the sum of the terms' magnitudes. Two runs are
+    bit-identical (fixed summation order, no atomics)."""
+    gen = torch.Generator(device=device).manual_seed(10)
+    a = (2 * torch.randn((b, s, c), generator=gen, device=device) + 0.5).to(dtype)
+    other = a if same else _rand((b, s, c), dtype, device, gen)
+    before = _build.launch_counts["channel_pair_stats"]
+    got = channel_pair_stats(a, other)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["channel_pair_stats"] == before + 1
+    ref = channel_pair_stats_plain(a, other)
+    af, bf = a.float(), other.float()
+    for g, r, terms in zip(got, ref, (af.abs().sum(1), (af * bf).abs().sum(1))):
+        assert g.dtype == torch.float32 and g.shape == (b, c)
+        assert ((g - r).abs() <= 1e-4 * terms).all()
+    again = channel_pair_stats(a, other)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [((1, 8, 64, 64, 320), 32), ((8, 32, 32, 640), 32),
+                                          ((2, 3, 5, 7, 64), 8)])
+def test_group_norm_function_gradients(device, dtype, shape, groups):
+    """The GroupNorm Function (K10 forward on (x, x), backward on (dy, x))
+    against autograd of the plain group_norm: output, dx, dscale, dbias."""
+    import os
+
+    from motioneditor_tpu_torch.models.layers import group_norm
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = (2 * torch.randn(shape, generator=gen, device=device) + 0.5).to(dtype)
+    dy = _rand(shape, dtype, device, gen)
+    p = torch.nn.GroupNorm(groups, shape[-1], device=device)
+    with torch.no_grad():
+        p.weight.normal_(1.0, 0.3, generator=gen)
+        p.bias.normal_(0.0, 0.2, generator=gen)
+    outs = {}
+    old = os.environ.get("MOTIONEDITOR_FUSED_GN")
+    try:
+        for knob in ("1", "0"):
+            os.environ["MOTIONEDITOR_FUSED_GN"] = knob
+            xi = x.detach().requires_grad_()
+            p.zero_grad()
+            _build.reset_launch_counts()
+            y = group_norm(p, xi, groups, 1e-5)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            assert _build.launch_counts["channel_pair_stats"] == (2 if knob == "1" else 0)
+            outs[knob] = (y.detach(), xi.grad, p.weight.grad.clone(), p.bias.grad.clone())
+    finally:
+        if old is None:
+            os.environ.pop("MOTIONEDITOR_FUSED_GN", None)
+        else:
+            os.environ["MOTIONEDITOR_FUSED_GN"] = old
+    fwd_tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(outs["1"][0].float(), outs["0"][0].float(), **fwd_tol)
+    assert_grads_close(outs["1"][1:], outs["0"][1:], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 8, 4096, 320), (1, 8, 1024, 640), (2, 3, 100, 1280),
+                                   (1, 2, 77, 36)])
+def test_add_layer_norm_kernel(device, dtype, shape):
+    """K11 against its plain version: the sum bit-identical (one fp32 add,
+    one rounding), the normed output within 1e-5 in fp32 and the bf16
+    tolerance in bf16 (the kernel normalizes the fp32 sum, the plain version
+    its bf16 rounding)."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    t = _rand(shape, dtype, device, gen)
+    d = (0.5 * torch.randn(shape, generator=gen, device=device) + 0.2).to(dtype)
+    norm = torch.nn.LayerNorm(shape[-1], device=device)
+    with torch.no_grad():
+        norm.weight.normal_(1.0, 0.3, generator=gen)
+        norm.bias.normal_(0.0, 0.2, generator=gen)
+        before = _build.launch_counts["add_layer_norm"]
+        summed, normed = add_layer_norm(norm, t, d)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["add_layer_norm"] == before + 1
+        ref_s, ref_n = add_layer_norm_plain(t, d, norm.weight, norm.bias)
+    assert summed.dtype == dtype and normed.shape == shape
+    assert torch.equal(summed, ref_s)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(normed.float(), ref_n.float(), **tol)
+
+
+def test_add_layer_norm_gradients_and_rejections(device):
+    """Under autograd K11 runs forward with the plain version's VJP; C above
+    1280 is refused."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    t, d = (_rand((1, 2, 600, 320), torch.float32, device, gen).requires_grad_()
+            for _ in range(2))
+    norm = torch.nn.LayerNorm(320, device=device)
+    _build.reset_launch_counts()
+    s, n = add_layer_norm(norm, t, d)
+    got = torch.autograd.grad((s * n).sum(), (t, d, norm.weight, norm.bias))
+    assert _build.launch_counts["add_layer_norm"] == 1
+    s2, n2 = add_layer_norm_plain(t, d, norm.weight, norm.bias)
+    ref = torch.autograd.grad((s2 * n2).sum(), (t, d, norm.weight, norm.bias))
+    assert_grads_close(got, ref, torch.float32)
+    x = torch.zeros((1, 1, 8, 1536), device=device)
+    with pytest.raises(ValueError):
+        add_layer_norm(torch.nn.LayerNorm(1536, device=device), x, x)
