@@ -1,0 +1,121 @@
+"""The frame-sharded path of the PyTorch/CUDA port on several GPUs, one NCCL
+rank per card.
+
+    python3 chip_sharded.py --ranks 4
+
+Rank r runs on cuda:r; the ranks meet at tcp://localhost:<a free port>.
+The kernels are built once, before the ranks start. Each rank runs
+chip_smoke.py's frame-sharded phases over R ranks instead of one:
+  11b. check  tiny fp32 models: the injected denoise segment over a (1, R)
+              layout and a stage-1 step over (2, R/2), against rank 0's
+              unsharded runs
+  11.  shard  SD-1.5 at full width, bf16, 8 frames, 64x64 latents: the
+              segment over (1, R), 3 steps after a warm-up step, then a
+              stage-1 step over (1, R) after a warm-up step, asserting every
+              rank's launch counts per step; rank 0 then times the same
+              segment and stage-1 step unsharded on its card
+Prints one JSON line of every rank's results, then
+{"ok": true, "device": {...}} last. Needs R CUDA devices, R even. A rank
+still running after --stall-seconds prints every thread's stack and exits.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+import chip_smoke as cs
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_main(rank, ranks, port, out_dir, stall_s):
+    """One rank, on cuda:rank over NCCL."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from motioneditor_tpu_torch.parallel.mesh import init_frame_sharding
+
+    faulthandler.dump_traceback_later(stall_s, exit=True)
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=ranks,
+                            timeout=datetime.timedelta(seconds=stall_s))
+    try:
+        seg_ctx = init_frame_sharding(1, ranks, device, rank=rank)
+        train_ctx = init_frame_sharding(2, ranks // 2, device, rank=rank)
+        t0 = time.perf_counter()
+        cs.log(f"[rank {rank}] check")
+        paths = cs.phase_sharded_check(device, seg_ctx, train_ctx)
+        cs.log(f"[rank {rank}] shard")
+        shard_paths, metrics = cs.phase_sharded(device, seg_ctx, dist.barrier,
+                                                reference=rank == 0)
+        paths.update(shard_paths)
+        cs.log(f"[rank {rank}] done in {time.perf_counter() - t0:.1f} s")
+        gathered = [None] * ranks
+        dist.all_gather_object(gathered, {"metrics": metrics, "launches": paths})
+        if rank == 0:
+            with open(os.path.join(out_dir, "result.json"), "w") as fh:
+                json.dump({"ranks": gathered, "seconds": time.perf_counter() - t0}, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def main() -> int:
+    import torch
+    import torch.multiprocessing as mp
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--ranks", type=int, default=4)
+    parser.add_argument("--stall-seconds", type=int, default=600,
+                        help="a rank still running after this many seconds dumps its "
+                             "stacks and exits (also the process group's timeout)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available() or torch.cuda.device_count() < args.ranks:
+        print(f"chip_sharded: needs {args.ranks} CUDA devices", file=sys.stderr)
+        return 1
+    if args.ranks % 2:
+        print("chip_sharded: --ranks must be even (the (2, R/2) stage-1 layout)",
+              file=sys.stderr)
+        return 1
+    from motioneditor_tpu_torch import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    cs.log(f"[device] {torch.cuda.device_count()} x {torch.cuda.get_device_name(0)} | "
+           f"{smi.splitlines()}")
+    t0 = time.perf_counter()
+    path, _ = _build.build()
+    cs.log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.spawn(rank_main, args=(args.ranks, free_port(), out_dir, args.stall_seconds),
+                 nprocs=args.ranks, join=True)
+        with open(os.path.join(out_dir, "result.json")) as fh:
+            result = json.load(fh)
+    print(json.dumps(result))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -67,6 +67,25 @@ Phases, each raising on failure:
               steps each with both knobs on, asserting finite losses, that
               only the trainables moved and the per-step launch counts; then
               the same steps with both knobs off; ms per step and peak memory
+  3d. kv      (run after phase 3c) the frame-sharded path's kernels against
+              their plain versions in bf16 and fp32: K12 (explicit-K/V
+              attention) at q [2, 8, 4096, 320] over motion_frame K/V
+              [2, 8, 8192, 320] and dense K/V [2, 1, 32768, 320], K13
+              (explicit-K/V injection) at the same q, K14 (global-offset
+              temporal attention) at Fq = Fk = 8; then each 2-frame shard of
+              a 4-way frame split (K14 at offsets 0, 2, 4, 6; K12 / K13 on
+              K/V sliced from the global tensors), also held to its slice of
+              the one-rank output; SDPA timed as the yardstick of K12 and,
+              with a boolean mask, of K14
+  11. shard   the frame-sharded path at full width in a one-rank NCCL
+              process group: the injected denoise segment, bf16, 3 steps
+              after a warm-up step, then one stage-1 step after a warm-up
+              step; asserts the per-step launch counts of K1, K12, K13 and
+              K14, prints ms per step, peak memory and the device's busy
+              share of one more step under torch.profiler
+  11b. check  (run before phase 11) tiny fp32 checks in that group: the
+              sharded segment and a sharded stage-1 step against the
+              unsharded ones
 Then one JSON line of per-kernel results, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -76,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -152,6 +172,24 @@ EXPECTED_PER_STAGE2_STEP = {
     "temporal_flash_attention_bwd": 12, "channel_pair_stats": 155, "add_layer_norm": 56,
 }
 NORM_KERNELS = ("channel_pair_stats", "add_layer_norm")
+KV_KERNELS = ("video_flash_attention_kv", "video_injection_attention_kv",
+              "temporal_flash_attention_global")
+SPLIT = 4  # the frame split whose shard-local shapes phase 3d checks
+# per sharded denoise step (one rank, mask mode): UNet blocks 0-3 K12 (4) +
+# blocks 10-15 K12 on the source rows (6) and K13 on the edit rows (6); the
+# adapter blocks 0-5 K12 (attn_temp, sparse_causal: 6), K1 (the per-frame
+# cross attention: 6) and K14 (6); the ControlNet K1 (4); K14 at UNet blocks
+# 0-3 and 10-15 (10). No K2 or K3.
+EXPECTED_PER_SHARDED_STEP = {
+    "video_flash_attention": 10, "video_flash_attention_kv": 16,
+    "video_injection_attention_kv": 6, "temporal_flash_attention_global": 16,
+}
+# per sharded stage-1 step, gradient checkpointing on, knobs off: the 10 gated
+# attn1 sites launch K12 in the forward and again in the recompute, the 10
+# gated attn_temp sites K14 likewise; their gradients are the plain VJPs
+EXPECTED_PER_SHARDED_STAGE1_STEP = {
+    "video_flash_attention_kv": 20, "temporal_flash_attention_global": 20,
+}
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense (no tensor cores in fp32)
 PEAK_BYTES = 3.35e12
 KERNEL_INFO = {
@@ -177,6 +215,12 @@ KERNEL_INFO = {
                            "motioneditor_tpu/ops/gn_stats.py:78"),
     "add_layer_norm": ("motioneditor_tpu_torch/csrc/add_layer_norm.cu",
                        "motioneditor_tpu/ops/fused_norm.py:73"),
+    "video_flash_attention_kv": ("motioneditor_tpu_torch/csrc/video_attention.cu",
+                                 "motioneditor_tpu/ops/video_flash.py:726"),
+    "video_injection_attention_kv": ("motioneditor_tpu_torch/csrc/video_attention.cu",
+                                     "motioneditor_tpu/ops/video_flash.py:859"),
+    "temporal_flash_attention_global": ("motioneditor_tpu_torch/csrc/temporal_attention.cu",
+                                        "motioneditor_tpu/ops/temporal_flash.py:361"),
 }
 SPLIT_KERNELS = ("flash_attention", "fused_injection_attention")
 FORWARD_KERNELS = ("video_flash_attention", "video_injection_attention",
@@ -1273,8 +1317,6 @@ def phase_train_check(device):
 def phase_train(device):
     """Stage 1 then stage 2 at full width, bf16 frozen weights with fp32
     masters, gradient checkpointing: both knobs on, then off."""
-    import math
-
     import torch
 
     from motioneditor_tpu_torch import _build
@@ -1345,6 +1387,410 @@ def phase_train(device):
     return paths, metrics
 
 
+def motion_frame_kv(x):
+    """[B, F, N, C] -> [B, F, 2N, C] = [prev | cur], frame 0's prev itself:
+    the K/V the halo builds, here from the whole clip."""
+    import torch
+
+    prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+    return torch.cat([prev, x], dim=2).contiguous()
+
+
+def temporal_pairs(fq: int, fk: int, causal: bool, off: int) -> int:
+    """The (query frame, key frame) pairs K14 computes per site."""
+    return sum(min(f + off + 1, fk) if causal else fk for f in range(fq))
+
+
+def phase_kv_kernels(device):
+    """K12-K14 against their plain versions at the one-rank shapes and at
+    the shard-local shapes of a 4-way frame split."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as library_sdpa
+
+    from motioneditor_tpu_torch.ops.temporal_flash import (
+        temporal_flash_attention_global,
+        temporal_flash_attention_global_plain,
+    )
+    from motioneditor_tpu_torch.ops.video_flash import (
+        video_flash_attention_kv,
+        video_flash_attention_kv_plain,
+        video_injection_attention_kv,
+        video_injection_attention_kv_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    results = {name: {"max_abs_err": 0.0} for name in KV_KERNELS}
+    b, f, n, c = 2, FRAMES, LATENT * LATENT, 320
+    d = c // HEADS
+    scale = d ** -0.5
+    fl = f // SPLIT
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        q, k, v, kt, vt = (torch.randn((b, f, n, c), generator=gen, device=device).to(dtype)
+                           for _ in range(5))
+        mask = (torch.rand((f, n), generator=gen, device=device) > 0.5).float()
+        if dtype == torch.bfloat16:
+            top = max(logit_bound(q, k, HEADS, scale), logit_bound(q, kt, HEADS, scale))
+            if top >= LOGIT_CAP:
+                raise AssertionError(f"bf16 inputs reach logit {top} >= {LOGIT_CAP}")
+        k_mf, v_mf = motion_frame_kv(k), motion_frame_kv(v)
+        m_mf = torch.cat([torch.cat([mask[:1], mask[:-1]]), mask], dim=1).contiguous()
+        kd, vd = k.reshape(b, 1, f * n, c), v.reshape(b, 1, f * n, c)
+
+        def kv_case(lo, hi, kk, vv):
+            qs = q[:, lo:hi].contiguous()
+            kk = kk if kk.shape[1] == 1 else kk[:, lo:hi].contiguous()
+            vv = vv if vv.shape[1] == 1 else vv[:, lo:hi].contiguous()
+            return ((lambda: video_flash_attention_kv(qs, kk, vv, scale, HEADS)),
+                    (lambda: video_flash_attention_kv_plain(qs, kk, vv, scale, HEADS)),
+                    4.0 * qs.numel() * kk.shape[2], nbytes(qs, kk, vv, qs))
+
+        def inj_case(lo, hi):
+            args = [x[:, lo:hi].contiguous() for x in (q, k_mf, v_mf, kt, vt)]
+            ms = m_mf[lo:hi].contiguous()
+            return ((lambda: video_injection_attention_kv(*args, ms, scale, HEADS)),
+                    (lambda: video_injection_attention_kv_plain(*args, ms, scale, HEADS)),
+                    4.0 * args[0].numel() * (2 * n + n), nbytes(*args, ms, args[0]))
+
+        def temporal_case(lo, hi):
+            qs = q[:, lo:hi].contiguous()
+            return ((lambda: temporal_flash_attention_global(qs, k, v, scale, HEADS, True, lo)),
+                    (lambda: temporal_flash_attention_global_plain(qs, k, v, scale, HEADS, True,
+                                                                   lo)),
+                    4.0 * b * n * c * temporal_pairs(hi - lo, f, True, lo), nbytes(qs, k, v, qs))
+
+        one_rank = {}
+        cases = [("video_flash_attention_kv", "motion_frame", 0, f, kv_case(0, f, k_mf, v_mf)),
+                 ("video_flash_attention_kv", "dense", 0, f, kv_case(0, f, kd, vd)),
+                 ("video_injection_attention_kv", "injection", 0, f, inj_case(0, f)),
+                 ("temporal_flash_attention_global", "causal", 0, f, temporal_case(0, f))]
+        for r in range(SPLIT):
+            lo, hi = r * fl, (r + 1) * fl
+            cases += [("video_flash_attention_kv", "motion_frame", lo, hi,
+                       kv_case(lo, hi, k_mf, v_mf)),
+                      ("video_flash_attention_kv", "dense", lo, hi, kv_case(lo, hi, kd, vd)),
+                      ("video_injection_attention_kv", "injection", lo, hi, inj_case(lo, hi)),
+                      ("temporal_flash_attention_global", "causal", lo, hi,
+                       temporal_case(lo, hi))]
+        for name, variant, lo, hi, (kernel_fn, plain_fn, flops, moved) in cases:
+            out = kernel_fn()
+            torch.cuda.synchronize()
+            ref = plain_fn()
+            err = (out.float() - ref.float()).abs().max().item()
+            torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
+            whole = hi - lo == f
+            if whole:
+                one_rank[(name, variant)] = out
+            else:  # a shard gives its slice of the one-rank output
+                torch.testing.assert_close(out.float(), one_rank[(name, variant)][:, lo:hi].float(),
+                                           **tolerance(dtype))
+            r = results[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            at = (f"{dt} q [{b}, {hi - lo}, {n}, {c}] {variant}"
+                  + ("" if whole else f", shard {lo // fl} of {SPLIT}"))
+            main = dtype == torch.bfloat16 and whole and variant != "dense"
+            timing = ""
+            if whole or dtype == torch.bfloat16:
+                ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+                timing = f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                if main:
+                    r.update(ms=ms, plain_ms=plain_ms, at=at, library_ms=None,
+                             **bound(flops, moved, dtype))
+            lib = ""
+            if main and name != "video_injection_attention_kv":
+                if name == "video_flash_attention_kv":
+                    # SDPA on [B*F, H, N, d] against [B*F, H, 2N, d]: split-head views
+                    def split(x):
+                        return x.view(-1, x.shape[2], HEADS, d).transpose(1, 2)
+
+                    lq, lk, lv, lref = split(q), split(k_mf), split(v_mf), split(ref)
+                    lib_fn = lambda: library_sdpa(lq, lk, lv, scale=scale)  # noqa: E731
+                else:
+                    # SDPA with a boolean (query frame, key frame) mask on
+                    # [B*N, H, F, d] copies made before the timing
+                    def temporal(x):
+                        return x.view(b, -1, n, HEADS, d).permute(0, 2, 3, 1, 4).flatten(0, 1)
+
+                    lq, lk, lv, lref = temporal(q), temporal(k), temporal(v), temporal(ref)
+                    keep = torch.ones((f, f), dtype=torch.bool, device=device).tril()
+                    lib_fn = lambda: library_sdpa(lq, lk, lv, attn_mask=keep,  # noqa: E731
+                                                  scale=scale)
+                r["library_ms"] = library_time(dtype, lref, lib_fn)
+                r["library_at"] = at
+                lib = f", library {r['library_ms']:.3f} ms"
+                del lq, lk, lv, lref
+            log(f"[kv] {name} {at}: max_abs_err={err:.3e}{timing}{lib}")
+            del out, ref
+            torch.cuda.empty_cache()
+        del q, k, v, kt, vt, k_mf, v_mf, kd, vd, one_rank
+        torch.cuda.empty_cache()
+    return results
+
+
+def timed_steps(fn, steps: int, barrier):
+    """ms per step of ``fn()`` (one call of ``steps`` steps) and its result,
+    every rank starting and ending together."""
+    import torch
+
+    torch.cuda.synchronize()
+    barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    barrier()
+    return (time.perf_counter() - t0) * 1e3 / steps, out
+
+
+def union_seconds(intervals) -> float:
+    """Length of the union of (start, end) intervals given in microseconds."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e6
+
+
+def device_busy_share(fn) -> dict:
+    """The shares of the wall time of one call of ``fn`` (which ends in a
+    synchronize) in which the device ran a compute kernel, and an NCCL
+    kernel (those include waiting for peers): unions of the kernels'
+    intervals from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    nccl = [(e.time_range.start, e.time_range.end) for e in kernels if "nccl" in e.name.lower()]
+    compute = [(e.time_range.start, e.time_range.end) for e in kernels
+               if "nccl" not in e.name.lower()]
+    return {"compute": union_seconds(compute) / wall, "nccl": union_seconds(nccl) / wall}
+
+
+def shard_or_keep(ctx):
+    """``shard_video`` over ``ctx``, or the identity when ``ctx`` is None."""
+    from motioneditor_tpu_torch.parallel.mesh import shard_video
+
+    return (lambda x, **kw: shard_video(x, ctx, **kw)) if ctx else (lambda x, **kw: x)
+
+
+def phase_sharded(device, ctx, barrier=lambda: None, reference=False):
+    """The frame-sharded path at full width over ``ctx`` (one rank here,
+    several in chip_sharded.py): the injected denoise segment, then a
+    stage-1 step; with ``reference`` this rank then times the same runs
+    unsharded."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import (
+        InjectionSpec,
+        prepare_injection_masks,
+    )
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.models.unet import UNet3DConditionModel
+    from motioneditor_tpu_torch.parallel.mesh import gather_video
+    from motioneditor_tpu_torch.pipelines.editor import denoise_segment
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+    from motioneditor_tpu_torch.training import stage1
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    dtype = torch.bfloat16
+    config, cn_config = pipeline_configs()
+    unet, cn = build_models(config, cn_config, device, dtype, SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    lat = torch.randn((2, FRAMES, LATENT, LATENT, 4), generator=gen, device=device).to(dtype)
+    cond, uncond = (torch.randn((2, 77, 768), generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+    image = torch.rand((2, FRAMES, 8 * LATENT, 8 * LATENT, 3), generator=gen,
+                       device=device).to(dtype)
+    src = torch.zeros((FRAMES, LATENT, LATENT), device=device)
+    src[:, 16:48, 20:44] = 1.0
+    masks = {key: m.to(dtype) for key, m in prepare_injection_masks(src, FRAMES).items()}
+    schedule = DiffusionSchedule()
+    all_ts = schedule.inference_timesteps(50)
+    spec = InjectionSpec.from_start_layer(10)
+    steps = all_ts[4:7]
+
+    def segment(ts, shard):
+        cut = shard_or_keep(shard)
+        with torch.no_grad():
+            emb = precompute_cond_embedding(cn, cut(image, branch_axis=True))
+        return denoise_segment(
+            unet, config, cn, cn_config, schedule, 50, spec, 7.5, 1.0, cut(lat, branch_axis=True),
+            ts, cond, uncond, emb, {k: cut(m, frame_dim=0) for k, m in masks.items()},
+            shard_ctx=shard)
+
+    segment(all_ts[4:5], ctx)  # warm-up step
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    ms, out = timed_steps(lambda: segment(steps, ctx), len(steps), barrier)
+    paths = {"sharded_denoise": dict(_build.launch_counts)}
+    metrics = {"denoise_ms_per_step": ms,
+               "denoise_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out = gather_video(out, ctx, branch_axis=True)  # a NCCL all-gather
+    metrics["denoise_device_busy"] = device_busy_share(lambda: segment(all_ts[7:8], ctx))
+    log(f"[shard] denoise over (1, {ctx.fp}): {len(steps)} steps, {ms:.1f} ms/step, peak "
+        f"{metrics['denoise_peak_gib']:.2f} GiB, device busy {metrics['denoise_device_busy']} "
+        f"of a profiled step, launches {paths['sharded_denoise']}")
+    if out.shape != lat.shape or not torch.isfinite(out).all():
+        raise AssertionError("the sharded segment's output is not finite")
+    expect_counts("sharded_denoise", paths["sharded_denoise"], EXPECTED_PER_SHARDED_STEP,
+                  len(steps))
+    if reference:
+        segment(all_ts[4:5], None)  # warm-up of the unsharded run
+        ms1, ref = timed_steps(lambda: segment(steps, None), len(steps), lambda: None)
+        metrics.update(unsharded_denoise_ms_per_step=ms1,
+                       denoise_bf16_max_abs_diff=(out.float() - ref.float()).abs().max().item(),
+                       unsharded_denoise_device_busy=device_busy_share(
+                           lambda: segment(all_ts[7:8], None)))
+        log(f"[shard] the same segment unsharded on one card: {ms1:.1f} ms/step, device busy "
+            f"{metrics['unsharded_denoise_device_busy']}; bf16 max |sharded - unsharded| "
+            f"{metrics['denoise_bf16_max_abs_diff']:.3e}")
+        del ref
+    barrier()
+    del unet, cn, out
+    torch.cuda.empty_cache()
+
+    lat1 = 0.18215 * torch.randn((1, FRAMES, LATENT, LATENT, 4), generator=gen, device=device)
+    enc = torch.randn((1, 77, 768), generator=gen, device=device)
+
+    def train(shard):
+        with torch.device(device):
+            model = UNet3DConditionModel(config)
+        init_params(model, torch.Generator(device=device).manual_seed(SEED + 61))
+        state = make_train_state(model, stage1.TRAINABLE_MODULES, make_optimizer(3e-5),
+                                 frozen_dtype=dtype)
+        before = {name: p.detach().clone() for name, p in model.named_parameters()}
+        x = shard_or_keep(shard)(lat1)
+
+        def step(i):
+            g = torch.Generator(device=device).manual_seed(SEED + 62 + i)
+            return float(stage1.train_step_stage1(state, x, enc, g, config, remat=True,
+                                                  compute_dtype=dtype,
+                                                  shard_ctx=shard)[1]["loss"])
+
+        step(0)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        ms, loss = timed_steps(lambda: step(1), 1, barrier if shard else lambda: None)
+        launches, peak = dict(_build.launch_counts), torch.cuda.max_memory_allocated() / 2**30
+        moved = {name for name, p in model.named_parameters() if not torch.equal(p, before[name])}
+        if not math.isfinite(loss) or not moved or not moved <= set(state.trainable):
+            raise AssertionError(f"stage 1: loss {loss}, or frozen parameters moved")
+        return ms, loss, launches, peak, device_busy_share(lambda: step(2))
+
+    ms, loss, paths["sharded_stage1"], peak, busy = train(ctx)
+    metrics.update(stage1_ms_per_step=ms, stage1_peak_gib=peak, stage1_loss=loss,
+                   stage1_device_busy=busy)
+    log(f"[shard] stage 1 over (1, {ctx.fp}): {ms:.1f} ms/step, peak {peak:.2f} GiB, device "
+        f"busy {busy} of a profiled step, loss {loss}, launches {paths['sharded_stage1']}")
+    expect_counts("sharded_stage1", paths["sharded_stage1"], EXPECTED_PER_SHARDED_STAGE1_STEP, 1)
+    if reference:
+        ms1, loss1, _, _, busy1 = train(None)
+        metrics.update(unsharded_stage1_ms_per_step=ms1, unsharded_stage1_loss=loss1,
+                       unsharded_stage1_device_busy=busy1)
+        log(f"[shard] the same stage-1 step unsharded on one card: {ms1:.1f} ms, device busy "
+            f"{busy1}, loss {loss1}")
+    barrier()
+    torch.cuda.empty_cache()
+    return paths, metrics
+
+
+def phase_sharded_check(device, seg_ctx, train_ctx):
+    """Tiny fp32 checks on the card (32x32 latents, so level-0 attention
+    reaches K12-K14): the segment over ``seg_ctx`` against the unsharded
+    one (K1, K2, K3), and a stage-1 step over ``train_ctx`` against the
+    unsharded step (K4-K7): loss, gradients, parameters after one AdamW
+    step with eps 1e-4. Rank 0 compares."""
+    import copy
+
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import InjectionSpec
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.parallel.mesh import gather_video
+    from motioneditor_tpu_torch.pipelines.editor import denoise_segment
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+    from motioneditor_tpu_torch.training import stage1
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    config, cn_config, unet, cn, gen = build_tiny_models(device, SEED + 63)
+    f, hw = FRAMES, 32
+    lat = 0.3 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
+    cond, uncond = (0.3 * torch.randn((2, 7, 16), generator=gen, device=device)
+                    for _ in range(2))
+    image = torch.rand((2, f, 8 * hw, 8 * hw, 3), generator=gen, device=device)
+    masks = {(s, s): (torch.rand((f, s * s, 1), generator=gen, device=device) > 0.5).float()
+             for s in (32, 16, 8, 4)}
+    schedule = DiffusionSchedule()
+    lead = seg_ctx.rank == 0
+    launched, outs = {}, {}
+    for name, shard in (("sharded", seg_ctx), ("unsharded", None)):
+        if shard is None and not lead:
+            continue
+        cut = shard_or_keep(shard)
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            emb = precompute_cond_embedding(cn, cut(image, branch_axis=True))
+        out = denoise_segment(
+            unet, config, cn, cn_config, schedule, 50, InjectionSpec.from_start_layer(10), 7.5,
+            1.0, cut(lat, branch_axis=True), schedule.inference_timesteps(50)[4:6], cond, uncond,
+            emb, {k: cut(m, frame_dim=0) for k, m in masks.items()}, shard_ctx=shard)
+        launched[name] = dict(_build.launch_counts)
+        outs[name] = gather_video(out, shard, branch_axis=True) if shard else out
+    need = {"sharded": ("video_flash_attention",) + KV_KERNELS, "unsharded": FORWARD_KERNELS}
+    for name in launched:
+        if not all(launched[name].get(k) for k in need[name]):
+            raise AssertionError(f"the {name} segment skipped a kernel: {launched[name]}")
+    if lead:
+        err = (outs["sharded"] - outs["unsharded"]).abs().max().item()
+        log(f"[shard-check] 2-step fp32 segment over (1, {seg_ctx.fp}) vs unsharded: "
+            f"max_abs_err={err:.3e}; launches {launched}")
+        if not torch.isfinite(outs["sharded"]).all() or err > 2e-3:
+            raise AssertionError(f"the sharded segment disagrees with the unsharded one: {err}")
+
+    lat1 = 0.5 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
+    enc = 0.5 * torch.randn((2, 7, 16), generator=gen, device=device)
+    out = {}
+    for name, shard in (("sharded", train_ctx), ("unsharded", None)):
+        if shard is None and not lead:
+            continue
+        state = make_train_state(copy.deepcopy(unet), stage1.TRAINABLE_MODULES,
+                                 make_optimizer(learning_rate=1e-3, eps=1e-4))
+        x, e = lat1, enc
+        if shard is not None:
+            x, e = shard_or_keep(shard)(lat1), enc.chunk(shard.dp)[shard.data_rank]
+        _build.reset_launch_counts()
+        state, metrics = stage1.train_step_stage1(
+            state, x, e, torch.Generator(device=device).manual_seed(SEED + 64), config,
+            remat=True, shard_ctx=shard)
+        launched[f"{name}_stage1"] = dict(_build.launch_counts)
+        out[name] = (float(metrics["loss"]),
+                     {n: p.grad.clone() for n, p in state.trainable.items()},
+                     {n: p.detach().clone() for n, p in state.trainable.items()})
+    if not all(launched["sharded_stage1"].get(k) for k in EXPECTED_PER_SHARDED_STAGE1_STEP):
+        raise AssertionError(f"the sharded stage-1 step skipped a kernel: {launched}")
+    if lead:
+        (ls, gs, ps), (lu, gu, pu) = out["sharded"], out["unsharded"]
+        top = max(g.abs().max().item() for g in gu.values())
+        gerr = max((gs[n] - gu[n]).abs().max().item() for n in gu) / top
+        perr = max((ps[n] - pu[n]).abs().max().item() for n in pu)
+        log(f"[shard-check] fp32 stage-1 step over ({train_ctx.dp}, {train_ctx.fp}) vs "
+            f"unsharded: loss {ls:.7f} vs {lu:.7f}, grad max err {gerr:.3e} of max |g|, param "
+            f"max err {perr:.3e}; launches {launched['sharded_stage1']}")
+        if abs(ls - lu) > 1e-5 * abs(lu) or gerr > 1e-4 or perr > 1e-6:
+            raise AssertionError("the sharded stage-1 step disagrees with the unsharded one")
+    return {"sharded_check": add_counts(launched["sharded"], launched["sharded_stage1"])}
+
+
 def main() -> int:
     import torch
 
@@ -1379,6 +1825,9 @@ def main() -> int:
     norm_results, yardsticks = phase_norm_kernels(device)
     results.update(norm_results)
     log(f"[norm] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    results.update(phase_kv_kernels(device))
+    log(f"[kv] done in {time.perf_counter() - t0:.1f} s")
     launches, ms_per_step = phase_slice(device)
     phase_check(device)
     phase_null_check(device)
@@ -1397,6 +1846,19 @@ def main() -> int:
     train_paths, train_metrics = phase_train(device)
     paths.update(train_paths)
     log(f"[train] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    import torch.distributed as dist
+
+    from motioneditor_tpu_torch.parallel.mesh import init_frame_sharding
+
+    ctx = init_frame_sharding(1, 1, device)  # NCCL, one rank, no network
+    try:
+        paths.update(phase_sharded_check(device, ctx, ctx))
+        shard_paths, shard_metrics = phase_sharded(device, ctx)
+        paths.update(shard_paths)
+    finally:
+        dist.destroy_process_group()
+    log(f"[shard] done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1414,6 +1876,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
                       "train": train_metrics, "norm_yardsticks": yardsticks,
+                      "sharded": shard_metrics,
                       "launches_by_path": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

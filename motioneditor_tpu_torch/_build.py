@@ -117,6 +117,18 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, mode, dtype, stream
     ]
     lib.me_video_attention.restype = i32
+    lib.me_video_attention_kv.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, k2, v2, mask, out
+        i32, i32, i32, i32, i32, i32, i32,  # B, F, N, Fk, M, H, d
+        f32, i32, i32, ptr,                 # scale, injection, dtype, stream
+    ]
+    lib.me_video_attention_kv.restype = i32
+    lib.me_temporal_attention_global.argtypes = [
+        ptr, ptr, ptr, ptr,                 # q, k, v, out
+        i32, i32, i32, i32, i32, i32,       # B, Fq, Fk, N, H, d
+        f32, i32, i32, i32, ptr,            # scale, causal, q_off, dtype, stream
+    ]
+    lib.me_temporal_attention_global.restype = i32
     lib.me_temporal_attention.argtypes = [
         ptr, ptr, ptr, ptr,                 # q, k, v, out
         i32, i32, i32, i32, i32,            # B, F, N, H, d

@@ -125,13 +125,18 @@ def motion_frame_mask(mask_n: torch.Tensor) -> torch.Tensor:
 
 def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
                                mask_n: Optional[torch.Tensor], mask_fgbg: bool = True,
-                               use_flash: bool = True) -> torch.Tensor:
+                               use_flash: bool = True, shard=None) -> torch.Tensor:
     """FullySelfAttentionControlMask forward. x: [4, F, N, C].
 
     Source rows: motion-frame attention over their own [prev, cur] K/V.
     Target rows: Q unchanged; K = [K_src*m, K_src*(1-m), K_tgt_cur],
     V = [V_src, V_src, V_tgt_cur]. Without a mask (or mask_fgbg=False) the
-    target rows read the source rows' [prev, cur] K/V wholesale."""
+    target rows read the source rows' [prev, cur] K/V wholesale.
+
+    ``shard`` (a FrameShardingCtx): x and mask_n hold the local frames; the
+    source rows' [prev, cur] K/V and the mask are built over the frame halo
+    once, the source rows run K12 on them and the masked edit rows K13 (JAX
+    injection.py:195-224). The branch axis stays local."""
     from motioneditor_tpu_torch.ops.injection_flash import fused_injection_attention
     from motioneditor_tpu_torch.ops.video_flash import (
         video_flash_attention,
@@ -150,6 +155,22 @@ def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
     src = list(SRC_ROWS)
     tgt = list(TGT_ROWS)
     use_mask = mask_fgbg and mask_n is not None
+
+    if shard is not None:
+        from motioneditor_tpu_torch.parallel import flash_sharding as fs
+
+        kernel = use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads)
+        k_mf = fs.build_kv(k[src], MOTION_FRAME, shard)  # [2, F, 2N, C]
+        v_mf = fs.build_kv(v[src], MOTION_FRAME, shard)
+        out_src = fs.kv_attention(q[src], k_mf, v_mf, scale, heads, kernel)
+        if use_mask:
+            m2 = fs.motion_frame_mask(mask_n[..., 0], shard)
+            out_tgt = fs.injection_attention(q[tgt], k_mf, v_mf, k[tgt], v[tgt], m2, scale,
+                                             heads, kernel)
+        else:
+            out_tgt = fs.kv_attention(q[tgt], k_mf, v_mf, scale, heads, kernel)
+        out = torch.stack([out_src[0], out_tgt[0], out_src[1], out_tgt[1]], dim=0)
+        return linear(p.to_out[0], out)
 
     if use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads):
         # packed-head kernels: head split, motion-frame K/V selection and
@@ -215,7 +236,7 @@ def aggregate_cross_attn_mask(cross_maps, token_idx: Tuple[int, ...], res: int,
 def injected_spatial_attention_auto(p: Attention, x: torch.Tensor, heads: int,
                                     source_mask_n: Optional[torch.Tensor], cross_maps,
                                     token_idx: Tuple[int, ...], thres: float,
-                                    use_flash: bool = True) -> torch.Tensor:
+                                    use_flash: bool = True, shard=None) -> torch.Tensor:
     """FullySelfAttentionControlMaskAuto forward. x: [4, F, N, C].
 
     Source rows: motion-frame attention over their own [prev, cur] K/V.
@@ -223,7 +244,13 @@ def injected_spatial_attention_auto(p: Attention, x: torch.Tensor, heads: int,
     with K and V multiplied by the fg mask, once by the bg mask (masked keys
     score 0 and keep their softmax weight), and the two outputs are
     recomposed with the auto mask from ``cross_maps``. Without maps or
-    without a source mask the target rows read the source K/V wholesale."""
+    without a source mask the target rows read the source K/V wholesale.
+
+    ``shard`` (a FrameShardingCtx): x, the source mask and the maps hold the
+    local frames; the motion-frame K/V and the source mask are built over
+    the frame halo. The auto mask is frame-local (each frame's map is
+    normalized on its own). The caller passes ``use_flash`` off under a
+    shard, as JAX does (unet.py:333-336)."""
     b, f, n, c = x.shape
     if b != 4:
         raise ValueError("injection requires the 4-row branch axis")
@@ -231,8 +258,14 @@ def injected_spatial_attention_auto(p: Attention, x: torch.Tensor, heads: int,
     k = linear(p.to_k, x)
     v = linear(p.to_v, x)
     scale = (q.shape[-1] // heads) ** -0.5
-    k_mf = select_kv(k[list(SRC_ROWS)], MOTION_FRAME)  # [2, F, 2N, C]
-    v_mf = select_kv(v[list(SRC_ROWS)], MOTION_FRAME)
+    if shard is not None:
+        from motioneditor_tpu_torch.parallel import flash_sharding as fs
+
+        k_mf = fs.build_kv(k[list(SRC_ROWS)], MOTION_FRAME, shard)  # [2, F, 2N, C]
+        v_mf = fs.build_kv(v[list(SRC_ROWS)], MOTION_FRAME, shard)
+    else:
+        k_mf = select_kv(k[list(SRC_ROWS)], MOTION_FRAME)
+        v_mf = select_kv(v[list(SRC_ROWS)], MOTION_FRAME)
     out_src = sdpa(split_heads(q[list(SRC_ROWS)], heads), split_heads(k_mf, heads),
                    split_heads(v_mf, heads), scale, use_flash=use_flash)
     q_t = split_heads(q[list(TGT_ROWS)], heads)
@@ -240,7 +273,10 @@ def injected_spatial_attention_auto(p: Attention, x: torch.Tensor, heads: int,
         out_tgt = sdpa(q_t, split_heads(k_mf, heads), split_heads(v_mf, heads), scale,
                        use_flash=use_flash)
     else:
-        m = motion_frame_mask(source_mask_n).to(k.dtype)  # [F, 2N, 1]
+        if shard is not None:
+            m = fs.motion_frame_mask(source_mask_n[..., 0], shard)[..., None].to(k.dtype)
+        else:
+            m = motion_frame_mask(source_mask_n).to(k.dtype)  # [F, 2N, 1]
         out_fg = sdpa(q_t, split_heads(k_mf * m, heads), split_heads(v_mf * m, heads), scale,
                       use_flash=use_flash)
         out_bg = sdpa(q_t, split_heads(k_mf * (1 - m), heads),

@@ -10,6 +10,16 @@
 //       (_fwd_res_nomax / _fwd_res_maxsafe, pallas_call at video_flash_bwd.py:229):
 //       K1's body, which also writes lse = m + ln(l) per (query row, head)
 //       in fp32 for the backward kernels (video_attention_bwd.cu)
+//   K12 motioneditor_tpu/ops/video_flash.py  _video_flash_kv (pallas_call at :726)
+//   K13 motioneditor_tpu/ops/video_flash.py  _video_injection_kv (pallas_call at :859)
+//       the explicit-K/V twins of K1 and K2 that the frame-sharded path runs
+//       (parallel/flash_sharding.py): the K/V source of every query frame is
+//       built outside the kernel with collectives and handed over as
+//       [B, Fk, M, C]; query frame f reads K/V frame (Fk == 1 ? 0 : f), M
+//       tokens of it. K13 reads its source keys so, with the per-token fg
+//       mask row mask[f, 0..M) ([F, M], already halo-built as [prev | cur]),
+//       then the N target-row keys of frame f. Same body: only the
+//       addressing differs. Offsets are 64-bit (dense M = F*N = 32768).
 //
 // What it computes. For query frame f of batch row b and head h, softmax
 // attention over the keys of the source frames chosen by `mode`:
@@ -53,18 +63,24 @@ using me::SPARSE_CAUSAL;
 using me::num_passes;
 using me::pass_frame;
 
+// the explicit-K/V modes (K12, K13): mode codes past me::Mode's
+constexpr int EXPLICIT_KV = 5;
+constexpr int INJECTION_KV = 6;
+
 struct Params {
   const void* q;
   const void* k;     // K1: k;  K2: source-row keys
   const void* v;
   const void* k2;    // K2: target-row keys (current frame only)
   const void* v2;
-  const float* mask; // K2: [F, N] fg mask, indexed by the key's frame
+  const float* mask; // K2: [F, N] fg mask, indexed by the key's frame;
+                     // K13: [F, M] fg mask, indexed by the query's frame
   void* out;
   float* lse;        // K4 only: [B, F, N, H] natural-log log-sum-exp, else null
   int B, F, N, H, d;
   float scale_log2;  // softmax scale * log2(e): scores live in log2 units
   int mode;
+  int Fk, M;         // K12 / K13: the explicit K/V source [B, Fk, M, C]
 };
 
 template <int DP>
@@ -125,23 +141,36 @@ __global__ void __launch_bounds__(NTHREADS) video_attention_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
 
-  const int npass = num_passes(p.mode, p.F);
+  const bool explicit_kv = p.mode >= EXPLICIT_KV;
+  const int npass = p.mode == EXPLICIT_KV ? 1 : p.mode == INJECTION_KV ? 2 : num_passes(p.mode, p.F);
   for (int pass = 0; pass < npass; ++pass) {
-    const int fs = pass_frame(p.mode, pass, f);
-    const bool target = p.mode == INJECTION && pass == 2;
-    const bool masked = p.mode == INJECTION && pass < 2;
+    const bool target = (p.mode == INJECTION && pass == 2) || (p.mode == INJECTION_KV && pass == 1);
+    const bool masked = (p.mode == INJECTION && pass < 2) || (p.mode == INJECTION_KV && pass == 0);
     const T* kg = static_cast<const T*>(target ? p.k2 : p.k);
     const T* vg = static_cast<const T*>(target ? p.v2 : p.v);
-    const size_t kv_base = (size_t)(b * p.F + fs) * p.N * C + h * d;
+    int nkeys = p.N;            // keys of this pass
+    size_t kv_base;             // element offset of key 0, head h
+    const float* mrow = nullptr;  // fg mask of this pass's keys
+    if (!explicit_kv) {
+      const int fs = pass_frame(p.mode, pass, f);
+      kv_base = (size_t)(b * p.F + fs) * p.N * C + h * d;
+      if (masked) mrow = p.mask + (size_t)fs * p.N;
+    } else if (target) {        // K13's target rows: frame f of [B, F, N, C]
+      kv_base = ((size_t)b * p.F + f) * p.N * C + h * d;
+    } else {                    // the explicit source: frame f (or 0) of [B, Fk, M, C]
+      nkeys = p.M;
+      kv_base = ((size_t)b * p.Fk + (p.Fk == 1 ? 0 : f)) * p.M * C + h * d;
+      if (masked) mrow = p.mask + (size_t)f * p.M;
+    }
 
-    for (int k0 = 0; k0 < p.N; k0 += BK) {
+    for (int k0 = 0; k0 < nkeys; k0 += BK) {
       __syncthreads();  // the previous tile's readers of Ks/Vs/Ss are done
       for (int idx = tid; idx < BK * DC; idx += NTHREADS) {
         const int r = idx / DC, c8 = idx - (idx / DC) * DC;
         const int n = k0 + r;
         float kx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
         float vx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (c8 < dc && n < p.N) {
+        if (c8 < dc && n < nkeys) {
           me::load8(kg + kv_base + (size_t)n * C + c8 * 8, kx);
           me::load8(vg + kv_base + (size_t)n * C + c8 * 8, vx);
         }
@@ -153,7 +182,7 @@ __global__ void __launch_bounds__(NTHREADS) video_attention_kernel(Params p) {
       }
       if (tid < BK) {
         const int n = k0 + tid;
-        Mk[tid] = (masked && n < p.N) ? p.mask[(size_t)fs * p.N + n] : 0.f;
+        Mk[tid] = (masked && n < nkeys) ? mrow[n] : 0.f;
       }
       __syncthreads();
 
@@ -185,7 +214,7 @@ __global__ void __launch_bounds__(NTHREADS) video_attention_kernel(Params p) {
       // online softmax: two threads (adjacent lanes) per query row
       {
         const int r = tid >> 1, half = tid & 1;
-        const int nvalid = min(BK, p.N - k0);
+        const int nvalid = min(BK, nkeys - k0);
         float* srow = Ss + r * S::SST;
         float mx = -INFINITY;
         for (int j = half * 16; j < half * 16 + 16; ++j) {
@@ -304,7 +333,7 @@ extern "C" int me_video_attention(const void* q, const void* k, const void* v,
                                   float scale, int mode, int dtype, void* stream) {
   if (d % 8 != 0 || d > 160 || mode < 0 || mode > 4) return (int)cudaErrorInvalidValue;
   Params p{q, k, v, k2, v2, static_cast<const float*>(mask), out, nullptr,
-           B, F, N, H, d, scale * me::kLog2e, mode};
+           B, F, N, H, d, scale * me::kLog2e, mode, F, N};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? dispatch<float>(p, st) : dispatch<__nv_bfloat16>(p, st);
   return (int)err;
@@ -319,7 +348,27 @@ extern "C" int me_video_attention_fwd_res(const void* q, const void* k, const vo
   if (d % 8 != 0 || d > 160 || mode < 0 || mode > 3 || lse == nullptr)
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, nullptr, nullptr, nullptr, out, lse,
-           B, F, N, H, d, scale * me::kLog2e, mode};
+           B, F, N, H, d, scale * me::kLog2e, mode, F, N};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dtype == 0 ? dispatch<float>(p, st) : dispatch<__nv_bfloat16>(p, st);
+  return (int)err;
+}
+
+// K12 (injection 0): q [B, F, N, C] against the explicit K/V [B, Fk, M, C],
+// Fk in {1, F}; query frame f reads K/V frame (Fk == 1 ? 0 : f).
+// K13 (injection 1): q_tgt [B, F, N, C]; source K/V [B, F, M, C] with the fg
+// mask [F, M] of each query frame's source tokens; target K/V (k2, v2)
+// [B, F, N, C] of the current frame. Returns a cudaError_t code.
+extern "C" int me_video_attention_kv(const void* q, const void* k, const void* v,
+                                     const void* k2, const void* v2, const void* mask,
+                                     void* out, int B, int F, int N, int Fk, int M, int H,
+                                     int d, float scale, int injection, int dtype,
+                                     void* stream) {
+  if (d % 8 != 0 || d > 160 || M < 1 || (Fk != 1 && Fk != F)) return (int)cudaErrorInvalidValue;
+  if (injection && (Fk != F || mask == nullptr || k2 == nullptr || v2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, k2, v2, static_cast<const float*>(mask), out, nullptr,
+           B, F, N, H, d, scale * me::kLog2e, injection ? INJECTION_KV : EXPLICIT_KV, Fk, M};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? dispatch<float>(p, st) : dispatch<__nv_bfloat16>(p, st);
   return (int)err;

@@ -77,8 +77,11 @@ class ControlAdapter(nn.Module):
         ])
 
 
-def _per_frame_cross_attention(p: Attention, q_tokens, kv_tokens, use_flash: bool):
-    """Each frame's adapter tokens attend to the same frame's source tokens."""
+def _per_frame_cross_attention(p: Attention, q_tokens, kv_tokens, use_flash: bool,
+                               shard=None):
+    """Each frame's adapter tokens attend to the same frame's source tokens:
+    frame-local, so under a ``shard`` K1 runs on the local frames with no
+    communication (JAX adapter.py:148-159)."""
     from motioneditor_tpu_torch.ops.video_flash import (
         video_flash_attention,
         video_flash_supported,
@@ -94,37 +97,41 @@ def _per_frame_cross_attention(p: Attention, q_tokens, kv_tokens, use_flash: boo
     if use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads):
         return linear(p.to_out[0], video_flash_attention(q, k, v, NORMAL, scale, heads))
     out = sdpa(split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale,
-               use_flash=use_flash)
+               use_flash=use_flash and shard is None)
     return linear(p.to_out[0], merge_heads(out))
 
 
-def adapter_block_apply(p: AdapterBlock, x, source_hidden, use_flash: bool = True):
-    """x, source_hidden: [B, F, h, w, C] (ControlNet residual / UNet feature)."""
+def adapter_block_apply(p: AdapterBlock, x, source_hidden, use_flash: bool = True,
+                        shard=None):
+    """x, source_hidden: [B, F, h, w, C] (ControlNet residual / UNet feature).
+    ``shard``: both hold the local frames of a frame-sharded run (JAX
+    adapter.py:91-130): the kernel-3 temporal conv takes halos, attn_temp
+    (sparse_causal) runs K12 and attn_self_temp K14."""
     b, f, h, w, c = x.shape
-    conv = torch.relu(temporal_conv(p.block1, x))
+    conv = torch.relu(temporal_conv(p.block1, x, shard=shard))
     conv = temporal_conv(p.block2, conv, padding="VALID") + x
 
     tokens = x.reshape(b, f, h * w, c)
     n = layer_norm(p.norm_temp, tokens)
     tokens = tokens + spatial_self_attention(p.attn_temp, n, SPARSE_CAUSAL, ADAPTER_HEADS,
-                                             use_flash=use_flash)
+                                             use_flash=use_flash, shard=shard)
     n = layer_norm(p.cross_pose_norm, tokens)
     tokens = tokens + _per_frame_cross_attention(
-        p.attn_pose, n, source_hidden.reshape(b, f, h * w, c), use_flash)
+        p.attn_pose, n, source_hidden.reshape(b, f, h * w, c), use_flash, shard)
     tokens = tokens + feed_forward(p.ff, layer_norm(p.ff_norm, tokens))
     nt = layer_norm(p.norm_self_temp, tokens)
     tokens = tokens + temporal_self_attention_video(
-        p.attn_self_temp, nt, ADAPTER_HEADS, causal=True, use_kernel=use_flash)
+        p.attn_self_temp, nt, ADAPTER_HEADS, causal=True, use_kernel=use_flash, shard=shard)
     return tokens.reshape(b, f, h, w, c) + conv
 
 
 def control_adapter_apply(p: ControlAdapter, x_list: Sequence[torch.Tensor],
                           source_hidden_states: Sequence[torch.Tensor],
-                          use_flash: bool = True) -> List[torch.Tensor]:
+                          use_flash: bool = True, shard=None) -> List[torch.Tensor]:
     """Adapt the 12 ControlNet residuals."""
     if len(x_list) != NUM_ADAPTER_BLOCKS or len(source_hidden_states) != NUM_ADAPTER_BLOCKS:
         raise ValueError(f"the adapter takes {NUM_ADAPTER_BLOCKS} residuals and features")
     return [
-        adapter_block_apply(p.body[i], x_list[i], source_hidden_states[i], use_flash)
+        adapter_block_apply(p.body[i], x_list[i], source_hidden_states[i], use_flash, shard)
         for i in range(NUM_ADAPTER_BLOCKS)
     ]

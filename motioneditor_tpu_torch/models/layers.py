@@ -87,8 +87,15 @@ def inflated_conv3d(p: nn.Conv2d, video: torch.Tensor, stride: int = 1, padding=
     return y.reshape(b, f, *y.shape[1:])
 
 
-def temporal_conv(p: nn.Conv1d, video: torch.Tensor, padding="SAME") -> torch.Tensor:
-    """Conv over the frame axis at every spatial site of [B, F, H, W, C]."""
+def temporal_conv(p: nn.Conv1d, video: torch.Tensor, padding="SAME", shard=None) -> torch.Tensor:
+    """Conv over the frame axis at every spatial site of [B, F, H, W, C].
+    ``shard`` (a FrameShardingCtx over more than one frame rank): ``video``
+    holds the local frames and a SAME conv reads its neighbours' halos
+    (parallel/frame_ops.py)."""
+    if shard is not None and shard.fp > 1 and padding == "SAME":
+        from motioneditor_tpu_torch.parallel import frame_ops
+
+        return frame_ops.temporal_conv(p, video, shard)
     b, f, h, w, c = video.shape
     x = video.permute(0, 2, 3, 4, 1).reshape(b * h * w, c, f)
     weight = p.weight.to(video.dtype)
@@ -97,12 +104,20 @@ def temporal_conv(p: nn.Conv1d, video: torch.Tensor, padding="SAME") -> torch.Te
     return y.reshape(b, h, w, c, y.shape[-1]).permute(0, 4, 1, 2, 3)
 
 
-def group_norm(p: nn.Module, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-6):
+def group_norm(p: nn.Module, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-6,
+               shard=None):
     """GroupNorm over [B, ..., C]: fp32 stats per group over every interior
     axis (so on a [B, F, H, W, C] video the stats pool across frames).
     With MOTIONEDITOR_FUSED_GN on, the statistics and the gradient's
-    reductions run in the pair-stats kernel (ops/gn_stats.py)."""
+    reductions run in the pair-stats kernel (ops/gn_stats.py). ``shard`` (a
+    FrameShardingCtx over more than one frame rank): ``x`` holds the local
+    frames and the statistics pool over every rank's (parallel/frame_ops.py)."""
     from motioneditor_tpu_torch.ops import gn_stats
+
+    if shard is not None and shard.fp > 1:
+        from motioneditor_tpu_torch.parallel import frame_ops
+
+        return frame_ops.group_norm(p, x, num_groups, eps, shard)
 
     b, c = x.shape[0], x.shape[-1]
     if gn_stats.enabled() and c % num_groups == 0:

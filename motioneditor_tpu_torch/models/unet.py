@@ -223,24 +223,26 @@ def _gn_per_frame(p, video, groups, eps):
 
 
 def resnet_block(p: ResnetBlock, video, temb, *, groups=32, eps=1e-5,
-                 per_frame_gn: bool = False):
+                 per_frame_gn: bool = False, shard=None):
     """Video resnet; zero-init temporal convs are residual adds after each
     spatial conv. GroupNorm pools across frames unless ``per_frame_gn``
-    (the per-frame 2D ControlNet)."""
+    (the per-frame 2D ControlNet). ``shard``: ``video`` holds the local
+    frames of a frame-sharded run; the pooled GroupNorms and the temporal
+    convs communicate (parallel/frame_ops.py)."""
     def gn(norm, x):
         if per_frame_gn:
             return _gn_per_frame(norm, x, groups, eps)
-        return group_norm(norm, x, groups, eps)
+        return group_norm(norm, x, groups, eps, shard=shard)
 
     h = inflated_conv3d(p.conv1, silu(gn(p.norm1, video)), padding=1)
     if hasattr(p, "temp_conv1"):
-        h = h + temporal_conv(p.temp_conv1, h)
+        h = h + temporal_conv(p.temp_conv1, h, shard=shard)
     if temb is not None and hasattr(p, "time_emb_proj"):
         t = linear(p.time_emb_proj, silu(temb))  # [B, C]
         h = h + t[:, None, None, None, :]
     h = inflated_conv3d(p.conv2, silu(gn(p.norm2, h)), padding=1)
     if hasattr(p, "temp_conv2"):
-        h = h + temporal_conv(p.temp_conv2, h)
+        h = h + temporal_conv(p.temp_conv2, h, shard=shard)
     skip = video
     if hasattr(p, "conv_shortcut"):
         skip = inflated_conv3d(p.conv_shortcut, skip, padding=0)
@@ -260,6 +262,9 @@ class AttnContext:
     # the auto-mask injection: later injected blocks read the maps that
     # earlier blocks appended; None collects nothing
     cross_maps: Optional[list] = None
+    # frame-sharded execution (parallel/mesh.FrameShardingCtx): the tokens
+    # hold this rank's frames and the attention sites communicate
+    shard: Optional[object] = None
 
 
 def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
@@ -273,18 +278,23 @@ def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
     if spatial_gate:
         mask_n = None if ctx.injection_masks is None else ctx.injection_masks.get(hw)
         if inj.mask_mode == "auto":
+            # no kernel for auto mode under a shard, as in JAX (unet.py:333-336)
             attn1_out = injected_spatial_attention_auto(
                 p.attn1, h, ctx.heads, mask_n, ctx.cross_maps or [], inj.auto_token_idx,
-                inj.auto_thres, use_flash=ctx.use_flash)
+                inj.auto_thres, use_flash=ctx.use_flash and ctx.shard is None,
+                shard=ctx.shard)
         else:
             attn1_out = injected_spatial_attention(p.attn1, h, ctx.heads, mask_n,
-                                                   inj.mask_fgbg, use_flash=ctx.use_flash)
+                                                   inj.mask_fgbg, use_flash=ctx.use_flash,
+                                                   shard=ctx.shard)
     else:
         attn1_out = spatial_self_attention(p.attn1, h, attn1_mode, ctx.heads,
-                                           use_flash=ctx.use_flash)
+                                           use_flash=ctx.use_flash, shard=ctx.shard)
     # the residual add and the next LayerNorm: fused in one kernel with
-    # MOTIONEDITOR_FUSED_LN on, at JAX's call-site gate (flash on, N >= 512)
-    fuse_ln = ctx.use_flash and tokens.shape[2] >= 512 and fused_norm.enabled()
+    # MOTIONEDITOR_FUSED_LN on, at JAX's call-site gate (flash on, N >= 512,
+    # and no shard: unet.py:353)
+    fuse_ln = (ctx.use_flash and ctx.shard is None and tokens.shape[2] >= 512
+               and fused_norm.enabled())
 
     def add_norm(norm, tokens, delta):
         if fuse_ln:
@@ -303,7 +313,7 @@ def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
         kv_override = injected_temporal_kv(ht) if temporal_gate else None
         tokens = tokens + temporal_self_attention_video(
             p.attn_temp, ht, ctx.heads, causal=True, kv_override=kv_override,
-            use_kernel=ctx.use_flash)
+            use_kernel=ctx.use_flash, shard=ctx.shard)
     else:
         tokens = tokens + ff_out
     return tokens
@@ -346,11 +356,15 @@ def unet_apply(
     mid_block_additional_residual: Optional[torch.Tensor] = None,
     use_flash: bool = True,
     remat: bool = False,
+    shard_ctx=None,
 ) -> torch.Tensor:
     """Full UNet forward. sample: [B, F, H, W, C_in]; timesteps: scalar or
     [B]; encoder_hidden_states: [B, L, D_text]. ``remat`` is gradient
     checkpointing: each resnet and each transformer block keeps only its
     inputs and recomputes its activations in the backward pass.
+    ``shard_ctx`` (parallel/mesh.FrameShardingCtx): ``sample`` holds this
+    rank's frames (and batch rows) and the output does too; every
+    frame-mixing op communicates over the frame group.
 
     ControlNet residuals: 12 down + mid. With a 4-row branch axis and a
     4-row mid residual, the residuals are the 2-row edit-branch ControlNet
@@ -365,7 +379,8 @@ def unet_apply(
     collect = injection is not None and injection.active and injection.collect_cross_maps
     ctx = AttnContext(encoder_hidden_states=encoder_hidden_states, heads=c.attention_heads,
                       injection=injection, injection_masks=injection_masks,
-                      use_flash=use_flash, cross_maps=[] if collect else None)
+                      use_flash=use_flash, cross_maps=[] if collect else None,
+                      shard=shard_ctx)
 
     def mode_for(use_st: bool) -> str:
         return NORMAL if normal_infer else c.attn1_mode(use_st)
@@ -377,7 +392,8 @@ def unet_apply(
 
     @checkpointed
     def res(rp, hh):
-        return resnet_block(rp, hh, temb, groups=c.norm_num_groups, eps=c.norm_eps)
+        return resnet_block(rp, hh, temb, groups=c.norm_num_groups, eps=c.norm_eps,
+                            shard=shard_ctx)
 
     @checkpointed
     def t2d(bp, hh, layer, mode):
@@ -406,14 +422,15 @@ def unet_apply(
             edit_rows = [1, 3]
             motion = control_adapter_apply(model.controlnet_adapter, residuals,
                                            [s[edit_rows] for s in res_samples],
-                                           use_flash=use_flash)
+                                           use_flash=use_flash, shard=shard_ctx)
             residuals = []
             for m in motion:
                 z = torch.zeros_like(m[:1])
                 residuals.append(torch.cat([z, m[:1], z, m[1:2]], dim=0))
         else:
             residuals = control_adapter_apply(model.controlnet_adapter, residuals,
-                                              res_samples, use_flash=use_flash)
+                                              res_samples, use_flash=use_flash,
+                                              shard=shard_ctx)
         res_samples = [r + d for r, d in zip(res_samples, residuals)]
 
     mb = model.mid_block
@@ -438,5 +455,6 @@ def unet_apply(
             h = upsample_conv3d_2x(block.upsamplers[0].conv, h)
 
     # the final GN pools across frames too
-    h = silu(group_norm(model.conv_norm_out, h, c.norm_num_groups, c.norm_eps))
+    h = silu(group_norm(model.conv_norm_out, h, c.norm_num_groups, c.norm_eps,
+                        shard=shard_ctx))
     return inflated_conv3d(model.conv_out, h, padding=1)

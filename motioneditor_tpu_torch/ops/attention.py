@@ -113,8 +113,11 @@ def select_kv(x: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 def spatial_self_attention(p: Attention, x: torch.Tensor, mode: str, heads: int,
-                           use_flash: bool = True) -> torch.Tensor:
-    """Video self-attention with per-frame K/V selection; x: [B, F, N, C]."""
+                           use_flash: bool = True, shard=None) -> torch.Tensor:
+    """Video self-attention with per-frame K/V selection; x: [B, F, N, C].
+    ``shard`` (a FrameShardingCtx): x holds the local frames, the K/V source
+    is built with collectives and the explicit-K/V kernel runs on it
+    (parallel/flash_sharding.py), as JAX attention.py:187-196."""
     from motioneditor_tpu_torch.ops.video_flash import (
         video_flash_attention,
         video_flash_supported,
@@ -126,6 +129,12 @@ def spatial_self_attention(p: Attention, x: torch.Tensor, mode: str, heads: int,
     v = linear(p.to_v, x)
     inner = q.shape[-1]
     scale = (inner // heads) ** -0.5
+    if shard is not None:
+        from motioneditor_tpu_torch.parallel.flash_sharding import sharded_spatial_attention
+
+        kernel = use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads)
+        out = sharded_spatial_attention(q, k, v, mode, scale, heads, shard, kernel)
+        return linear(p.to_out[0], out)
     if use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads):
         # packed-head kernel: head split and frame selection happen in-kernel
         out = video_flash_attention(q, k, v, mode, scale, heads)
@@ -182,8 +191,11 @@ def temporal_self_attention(p: Attention, x: torch.Tensor, heads: int, causal: b
 def temporal_self_attention_video(p: Attention, x: torch.Tensor, heads: int,
                                   causal: bool = True,
                                   kv_override: Optional[torch.Tensor] = None,
-                                  use_kernel: bool = True) -> torch.Tensor:
-    """Temporal attention on video tokens in their native [B, F, N, C] layout."""
+                                  use_kernel: bool = True, shard=None) -> torch.Tensor:
+    """Temporal attention on video tokens in their native [B, F, N, C] layout.
+    ``shard`` (a FrameShardingCtx): x holds the local frames, K/V are
+    all-gathered and the causal mask holds at global frame indices
+    (parallel/flash_sharding.py), as JAX attention.py:324-337."""
     from motioneditor_tpu_torch.ops.temporal_flash import (
         temporal_flash_attention,
         temporal_flash_supported,
@@ -191,6 +203,17 @@ def temporal_self_attention_video(p: Attention, x: torch.Tensor, heads: int,
 
     b, f, n, c = x.shape
     kv_src = x if kv_override is None else kv_override
+    if shard is not None:
+        from motioneditor_tpu_torch.parallel.flash_sharding import sharded_temporal_attention
+
+        q = linear(p.to_q, x)
+        k = linear(p.to_k, kv_src)
+        v = linear(p.to_v, kv_src)
+        scale = (q.shape[-1] // heads) ** -0.5
+        kernel = (use_kernel and n >= _TEMPORAL_MIN_N
+                  and temporal_flash_supported(f * shard.fp, c, heads))
+        out = sharded_temporal_attention(q, k, v, scale, heads, causal, shard, kernel)
+        return linear(p.to_out[0], out)
     if use_kernel and n >= _TEMPORAL_MIN_N and temporal_flash_supported(f, c, heads):
         q = linear(p.to_q, x)
         k = linear(p.to_k, kv_src)

@@ -81,22 +81,31 @@ def _bshape(x, v):
 
 class GroupNormFn(torch.autograd.Function):
     """GroupNorm over [B, ..., C] (statistics over every interior axis and
-    the channels of a group), with the exact gradient of JAX's ``_gn_bwd``."""
+    the channels of a group), with the exact gradient of JAX's ``_gn_bwd``.
+
+    ``reduce``, when given, sums per-channel [B, C] statistics over the
+    ranks that hold the other blocks of the interior axes (the frame-sharded
+    GroupNorm, parallel/frame_ops.py) and has ``parts``, their number: the
+    pair sums are additive, so the statistics are global. The gradient
+    reductions are summed the same way for dx; dscale and dbias stay this
+    rank's share, which the training step sums over the world."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, num_groups: int, eps: float):
+    def forward(ctx, x, scale, bias, num_groups: int, eps: float, reduce=None):
         bt, c = x.shape[0], x.shape[-1]
         cpg = c // num_groups
         x2 = x.reshape(bt, -1, c).contiguous()
         n = float(x2.shape[1] * cpg)
         s1, s2 = channel_pair_stats(x2, x2)
+        if reduce is not None:
+            s1, s2, n = reduce(s1), reduce(s2), n * reduce.parts
         mean, inv = _group_stats(s1, s2, num_groups, n, eps)
         scale_g = scale.float().reshape(num_groups, cpg)
         bias_g = bias.float().reshape(num_groups, cpg)
         gain = (inv[..., None] * scale_g).reshape(bt, c)
         offset = (bias_g - (mean * inv)[..., None] * scale_g).reshape(bt, c)
         ctx.save_for_backward(scale, x, mean, inv)
-        ctx.num_groups = num_groups
+        ctx.num_groups, ctx.reduce = num_groups, reduce
         return (x.float() * _bshape(x, gain) + _bshape(x, offset)).to(x.dtype)
 
     @staticmethod
@@ -111,6 +120,10 @@ class GroupNormFn(torch.autograd.Function):
         scale_g = scale.float().reshape(num_groups, cpg)[None]  # [1, G, cpg]
         t1g = t1.reshape(bt, num_groups, cpg)
         t2g = t2.reshape(bt, num_groups, cpg)
+        mine = (t1g, t2g)  # this rank's share, for dscale and dbias
+        if ctx.reduce is not None:
+            t1g, t2g = ctx.reduce(t1g), ctx.reduce(t2g)
+            n = n * ctx.reduce.parts
         # per group: the sums of w*dy and of w*dy*(x - mean), w_c = inv_g * scale_c
         sum_wdy = inv * (scale_g * t1g).sum(-1)  # [B, G]
         sum_wdy_xc = inv * (scale_g * (t2g - mean[..., None] * t1g)).sum(-1)
@@ -122,15 +135,18 @@ class GroupNormFn(torch.autograd.Function):
         dx = (dy.float() * _bshape(x, gain) - x.float() * _bshape(x, b_c)
               + _bshape(x, const_c)).to(x.dtype)
         dscale = dbias = None
+        t1g, t2g = mine
         if ctx.needs_input_grad[1]:
             dscale = (inv[..., None] * (t2g - mean[..., None] * t1g)).sum(0).reshape(c)
             dscale = dscale.to(scale.dtype)
         if ctx.needs_input_grad[2]:
             dbias = t1.sum(0).to(scale.dtype)
-        return dx, dscale, dbias, None, None
+        return dx, dscale, dbias, None, None, None
 
 
-def group_norm_fused(p, x: torch.Tensor, num_groups: int, eps: float) -> torch.Tensor:
+def group_norm_fused(p, x: torch.Tensor, num_groups: int, eps: float,
+                     reduce=None) -> torch.Tensor:
     """GroupNorm of ``x`` [B, ..., C] with the norm module ``p``'s weight and
-    bias, its statistics and its gradient's reductions in the kernel."""
-    return GroupNormFn.apply(x, p.weight, p.bias, num_groups, eps)
+    bias, its statistics and its gradient's reductions in the kernel;
+    ``reduce`` as for ``GroupNormFn``."""
+    return GroupNormFn.apply(x, p.weight, p.bias, num_groups, eps, reduce)

@@ -7,6 +7,9 @@ Kernels (CUDA C++):
                                 csrc/temporal_attention.cu
   temporal_flash_attention_bwd  replaces _temporal_4d_bwd  (temporal_flash.py:190)
                                 csrc/temporal_attention_bwd.cu
+  temporal_flash_attention_global
+                                replaces _temporal_4d_bias (temporal_flash.py:361)
+                                csrc/temporal_attention.cu (K3's body)
 
 Every spatial site and head is an independent length-F sequence; the
 kernel keeps the native layout (no transpose, no head split, no [.., F, F]
@@ -17,6 +20,11 @@ design notes: see the .cu source.
 Under autograd a CUDA call goes through ``TemporalFlashAttentionFn``, the
 port of JAX's custom VJP (temporal_flash.py:286-305): the forward kernel
 saves only (q, k, v) and the fused backward kernel recomputes the scores.
+
+``temporal_flash_attention_global`` is the frame-sharded variant: q holds
+the Fq local frames [q_offset, q_offset + Fq) of a shard, K/V all Fk
+gathered frames, and the causal mask holds at global frame indices. It
+takes the VJP of its plain version, as JAX's does (``kernel_with_xla_vjp``).
 
 Each wrapper takes the plain PyTorch version only for CPU tensors; a CUDA
 tensor launches the kernel or raises.
@@ -151,3 +159,64 @@ class TemporalFlashAttentionFn(torch.autograd.Function):
         grads = temporal_flash_attention_bwd(q, k, v, dout.to(q.dtype).contiguous(), *ctx.args)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None, None)
+
+
+def temporal_flash_attention_global_plain(q, k, v, scale: float, heads: int, causal: bool,
+                                          q_offset: int):
+    """Plain PyTorch version: fp32 scores of the Fq local query frames
+    against all Fk frames, pair (f, g) kept iff g <= f + q_offset when
+    causal, fp32 softmax, P.V in the value dtype."""
+    b, fq, n, c = q.shape
+    fk = k.shape[1]
+    d = c // heads
+    q5 = q.reshape(b, fq, n, heads, d).float()
+    k5 = k.reshape(b, fk, n, heads, d).float()
+    v5 = v.reshape(b, fk, n, heads, d)
+    s = torch.einsum("bfnhd,bgnhd->bnhfg", q5, k5) * scale
+    if causal:
+        g = torch.arange(fk, device=q.device)
+        f = torch.arange(fq, device=q.device) + q_offset
+        s = s.masked_fill(g[None, :] > f[:, None], float("-inf"))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bnhfg,bgnhd->bfnhd", p, v5)
+    return out.reshape(b, fq, n, c)
+
+
+def temporal_flash_attention_global(q, k, v, scale: float, heads: int, causal: bool,
+                                    q_offset: int) -> torch.Tensor:
+    """Temporal attention of the local frames q [B, Fq, N, C], global frames
+    [q_offset, q_offset + Fq), over all frames k, v [B, Fk, N, C]; causal at
+    global frame indices. Differentiable through the plain version's VJP."""
+    from motioneditor_tpu_torch.ops.video_flash import KernelWithPlainVJP, needs_grad
+
+    q_offset = int(q_offset)
+    if q.device.type == "cpu":
+        return temporal_flash_attention_global_plain(q, k, v, scale, heads, causal, q_offset)
+    name = "temporal_flash_attention_global"
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or k.shape[0] != q.shape[0] \
+            or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and K/V {tuple(k.shape)} do not fit")
+    if not temporal_flash_supported(k.shape[1], q.shape[3], heads) or q_offset < 0:
+        raise ValueError(f"{name}: unsupported Fk={k.shape[1]}, C={q.shape[3]}, heads={heads}, "
+                         f"q_offset={q_offset}")
+    _build.check_operands(name, (q, k, v))
+    if needs_grad(q, k, v):
+        return KernelWithPlainVJP.apply(
+            lambda *t: _temporal_global_kernel(*t, scale, heads, causal, q_offset),
+            lambda *t: temporal_flash_attention_global_plain(*t, scale, heads, causal,
+                                                             q_offset), q, k, v)
+    return _temporal_global_kernel(q, k, v, scale, heads, causal, q_offset)
+
+
+def _temporal_global_kernel(q, k, v, scale, heads, causal, q_offset):
+    name = "temporal_flash_attention_global"
+    b, fq, n, c = q.shape
+    out = torch.empty_like(q)
+    code = _build.kernels().me_temporal_attention_global(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, fq, k.shape[1], n, heads, c // heads, float(scale), int(causal), q_offset,
+        _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
+    )
+    _build.check_status(name, code)
+    _build.launch_counts[name] += 1
+    return out

@@ -1,10 +1,16 @@
 """Packed-head video attention and fg/bg injection attention on [B, F, N, C]
 (port of motioneditor_tpu/ops/video_flash.py).
 
-Kernels (CUDA C++, ``csrc/video_attention.cu``, one body for both):
+Kernels (CUDA C++, ``csrc/video_attention.cu``, one body for all four):
 
-  video_flash_attention      replaces _video_flash       (video_flash.py:248)
-  video_injection_attention  replaces _video_injection   (video_flash.py:591)
+  video_flash_attention         replaces _video_flash         (video_flash.py:248)
+  video_injection_attention     replaces _video_injection     (video_flash.py:591)
+  video_flash_attention_kv      replaces _video_flash_kv      (video_flash.py:726)
+  video_injection_attention_kv  replaces _video_injection_kv  (video_flash.py:859)
+
+The ``_kv`` twins are the frame-sharded path's (parallel/flash_sharding.py):
+there the K/V source of every query frame is built outside the kernel with
+collectives and handed over explicitly as [B, Fk, M, C], Fk in {1, F}.
 
 Each takes q/k/v in the native token layout with heads as channel strides
 and selects the K/V source frames from its own block index:
@@ -27,12 +33,17 @@ kernels K5/K6, as JAX's ``flash_vjp_attention``); dense mode and the
 injection attention run their kernel forward and take the VJP of their
 plain version, recomputed in the backward (JAX's ``kernel_with_xla_vjp``,
 ops/diffable.py). The kernel's residual-saving forward is taken only when a
-gradient is needed: grad mode on and some input requiring grad.
+gradient is needed: grad mode on and some input requiring grad. The ``_kv``
+twins take the VJP of their plain versions too, as JAX's do (its
+``kernel_with_xla_vjp``, video_flash.py:804 and :927); their plain versions
+recompute one frame at a time in the backward (JAX's ``jax.checkpoint`` per
+frame), so no frame's score matrix outlives its own gradient.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from motioneditor_tpu_torch import _build
 from motioneditor_tpu_torch.ops.attention import (
@@ -216,3 +227,127 @@ def _video_injection_kernel(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale, head
     _build.check_status(name, code)
     _build.launch_counts[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# explicit-K/V twins (the frame-sharded path)
+# ---------------------------------------------------------------------------
+
+
+def video_flash_kv_supported(c: int, heads: int) -> bool:
+    """Shapes the explicit-K/V kernels take: any query and key token counts;
+    the head-dim rule of ``video_flash_supported``."""
+    return video_flash_supported(c, heads)
+
+
+def _per_frame(fn, *frames):
+    """``fn(*frames)``, recomputed in the backward when a gradient is taken
+    (JAX's ``jax.checkpoint`` around each frame of its oracle), so the plain
+    versions keep one frame's scores alive at a time."""
+    if needs_grad(*frames):
+        return torch.utils.checkpoint.checkpoint(fn, *frames, use_reentrant=False)
+    return fn(*frames)
+
+
+def video_flash_attention_kv_plain(q, k, v, scale: float, heads: int):
+    """Plain PyTorch version: query frame f attends over the M tokens of K/V
+    frame min(f, Fk - 1) (JAX's oracle, video_flash.py:795-799)."""
+    fk = k.shape[1]
+
+    def frame(qf, kf, vf):
+        return merge_heads(sdpa(split_heads(qf, heads), split_heads(kf, heads),
+                                split_heads(vf, heads), scale))
+
+    return torch.stack([_per_frame(frame, q[:, f], k[:, min(f, fk - 1)], v[:, min(f, fk - 1)])
+                        for f in range(q.shape[1])], dim=1)
+
+
+def _check_kv(name, q, heads, k, v):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: expected [B, F, N, C] and [B, Fk, M, C]")
+    b, f, _, c = q.shape
+    if not video_flash_kv_supported(c, heads):
+        raise ValueError(f"{name}: unsupported C={c} with {heads} heads")
+    if k.shape[0] != b or k.shape[1] not in (1, f) or k.shape[3] != c or v.shape != k.shape:
+        raise ValueError(f"{name}: K/V {tuple(k.shape)}, {tuple(v.shape)} do not fit q "
+                         f"{tuple(q.shape)} (Fk must be 1 or F)")
+
+
+def video_flash_attention_kv(q, k, v, scale: float, heads: int) -> torch.Tensor:
+    """Packed-head attention of q [B, F, N, C] over an explicit K/V source
+    [B, Fk, M, C], Fk in {1, F}: query frame f reads K/V frame
+    (Fk == 1 ? 0 : f). Returns q's shape and dtype; differentiable."""
+    if q.device.type == "cpu":
+        return video_flash_attention_kv_plain(q, k, v, scale, heads)
+    name = "video_flash_attention_kv"
+    _check_kv(name, q, heads, k, v)
+    _build.check_operands(name, (q, k, v))
+    if needs_grad(q, k, v):
+        return KernelWithPlainVJP.apply(
+            lambda *t: _video_kv_kernel(*t, None, None, None, scale, heads),
+            lambda *t: video_flash_attention_kv_plain(*t, scale, heads), q, k, v)
+    return _video_kv_kernel(q, k, v, None, None, None, scale, heads)
+
+
+def _video_kv_kernel(q, k, v, k_tgt, v_tgt, mask, scale, heads):
+    injection = mask is not None
+    name = "video_injection_attention_kv" if injection else "video_flash_attention_kv"
+    b, f, n, c = q.shape
+    fk, m = k.shape[1:3]
+    out = torch.empty_like(q)
+    code = _build.kernels().me_video_attention_kv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *(t.data_ptr() if injection else None for t in (k_tgt, v_tgt, mask)), out.data_ptr(),
+        b, f, n, fk, m, heads, c // heads, float(scale), int(injection),
+        _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
+    )
+    _build.check_status(name, code)
+    _build.launch_counts[name] += 1
+    return out
+
+
+def video_injection_attention_kv_plain(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale: float,
+                                       heads: int):
+    """Plain PyTorch version: per frame f, softmax over the concatenated keys
+    [K_src[f]*m, K_src[f]*(1-m), K_tgt[f]] with values [V_src[f], V_src[f],
+    V_tgt[f]]; m = mask[f], the fg mask of K_src[f]'s M tokens (JAX's oracle,
+    video_flash.py:913-925)."""
+
+    def frame(qf, ks, vs, kt, vt, m):
+        m = m[None, :, None].to(ks.dtype)
+        k_inj = torch.cat([ks * m, ks * (1.0 - m), kt], dim=1)
+        v_inj = torch.cat([vs, vs, vt], dim=1)
+        return merge_heads(sdpa(split_heads(qf, heads), split_heads(k_inj, heads),
+                                split_heads(v_inj, heads), scale))
+
+    return torch.stack([_per_frame(frame, q_tgt[:, f], k_src[:, f], v_src[:, f], k_tgt[:, f],
+                                   v_tgt[:, f], mask[f]) for f in range(q_tgt.shape[1])], dim=1)
+
+
+def video_injection_attention_kv(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale: float,
+                                 heads: int) -> torch.Tensor:
+    """fg/bg injection attention of the edit rows q_tgt [B, F, N, C] over an
+    explicit source K/V [B, F, M, C] whose fg mask ``mask`` [F, M] is aligned
+    with the source tokens (the halo-built [prev | cur] of the frame-sharded
+    path), then the target-row K/V [B, F, N, C] of the current frame.
+    Differentiable through the plain version's VJP."""
+    if q_tgt.device.type == "cpu":
+        return video_injection_attention_kv_plain(
+            q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale, heads)
+    name = "video_injection_attention_kv"
+    _check_kv(name, q_tgt, heads, k_src, v_src)
+    f = q_tgt.shape[1]
+    if k_src.shape[1] != f:
+        raise ValueError(f"{name}: the source K/V needs one frame per query frame")
+    _check_shapes(name, q_tgt, heads, k_tgt, v_tgt)
+    _build.check_operands(name, (q_tgt, k_src, v_src, k_tgt, v_tgt))
+    if mask.shape != (f, k_src.shape[2]):
+        raise ValueError(f"{name}: mask shape {tuple(mask.shape)} != {(f, k_src.shape[2])}")
+    mask = mask.to(torch.float32).contiguous()
+    _build.check_operands(name, (mask,), dtype=torch.float32)
+    args = (q_tgt, k_src, v_src, k_tgt, v_tgt, mask)
+    if needs_grad(*args):
+        return KernelWithPlainVJP.apply(
+            lambda q, ks, vs, kt, vt, m: _video_kv_kernel(q, ks, vs, kt, vt, m, scale, heads),
+            lambda *t: video_injection_attention_kv_plain(*t, scale, heads), *args)
+    return _video_kv_kernel(*args, scale, heads)

@@ -15,7 +15,9 @@ the adapter, fg/bg attention injection and temporal K/V injection; applies
 CFG and the DDIM step. The JAX ``lax.scan``/``while_loop`` loops are Python
 loops here. ``MotionEditorPipeline`` chains these phases from prompts and
 frames to frames, with the VAE and the CLIP text encoder. Prompt-to-prompt
-and local blend are not ported yet, and the port runs on one device.
+and local blend are not ported yet. ``denoise_segment`` also runs frame
+sharded over a process group (parallel/); inversion, null-text and the
+pipeline do not yet.
 """
 
 from __future__ import annotations
@@ -231,6 +233,7 @@ def denoise_segment(
     masks: Optional[Dict[Tuple[int, int], torch.Tensor]],
     use_flash: bool = True,
     seg_uncond: Optional[torch.Tensor] = None,
+    shard_ctx=None,
 ) -> torch.Tensor:
     """Run the denoise steps ``seg_ts`` (descending timesteps of a
     ``num_steps`` schedule) from ``latents`` [2, F, h, w, 4] = [recon, edit].
@@ -239,7 +242,14 @@ def denoise_segment(
     uncond embeddings [len(seg_ts), 1, L, D] from null-text inversion; step
     idx then uses seg_uncond[idx] broadcast to cond's shape in place of
     ``uncond``. cond_embedding: the ControlNet conditioning embedding of
-    both rows. Returns the latents after the last step."""
+    both rows. Returns the latents after the last step.
+
+    ``shard_ctx`` (parallel/mesh.FrameShardingCtx): the frame-sharded
+    segment (JAX ``_jit_denoise_segment`` with its shard_ctx): the latents,
+    ``cond_embedding`` and ``masks`` hold this rank's frames (the branch
+    axis stays whole: ``shard_video(..., branch_axis=True)``), and so do
+    the returned latents. The ControlNet is per frame and runs on them
+    unchanged; the UNet communicates over the frame group."""
     lat = latents
     for idx, t in enumerate(seg_ts):
         t = int(t)
@@ -256,7 +266,7 @@ def denoise_segment(
             unet, unet_config, latent_in, t, text_in,
             injection=injection_spec, injection_masks=masks,
             down_block_additional_residuals=down_res,
-            mid_block_additional_residual=mid4, use_flash=use_flash)
+            mid_block_additional_residual=mid4, use_flash=use_flash, shard_ctx=shard_ctx)
         eps_u, eps_c = eps.chunk(2, dim=0)
         eps_g = eps_u + guidance_scale * (eps_c - eps_u)
         lat = ddim_step(schedule, eps_g, t, lat, num_steps)

@@ -161,14 +161,39 @@ def make_train_state(model: nn.Module, trainable_modules: Sequence[str],
                       trainable=trainable)
 
 
-def draw_noise(latents: torch.Tensor, generator: torch.Generator, num_train_timesteps: int):
-    """The noise (latents' shape and dtype) and one timestep per batch row in
-    [0, num_train_timesteps) of one training step, drawn from ``generator``."""
-    noise = torch.randn(latents.shape, generator=generator, device=latents.device,
-                        dtype=latents.dtype)
-    t = torch.randint(0, num_train_timesteps, (latents.shape[0],), generator=generator,
+def draw_noise(latents: torch.Tensor, generator: torch.Generator, num_train_timesteps: int,
+               shape=None):
+    """The noise (latents' dtype; their shape, or ``shape``) and one
+    timestep per batch row in [0, num_train_timesteps) of one training step,
+    drawn from ``generator``."""
+    shape = tuple(latents.shape) if shape is None else tuple(shape)
+    noise = torch.randn(shape, generator=generator, device=latents.device, dtype=latents.dtype)
+    t = torch.randint(0, num_train_timesteps, (shape[0],), generator=generator,
                       device=latents.device)
     return noise, t
+
+
+def draw_noise_sharded(latents: torch.Tensor, generator: torch.Generator,
+                       num_train_timesteps: int, shard_ctx, draw=draw_noise):
+    """``draw`` at the global shape of the local ``latents`` block
+    [B/dp, F/fp, ...], then this rank's block of the noise and of the
+    timesteps: every rank draws from the same generator state, so the ranks
+    together draw what one unsharded step would."""
+    from motioneditor_tpu_torch.parallel.mesh import local_block, shard_video
+
+    b, f = latents.shape[:2]
+    shape = (b * shard_ctx.dp, f * shard_ctx.fp, *latents.shape[2:])
+    noise, t = draw(latents, generator, num_train_timesteps, shape)
+    return shard_video(noise, shard_ctx), local_block(t, 0, shard_ctx.dp, shard_ctx.data_rank)
+
+
+@torch.no_grad()
+def sum_over_world(tensors: Iterable[torch.Tensor]) -> None:
+    """All-reduce (sum) each tensor in place over every rank."""
+    import torch.distributed as dist
+
+    for t in tensors:
+        dist.all_reduce(t)
 
 
 def diffusion_target(schedule, latents, noise, timesteps, prediction_type: str):
@@ -182,5 +207,10 @@ def diffusion_target(schedule, latents, noise, timesteps, prediction_type: str):
     raise ValueError(prediction_type)
 
 
-def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return ((pred.float() - target.float()) ** 2).mean()
+def mse(pred: torch.Tensor, target: torch.Tensor, shard_ctx=None) -> torch.Tensor:
+    """The fp32 mean squared error; with ``shard_ctx``, this rank's share of
+    the global mean (the local sum over the global element count), so the
+    world's shares sum to it."""
+    if shard_ctx is None:
+        return ((pred.float() - target.float()) ** 2).mean()
+    return ((pred.float() - target.float()) ** 2).sum() / (pred.numel() * shard_ctx.world_size)

@@ -4,6 +4,14 @@ One-shot tune of the inflated UNet on the source video: everything frozen
 but attn1.to_q / attn2.to_q / attn_temp (train_bg.py:100-104), the DDPM
 epsilon (or velocity) regression loss (:328-343), AdamW with global-norm
 clipping (:202-208, :347-352).
+
+Frame-sharded (``shard_ctx``, parallel/mesh.py): each rank holds its block
+of the latents' batch and frames. The noise and timesteps are drawn at the
+global shape from the shared generator and sliced, each rank's loss is its
+share of the global mean, the reported loss is their sum over the world,
+and the trainables' gradients are summed over the world before the
+global-norm clip, so every rank takes the same optimizer step (JAX's
+GSPMD psum, stage1.py:31-75).
 """
 
 from __future__ import annotations
@@ -18,7 +26,9 @@ from motioneditor_tpu_torch.training.common import (
     TrainState,
     diffusion_target,
     draw_noise,
+    draw_noise_sharded,
     mse,
+    sum_over_world,
 )
 
 TRAINABLE_MODULES = ("attn1.to_q", "attn2.to_q", "attn_temp")
@@ -28,19 +38,20 @@ def stage1_loss(model: UNet3DConditionModel, unet_config: UNetConfig, latents: t
                 encoder_hidden_states: torch.Tensor, noise: torch.Tensor,
                 timesteps: torch.Tensor, schedule: DiffusionSchedule = DiffusionSchedule(),
                 prediction_type: str = "epsilon", use_flash: bool = True, remat: bool = True,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = None, shard_ctx=None) -> torch.Tensor:
     """The denoising loss of one micro-batch (stage1.py:58-75): noise the
     latents at ``timesteps``, run the UNet in ``compute_dtype`` (the
     parameters' dtype when None), and take the fp32 mean squared error
-    against the noise or the velocity."""
+    against the noise or the velocity; with ``shard_ctx``, this rank's share
+    of it from its local blocks."""
     noisy = ddpm_add_noise(schedule, latents, noise, timesteps)
     target = diffusion_target(schedule, latents, noise, timesteps, prediction_type)
     x_in, enc_in = noisy, encoder_hidden_states
     if compute_dtype is not None:
         x_in, enc_in = noisy.to(compute_dtype), enc_in.to(compute_dtype)
     pred = unet_apply(model, unet_config, x_in, timesteps, enc_in, use_flash=use_flash,
-                      remat=remat)
-    return mse(pred, target)
+                      remat=remat, shard_ctx=shard_ctx)
+    return mse(pred, target, shard_ctx)
 
 
 def train_step_stage1(
@@ -55,21 +66,36 @@ def train_step_stage1(
     remat: bool = True,
     compute_dtype: Optional[torch.dtype] = None,
     accum_steps: int = 1,
+    shard_ctx=None,
 ) -> Tuple[TrainState, dict]:
     """One optimizer step on ``state`` (updated in place and returned).
     latents: [B, F, h, w, 4] (VAE latents x 0.18215); encoder_hidden_states:
     [B, 77, 768]. Each of the ``accum_steps`` micro-batches draws its noise
     and timesteps from ``generator``; their losses and gradients are
     averaged (accelerator.accumulate, train_bg.py:312). Returns the mean
-    loss as a 0-d tensor on the device (no host synchronization)."""
+    loss as a 0-d tensor on the device (no host synchronization).
+    ``shard_ctx``: latents and encoder_hidden_states are this rank's blocks
+    (see the module docstring)."""
     state.optimizer.zero_grad()
     total = 0.0
     for _ in range(accum_steps):
-        noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)
+        if shard_ctx is None:
+            noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)
+        else:
+            noise, t = draw_noise_sharded(latents, generator, schedule.num_train_timesteps,
+                                          shard_ctx, draw_noise)
         loss = stage1_loss(state.model, unet_config, latents, encoder_hidden_states, noise, t,
-                           schedule, prediction_type, use_flash, remat, compute_dtype)
+                           schedule, prediction_type, use_flash, remat, compute_dtype,
+                           shard_ctx)
         (loss / accum_steps).backward()
         total = total + loss.detach()
+    if shard_ctx is not None:
+        params = state.optimizer.params()
+        for p in params:  # a trainable the loss does not reach sums zeros
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        total = total.clone()
+        sum_over_world([total] + [p.grad for p in params])
     state.optimizer.step()
     state.step += 1
     return state, {"loss": total / accum_steps}

@@ -11,7 +11,11 @@ backward); the split-head kernels (K8, K9) also take strided head-split
 views, K/V broadcast over frames, and head dims up to 256, d = 9 among
 them (element loads in place of 16-byte vectors). The norm kernels (K10
 pair statistics, K11 add + LayerNorm) run at the training path's shapes
-and ragged ones, with their own tolerances stated at each test. Forward
+and ragged ones, with their own tolerances stated at each test. The
+frame-sharded path's kernels (K12 explicit-K/V attention, K13 explicit-K/V
+injection, K14 global-offset temporal attention) run at the one-rank shapes
+of SD-1.5 at 64x64 latents and at the shard-local shapes of a 4-way frame
+split, forward and gradient through the wrapper. Forward
 outputs: fp32 runs with TF32 off, atol 2e-5; bf16 atol
 3e-2 plus rtol 1.6e-2 (torch's bf16 default: one bf16 ulp of an output of
 magnitude 4 is already 0.031), on inputs whose logits stay far below the
@@ -43,6 +47,16 @@ from motioneditor_tpu_torch.ops.video_flash import (
     video_flash_attention_plain,
     video_injection_attention,
     video_injection_attention_plain,
+)
+from motioneditor_tpu_torch.ops.temporal_flash import (
+    temporal_flash_attention_global,
+    temporal_flash_attention_global_plain,
+)
+from motioneditor_tpu_torch.ops.video_flash import (
+    video_flash_attention_kv,
+    video_flash_attention_kv_plain,
+    video_injection_attention_kv,
+    video_injection_attention_kv_plain,
 )
 from motioneditor_tpu_torch.ops.video_flash_bwd import (
     video_flash_bwd,
@@ -437,3 +451,166 @@ def test_add_layer_norm_gradients_and_rejections(device):
     x = torch.zeros((1, 1, 8, 1536), device=device)
     with pytest.raises(ValueError):
         add_layer_norm(torch.nn.LayerNorm(1536, device=device), x, x)
+
+
+# ---------------------------------------------------------------------------
+# K12-K14: the frame-sharded path's kernels
+# ---------------------------------------------------------------------------
+
+
+def _motion_frame_kv(x):
+    """[B, F, N, C] -> [B, F, 2N, C] = [prev | cur], frame 0's prev itself."""
+    prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+    return torch.cat([prev, x], dim=2).contiguous()
+
+
+# (B, F of q, N, C, heads, Fk, M): the one-rank shapes at 64x64 latents
+# (motion_frame K/V over 2N tokens, dense over all 8 frames), a 2-frame shard
+# of 8 frames, and ragged / other head-dim cases
+KV_SHAPES = [
+    (2, 8, 4096, 320, 8, 8, 8192),
+    (2, 8, 4096, 320, 8, 1, 32768),
+    (2, 2, 4096, 320, 8, 2, 8192),
+    (2, 2, 4096, 320, 8, 1, 32768),
+    (1, 3, 333, 640, 8, 3, 666),
+    (2, 3, 200, 32, 4, 1, 77),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,n,c,heads,fk,m", KV_SHAPES)
+def test_video_flash_kv_kernel(device, dtype, b, f, n, c, heads, fk, m):
+    gen = torch.Generator(device=device).manual_seed(20)
+    q = _rand((b, f, n, c), dtype, device, gen)
+    k, v = (_rand((b, fk, m, c), dtype, device, gen) for _ in range(2))
+    scale = (c // heads) ** -0.5
+    before = _build.launch_counts["video_flash_attention_kv"]
+    out = video_flash_attention_kv(q, k, v, scale, heads)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["video_flash_attention_kv"] == before + 1
+    ref = video_flash_attention_kv_plain(q, k, v, scale, heads)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,n,c,heads", [(2, 8, 4096, 320, 8), (2, 2, 4096, 320, 8),
+                                           (2, 3, 333, 640, 8), (1, 2, 200, 32, 4)])
+def test_video_injection_kv_kernel(device, dtype, b, f, n, c, heads):
+    gen = torch.Generator(device=device).manual_seed(21)
+    q, kt, vt = (_rand((b, f, n, c), dtype, device, gen) for _ in range(3))
+    ks, vs = (_rand((b, f, 2 * n, c), dtype, device, gen) for _ in range(2))
+    mask = (torch.rand((f, 2 * n), generator=gen, device=device) > 0.5).float()
+    scale = (c // heads) ** -0.5
+    before = _build.launch_counts["video_injection_attention_kv"]
+    out = video_injection_attention_kv(q, ks, vs, kt, vt, mask, scale, heads)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["video_injection_attention_kv"] == before + 1
+    ref = video_injection_attention_kv_plain(q, ks, vs, kt, vt, mask, scale, heads)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shard", [0, 1, 2, 3])
+def test_kv_kernels_on_a_4_way_split(device, dtype, shard):
+    """Each 2-frame shard of 8 frames, its explicit K/V sliced from the
+    global halo-built K/V, gives its slice of the unsharded K1 / K2 output."""
+    gen = torch.Generator(device=device).manual_seed(22)
+    b, f, n, c, heads = 2, 8, 1024, 320, 8
+    q, k, v, kt, vt = (_rand((b, f, n, c), dtype, device, gen) for _ in range(5))
+    mask = (torch.rand((f, n), generator=gen, device=device) > 0.5).float()
+    scale = (c // heads) ** -0.5
+    lo, hi = 2 * shard, 2 * shard + 2
+    k_mf, v_mf = _motion_frame_kv(k), _motion_frame_kv(v)
+    m_mf = torch.cat([torch.cat([mask[:1], mask[:-1]]), mask], dim=1)
+    got = video_flash_attention_kv(q[:, lo:hi].contiguous(), k_mf[:, lo:hi].contiguous(),
+                                   v_mf[:, lo:hi].contiguous(), scale, heads)
+    want = video_flash_attention(q, k, v, "motion_frame", scale, heads)[:, lo:hi]
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    dense = video_flash_attention_kv(q[:, lo:hi].contiguous(), k.reshape(b, 1, f * n, c),
+                                     v.reshape(b, 1, f * n, c), scale, heads)
+    want = video_flash_attention(q, k, v, "dense", scale, heads)[:, lo:hi]
+    torch.testing.assert_close(dense.float(), want.float(), **TOL[dtype])
+    inj = video_injection_attention_kv(
+        q[:, lo:hi].contiguous(), k_mf[:, lo:hi].contiguous(), v_mf[:, lo:hi].contiguous(),
+        kt[:, lo:hi].contiguous(), vt[:, lo:hi].contiguous(), m_mf[lo:hi], scale, heads)
+    want = video_injection_attention(q, k, v, kt, vt, mask, scale, heads)[:, lo:hi]
+    torch.testing.assert_close(inj.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,fq,fk,n,c,heads,offsets", [
+    (2, 8, 8, 4096, 320, 8, (0,)),          # one rank
+    (2, 2, 8, 4096, 320, 8, (0, 2, 4, 6)),  # the shards of a 4-way split
+    (1, 3, 24, 77, 640, 8, (0, 9, 21)),
+    (2, 1, 32, 64, 32, 4, (0, 31)),
+])
+def test_temporal_global_kernel(device, dtype, causal, b, fq, fk, n, c, heads, offsets):
+    gen = torch.Generator(device=device).manual_seed(23)
+    k, v = (_rand((b, fk, n, c), dtype, device, gen) for _ in range(2))
+    whole_q = _rand((b, fk, n, c), dtype, device, gen)
+    scale = (c // heads) ** -0.5
+    whole = temporal_flash_attention(whole_q, k, v, scale, heads, causal=causal)
+    for off in offsets:
+        q = whole_q[:, off:off + fq].contiguous()
+        before = _build.launch_counts["temporal_flash_attention_global"]
+        out = temporal_flash_attention_global(q, k, v, scale, heads, causal, off)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["temporal_flash_attention_global"] == before + 1
+        ref = temporal_flash_attention_global_plain(q, k, v, scale, heads, causal, off)
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+        # the shard's output is its slice of K3's over all frames
+        torch.testing.assert_close(out.float(), whole[:, off:off + fq].float(), **TOL[dtype])
+
+
+def _kv_grad_case(row, dtype, device, gen):
+    """(wrapper fn, plain fn, inputs, the kernel its forward launches)."""
+    b, f, n, c, heads = 2, 3, 200, 64, 4
+    scale = (c // heads) ** -0.5
+    if row in ("kv", "kv_dense"):
+        fk, m = (f, 2 * n) if row == "kv" else (1, f * n)
+        xs = [_rand((b, f, n, c), dtype, device, gen)] + [
+            _rand((b, fk, m, c), dtype, device, gen) for _ in range(2)]
+        return (lambda *t: video_flash_attention_kv(*t, scale, heads),
+                lambda *t: video_flash_attention_kv_plain(*t, scale, heads), xs,
+                "video_flash_attention_kv")
+    if row == "injection_kv":
+        xs = [_rand((b, f, m, c), dtype, device, gen) for m in (n, 2 * n, 2 * n, n, n)]
+        mask = (torch.rand((f, 2 * n), generator=gen, device=device) > 0.5).float()
+        return (lambda *t: video_injection_attention_kv(*t, mask, scale, heads),
+                lambda *t: video_injection_attention_kv_plain(*t, mask, scale, heads), xs,
+                "video_injection_attention_kv")
+    xs = [_rand((b, 2, n, c), dtype, device, gen)] + [
+        _rand((b, 8, n, c), dtype, device, gen) for _ in range(2)]
+    return (lambda *t: temporal_flash_attention_global(*t, scale, heads, True, 4),
+            lambda *t: temporal_flash_attention_global_plain(*t, scale, heads, True, 4), xs,
+            "temporal_flash_attention_global")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row", ["kv", "kv_dense", "injection_kv", "temporal_global"])
+def test_kv_wrapper_gradients_match_plain(device, dtype, row):
+    """K12-K14 under autograd: the kernel forward, the plain version's VJP."""
+    gen = torch.Generator(device=device).manual_seed(24)
+    fn, plain, xs, kernel = _kv_grad_case(row, dtype, device, gen)
+    xs = [x.requires_grad_() for x in xs]
+    _build.reset_launch_counts()
+    out = fn(*xs)
+    got = torch.autograd.grad(out.float().pow(2).sum(), xs)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {kernel: 1}
+    ref = torch.autograd.grad(plain(*xs).float().pow(2).sum(), xs)
+    assert_grads_close(got, ref, dtype)
+
+
+def test_kv_wrappers_reject_bad_operands(device):
+    q = torch.zeros((1, 2, 64, 32), device=device)
+    with pytest.raises(ValueError):  # Fk must be 1 or F
+        video_flash_attention_kv(q, torch.zeros((1, 3, 64, 32), device=device), q, 0.35, 4)
+    with pytest.raises(ValueError):  # the mask must cover the source tokens
+        video_injection_attention_kv(q, q, q, q, q, torch.zeros((2, 63), device=device), 0.35, 4)
+    kv = torch.zeros((1, 33, 64, 32), device=device)
+    with pytest.raises(ValueError):  # more than 32 K/V frames
+        temporal_flash_attention_global(q, kv, kv, 0.35, 4, True, 0)
+    with pytest.raises(TypeError):
+        temporal_flash_attention_global(q.half(), q.half(), q.half(), 0.35, 4, True, 0)
