@@ -4,7 +4,10 @@
 
 Phases, each raising on failure:
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile csrc/*.cu for sm_90a from this checkout
+  2. build    compile csrc/*.cu for sm_90a from this checkout; print the
+              registers and spills ptxas reports for the tensor-core
+              attention kernels and count the tensor-core instructions
+              (HGMMA, HMMA) in their SASS when cuobjdump is on the host
   3. kernels  each forward CUDA kernel against its plain PyTorch version on
               the card, at the denoise step's shapes (B=2, F=8, (N, C) in
               {(4096, 320), (1024, 640)}, 8 heads) in bf16 and fp32 (TF32
@@ -13,7 +16,12 @@ Phases, each raising on failure:
               path's shapes (q [2, 8, 8, N, d], K/V over 2N keys, (N, d) in
               {(4096, 40), (1024, 80)}); one PyTorch library call where one
               computes the same function (scaled_dot_product_attention for
-              K8, K1's normal mode and K3 causal), timed as a yardstick
+              K8, for K1 motion_frame on split-head views of q against the
+              [f-1 | f] K/V built before the timing, and for K3 causal),
+              timed as a yardstick; in bf16, K1 and K8 run their tensor-core
+              body (csrc/attention_tc.cu), whose TFLOP/s and share of its
+              bound are printed at every shape, and whose errors are also
+              held to limits scaled to the reference (TC_ERR_LIMITS)
   3b. bwd     the backward kernels (K4 residual-saving forward, K5 dq, K6
               dk/dv partials, K7 temporal) against their plain versions and
               autograd of the plain forward, at the null-text shapes (B=1,
@@ -23,7 +31,9 @@ Phases, each raising on failure:
               (UNet + adapter + ControlNet, random init from a seed), bf16,
               512px, 8 frames, injection from block 10, 3 steps over
               timesteps[4:7]; asserts finite output and the per-step kernel
-              launch counts, prints ms per step
+              launch counts (every K1 launch on the tensor-core body),
+              prints ms per step; then one more step under torch.profiler:
+              the device's busy share and kernel time per bucket
   5. check    a tiny fp32 segment whose level-0 attention reaches the
               kernels, kernel path against the plain path on the card
   5b. check   a tiny fp32 null-text inversion (32x32 latents, 2 steps, 2
@@ -44,7 +54,9 @@ Phases, each raising on failure:
               injected); asserts a finite [2, 8, 512, 512, 3] video in
               [0, 1] and the launch counts, prints the time of each part
   8. auto     the denoise segment in auto-mask mode at full width, bf16, 3
-              steps; asserts the per-step launch counts, prints ms per step
+              steps; asserts the per-step launch counts (every K1 and K8
+              launch on the tensor-core body), prints ms per step, profiles
+              one more step as phase 4 does
   8b. check   tiny fp32 checks, kernel path against plain path: an auto
               segment (K8 at its real call site) and the split-head branch
               of the mask injection at a head dim the packed kernels
@@ -76,7 +88,9 @@ Phases, each raising on failure:
               a 4-way frame split (K14 at offsets 0, 2, 4, 6; K12 / K13 on
               K/V sliced from the global tensors), also held to its slice of
               the one-rank output; SDPA timed as the yardstick of K12 and,
-              with a boolean mask, of K14
+              with a boolean mask, of K14; K12's bf16 time is printed beside
+              K1's on the same work (the CUDA-core body against the
+              tensor-core one)
   11. shard   the frame-sharded path at full width in a one-rank NCCL
               process group: the injected denoise segment, bf16, 3 steps
               after a warm-up step, then one stage-1 step after a warm-up
@@ -110,41 +124,52 @@ MODES = ("normal", "sparse_causal", "motion_frame", "dense")
 BWD_MODES = ("normal", "sparse_causal", "motion_frame")
 NULL_STEPS = 5  # phase 6's schedule
 LOGIT_CAP = 60.0  # the JAX bf16 kernels' score clamp (ops/video_flash.py _CAP)
+# K1 and K8 launches in bf16 take the tensor-core body (csrc/attention_tc.cu)
+# and count again as "<name>.tc"; every full-width path below runs in bf16
+TC_KERNELS = ("video_flash_attention", "flash_attention")
+
+
+def tc(per_step: dict) -> dict:
+    """``per_step`` with the tensor-core sub-counts of a bf16 path: each K1
+    and K8 launch there must have taken the tensor-core body."""
+    return {**per_step, **{f"{k}.tc": n for k, n in per_step.items() if k in TC_KERNELS}}
+
 
 # per denoise step: UNet blocks 0-3 (4) + source rows of blocks 10-15 (6)
 # + ControlNet blocks 0-3 (4) + adapter blocks 0-5 x (attn_temp, attn_pose) (12)
-EXPECTED_PER_STEP = {
+EXPECTED_PER_STEP = tc({
     "video_flash_attention": 26,
     "video_injection_attention": 6,  # edit rows of blocks 10-15
     "temporal_flash_attention": 16,  # UNet blocks 0-3, 10-15 (10) + adapter 0-5 (6)
-}
+})
 # per inversion step (batch 1, no ControlNet or adapter): UNet blocks 0-3 and
 # 10-15 (64x64 and 32x32); the 16x16 and 8x8 sites stay under the size gates
-EXPECTED_PER_INVERSION_STEP = {"video_flash_attention": 10, "temporal_flash_attention": 10}
+EXPECTED_PER_INVERSION_STEP = tc({"video_flash_attention": 10,
+                                  "temporal_flash_attention": 10})
 # per null-text step (inner_steps 1): 2 forwards without grad (eps_cond and the
 # latent advance) + 1 forward under grad and its backward. In the grad forward
 # block 0's attn1 precedes every cross-attention, so nothing there depends on
 # the embedding and it launches K1; the other 9 attn1 sites and all 10
 # attn_temp sites (each after a cross-attention) take the grad path.
-EXPECTED_PER_NULL_STEP = {
+EXPECTED_PER_NULL_STEP = tc({
     "video_flash_attention": 21,
     "video_flash_fwd_res": 9,
     "video_flash_bwd_dq": 9,
     "video_flash_bwd_dkv": 9,
     "temporal_flash_attention": 30,
     "temporal_flash_attention_bwd": 10,
-}
+})
 # per auto-mode segment step: UNet blocks 0-3 (4) + ControlNet 0-3 (4) + adapter
 # 0-5 x 2 (12); blocks 10-15 run K8 three times each (source rows, fg, bg)
-EXPECTED_PER_AUTO_STEP = {
+EXPECTED_PER_AUTO_STEP = tc({
     "video_flash_attention": 20,
     "temporal_flash_attention": 16,
     "flash_attention": 18,
-}
+})
 PIPE_STEPS, PIPE_START = 5, 3  # phase 7: 3 vanilla steps, then 2 injected
 # a vanilla step launches what an injected one does, but for K2: blocks 10-15
 # run K1 on all four rows instead of K1 on the source rows and K2 on the edit rows
-EXPECTED_PER_VANILLA_STEP = {"video_flash_attention": 26, "temporal_flash_attention": 16}
+EXPECTED_PER_VANILLA_STEP = tc({"video_flash_attention": 26, "temporal_flash_attention": 16})
 AUTO_SHAPES = ((4096, 40), (1024, 80))  # (N, d) of the auto path's K8 / K9 calls
 # K10 [B, S, C] at 512 px and 8 frames: a pooled level-0 resnet GroupNorm, the
 # per-frame transformer one, the widest up-block input; K11 [B, F, N, C] at the
@@ -166,11 +191,11 @@ EXPECTED_PER_STAGE1_STEP = {
 # (no grad) K1 4, K3 4; the adapter (blocks 0-5 gated) K4 12, K3 6; the up
 # path K4 6 + 6 recomputed, K3 6 + 6; backward K5 / K6 12 + 6, K7 6 + 6; K10
 # 61 forward + 33 recomputed + 34 backward; K11 30 forward + 18 recomputed
-EXPECTED_PER_STAGE2_STEP = {
+EXPECTED_PER_STAGE2_STEP = tc({
     "video_flash_attention": 8, "video_flash_fwd_res": 24, "video_flash_bwd_dq": 18,
     "video_flash_bwd_dkv": 18, "temporal_flash_attention": 22,
     "temporal_flash_attention_bwd": 12, "channel_pair_stats": 155, "add_layer_norm": 56,
-}
+})
 NORM_KERNELS = ("channel_pair_stats", "add_layer_norm")
 KV_KERNELS = ("video_flash_attention_kv", "video_injection_attention_kv",
               "temporal_flash_attention_global")
@@ -180,10 +205,10 @@ SPLIT = 4  # the frame split whose shard-local shapes phase 3d checks
 # adapter blocks 0-5 K12 (attn_temp, sparse_causal: 6), K1 (the per-frame
 # cross attention: 6) and K14 (6); the ControlNet K1 (4); K14 at UNet blocks
 # 0-3 and 10-15 (10). No K2 or K3.
-EXPECTED_PER_SHARDED_STEP = {
+EXPECTED_PER_SHARDED_STEP = tc({
     "video_flash_attention": 10, "video_flash_attention_kv": 16,
     "video_injection_attention_kv": 6, "temporal_flash_attention_global": 16,
-}
+})
 # per sharded stage-1 step, gradient checkpointing on, knobs off: the 10 gated
 # attn1 sites launch K12 in the forward and again in the recompute, the 10
 # gated attn_temp sites K14 likewise; their gradients are the plain VJPs
@@ -193,7 +218,7 @@ EXPECTED_PER_SHARDED_STAGE1_STEP = {
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense (no tensor cores in fp32)
 PEAK_BYTES = 3.35e12
 KERNEL_INFO = {
-    "video_flash_attention": ("motioneditor_tpu_torch/csrc/video_attention.cu",
+    "video_flash_attention": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                               "motioneditor_tpu/ops/video_flash.py:248"),
     "video_injection_attention": ("motioneditor_tpu_torch/csrc/video_attention.cu",
                                   "motioneditor_tpu/ops/video_flash.py:591"),
@@ -207,7 +232,7 @@ KERNEL_INFO = {
                             "motioneditor_tpu/ops/video_flash_bwd.py:437"),
     "temporal_flash_attention_bwd": ("motioneditor_tpu_torch/csrc/temporal_attention_bwd.cu",
                                      "motioneditor_tpu/ops/temporal_flash.py:190"),
-    "flash_attention": ("motioneditor_tpu_torch/csrc/split_attention.cu",
+    "flash_attention": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                         "motioneditor_tpu/ops/flash_attention.py:222"),
     "fused_injection_attention": ("motioneditor_tpu_torch/csrc/split_attention.cu",
                                   "motioneditor_tpu/ops/injection_flash.py:268"),
@@ -255,6 +280,29 @@ def tolerance(dtype):
     return dict(atol=2e-5, rtol=0.0) if dtype == torch.float32 else dict(atol=3e-2, rtol=1.6e-2)
 
 
+# The tensor-core bodies' bf16 outputs are also held to the scale of what is
+# compared: on these inputs (logits ~N(0, 1)) an output's RMS is about
+# sqrt(e / keys), 0.009-0.036 at the shapes here, under the atol of
+# tolerance(). Limits on max |out - ref| / max |ref| and on
+# ||out - ref|| / ||ref||: about 2.7x and 3.2x the largest readings of a
+# right kernel on the H100 (PERF.md), while an output missing one 64-key
+# tile per pass, or one frame of dense keys, exceeds both
+# (tests/test_torch_attention_tolerance.py).
+TC_ERR_LIMITS = {"max": 0.02, "rms": 0.01}
+
+
+def scaled_error(out, ref) -> dict:
+    """max |out - ref| / max |ref| and ||out - ref|| / ||ref||; raises past
+    ``TC_ERR_LIMITS``."""
+    diff, ref = out.float() - ref.float(), ref.float()
+    got = {"max": (diff.abs().max() / ref.abs().max()).item(),
+           "rms": (diff.norm() / ref.norm()).item()}
+    for key, limit in TC_ERR_LIMITS.items():
+        if not got[key] <= limit:
+            raise AssertionError(f"{key} error {got[key]:.3e} of the reference's > {limit}")
+    return got
+
+
 def logit_bound(q, k, heads: int, scale: float) -> float:
     """Upper bound on |q.k| * scale over all head pairs (Cauchy-Schwarz)."""
     b, f, n, c = q.shape
@@ -297,6 +345,13 @@ def library_time(dtype, ref, fn) -> float:
 
     torch.testing.assert_close(fn().float(), ref.float(), **tolerance(dtype))
     return time_ms(fn)
+
+
+def scaled_line(r: dict, got: dict) -> str:
+    """Keeps the largest scaled errors in ``r`` and returns them for the log."""
+    for key, value in got.items():
+        r[f"scaled_{key}_err"] = max(r.get(f"scaled_{key}_err", 0.0), value)
+    return f", scaled errors max {got['max']:.3e} rms {got['rms']:.3e}"
 
 
 def split_logit_bound(q, k, scale: float) -> float:
@@ -363,23 +418,36 @@ def phase_kernels(device):
                 ref = plain_fn()
                 err = (out.float() - ref.float()).abs().max().item()
                 torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
-                ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
                 dt = str(dtype).replace("torch.", "")
                 r = results[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 main_bf16 = dtype == torch.bfloat16 and n == 4096
+                bf16 = dtype == torch.bfloat16
                 lib = ""
-                if main_bf16 and variant in ("normal", "causal"):
+                if bf16 and name == "video_flash_attention":  # the tensor-core body
+                    lib = scaled_line(r, scaled_error(out, ref))
+                ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+                if bf16 and (variant == "motion_frame" or (main_bf16 and variant == "causal")):
                     # the library call gets its layout for free: split-head views of
-                    # q, k, v, or [B*N, H, F, d] copies made before the timing
-                    view = split if variant == "normal" else temporal
-                    lq, lk, lv = view(q), view(k), view(v)
+                    # q against the [f-1 | f] K/V of every frame, or [B*N, H, F, d]
+                    # copies, made before the timing
+                    if variant == "motion_frame":  # the same work: 2N keys per query frame
+                        lq, lk, lv = split(q), split(motion_frame_kv(k)), split(motion_frame_kv(v))
+                        lref = split(ref)
+                    else:
+                        lq, lk, lv, lref = temporal(q), temporal(k), temporal(v), temporal(ref)
                     lib_fn = lambda: library_sdpa(  # noqa: E731
                         lq, lk, lv, is_causal=variant == "causal", scale=scale)
-                    r["library_ms"] = library_time(dtype, view(ref), lib_fn)
-                    del lq, lk, lv
-                    r["library_at"] = f"bf16 B=2 F={FRAMES} N={n} C={c} {variant}"
-                    lib = f", library {r['library_ms']:.3f} ms"
+                    lib_ms = library_time(dtype, lref, lib_fn)
+                    del lq, lk, lv, lref
+                    if main_bf16:
+                        r["library_ms"] = lib_ms
+                        r["library_at"] = f"bf16 B=2 F={FRAMES} N={n} C={c} {variant}"
+                    lib += f", library {lib_ms:.3f} ms"
+                if bf16 and variant == "motion_frame":  # the tensor-core body's rate
+                    b_ = bound(video_work(name, variant, q), nbytes(q, k, v, q), dtype)
+                    lib += (f", {b_['flops'] / ms / 1e9:.1f} TFLOP/s, "
+                            f"{100 * b_['bound_ms'] / ms:.1f}% of its bound")
                 del out, ref
                 log(f"[kernels] {name} {variant} {dt} N={n} C={c}: max_abs_err={err:.3e} "
                     f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}")
@@ -437,17 +505,23 @@ def phase_split_kernels(device, gen):
                 ref = plain_fn()
                 err = (out.float() - ref.float()).abs().max().item()
                 torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
-                ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
                 r = results[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 lib = ""
+                if dtype == torch.bfloat16 and name == "flash_attention":  # tensor cores
+                    lib = scaled_line(r, scaled_error(out, ref))
+                ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
                 if name == "flash_attention":
                     lib_fn = lambda: library_sdpa(q.flatten(0, 1), k.flatten(0, 1),  # noqa: E731
                                                   v.flatten(0, 1), scale=scale)
                     lib_ms = library_time(dtype, ref.flatten(0, 1), lib_fn)
-                    lib = f", library {lib_ms:.3f} ms"
+                    lib += f", library {lib_ms:.3f} ms"
                     if main:
                         r["library_ms"], r["library_at"] = lib_ms, at
+                    if dtype == torch.bfloat16:  # the tensor-core body's rate
+                        b_ = bound(flops, moved, dtype)
+                        lib += (f", {flops / ms / 1e9:.1f} TFLOP/s, "
+                                f"{100 * b_['bound_ms'] / ms:.1f}% of its bound")
                 del out, ref
                 log(f"[kernels] {name} {at}: max_abs_err={err:.3e} kernel {ms:.3f} ms, "
                     f"plain {plain_ms:.3f} ms{lib}")
@@ -675,9 +749,11 @@ def phase_slice(device):
         if launches.get(name, 0) != per_step * len(steps):
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches, expected "
                                  f"{per_step} per step x {len(steps)}")
+    prof = profile_step(lambda: run(all_ts[4:5]))
+    log(f"[slice] one more step under torch.profiler: {json.dumps(prof)}")
     del unet, cn, out
     torch.cuda.empty_cache()
-    return launches, ms_per_step
+    return launches, ms_per_step, prof
 
 
 def build_tiny_models(device, seed: int):
@@ -1018,7 +1094,9 @@ def phase_auto(device, unet, cn):
     if out.shape != lat.shape or not torch.isfinite(out).all():
         raise AssertionError("auto segment output is not finite")
     expect_counts("auto", launches, EXPECTED_PER_AUTO_STEP, len(steps))
-    return launches, ms_per_step
+    prof = profile_step(lambda: run(all_ts[4:5]))
+    log(f"[auto] one more step under torch.profiler: {json.dumps(prof)}")
+    return launches, ms_per_step, prof
 
 
 def phase_split_check(device):
@@ -1573,6 +1651,90 @@ def device_busy_share(fn) -> dict:
     return {"compute": union_seconds(compute) / wall, "nccl": union_seconds(nccl) / wall}
 
 
+# device-time buckets of a profiled step: the first whose substrings the
+# kernel's name contains (lower case)
+PROFILE_BUCKETS = (
+    ("K1/K8 tensor-core body (attention_tc)", ("attention_tc",)),
+    ("K2 and CUDA-core K1 (video_attention_kernel)", ("video_attention_kernel",)),
+    ("K3 temporal_attention_kernel", ("temporal_attention",)),
+    ("K8/K9 CUDA-core body (split_attention_kernel)", ("split_attention",)),
+    ("cuBLAS / CUTLASS matmuls", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
+    ("cuDNN convs (+ layout kernels)", ("conv", "cudnn", "implicit", "nchw", "nhwc")),
+    ("copies / cat / index", ("copy", "cat", "index", "gather", "scatter")),
+    ("norm and other reductions", ("norm", "welford", "reduce")),
+    ("softmax", ("softmax",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "pointwise")),
+)
+
+
+def profile_step(fn) -> dict:
+    """One call of ``fn`` (one step, ending in a synchronize) under
+    torch.profiler: wall ms, the device's busy share (the union of kernel
+    intervals over the wall time) and kernel time in ms per bucket."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    buckets: dict = {}
+    for e in kernels:
+        name = e.name.lower()
+        bucket = next((b for b, keys in PROFILE_BUCKETS if any(k in name for k in keys)),
+                      "other")
+        buckets[bucket] = buckets.get(bucket, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    busy = union_seconds([(e.time_range.start, e.time_range.end) for e in kernels]) / wall
+    return {"wall_ms": wall * 1e3, "busy_share": busy, "kernel_ms": sum(buckets.values()),
+            "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1]))}
+
+
+def sass_mma_counts(library) -> dict:
+    """Tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) in the SASS of
+    each tensor-core attention kernel of ``library``; empty when the host
+    has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif fn and "attention_tc" in fn:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0})[op] += 1
+    return counts
+
+
+def ptxas_usage(build_log: str) -> dict:
+    """Registers and spilled bytes of each tensor-core attention kernel, from
+    the ``-Xptxas -v`` lines of the build log."""
+    import re
+
+    usage: dict = {}
+    fn = None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?$", line)
+        if m:
+            fn = m.group(1) if "attention_tc" in m.group(1) else None
+        elif fn and (m := re.search(r"(\d+) bytes spill stores", line)):
+            usage.setdefault(fn, {})["spill_bytes"] = int(m.group(1))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            usage.setdefault(fn, {})["registers"] = int(m.group(1))
+    return usage
+
+
 def shard_or_keep(ctx):
     """``shard_video`` over ``ctx``, or the identity when ``ctx`` is None."""
     from motioneditor_tpu_torch.parallel.mesh import shard_video
@@ -1812,8 +1974,14 @@ def main() -> int:
     path, build_log = _build.build()
     if build_log:
         (path.parent / "build.log").write_text(build_log)
+    elif (path.parent / "build.log").is_file():
+        build_log = (path.parent / "build.log").read_text()
     _build.kernels()
     log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] ptxas registers and spills of attention_tc: "
+        f"{json.dumps(ptxas_usage(build_log))}")
+    log(f"[build] tensor-core instructions in the SASS of attention_tc: "
+        f"{json.dumps(sass_mma_counts(path)) or 'cuobjdump not on this host'}")
 
     t0 = time.perf_counter()
     results = phase_kernels(device)
@@ -1828,14 +1996,18 @@ def main() -> int:
     t0 = time.perf_counter()
     results.update(phase_kv_kernels(device))
     log(f"[kv] done in {time.perf_counter() - t0:.1f} s")
-    launches, ms_per_step = phase_slice(device)
+    k1, k12 = results["video_flash_attention"], results["video_flash_attention_kv"]
+    log(f"[kv] the same work, bf16 q [2, {FRAMES}, 4096, 320] against 2N keys per frame: "
+        f"K12 (the CUDA-core body) {k12['ms']:.3f} ms, K1 (the tensor-core body) "
+        f"{k1['ms']:.3f} ms, SDPA {k1['library_ms']:.3f} ms")
+    launches, ms_per_step, slice_profile = phase_slice(device)
     phase_check(device)
     phase_null_check(device)
     paths, null_metrics = phase_null_text(device)
     paths["denoise"] = launches
     unet, cn, pipe_paths, pipe_metrics = phase_pipeline(device)
     paths.update(pipe_paths)
-    paths["auto"], auto_ms = phase_auto(device, unet, cn)
+    paths["auto"], auto_ms, auto_profile = phase_auto(device, unet, cn)
     del unet, cn
     torch.cuda.empty_cache()
     paths["split_head"] = phase_split_check(device)
@@ -1872,11 +2044,13 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "at": r["at"],
             "library_at": r.get("library_at"), "flops": r["flops"], "bytes": r["bytes"],
+            **{k: v for k, v in r.items() if k.startswith("scaled_")},
         })
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
                       "train": train_metrics, "norm_yardsticks": yardsticks,
                       "sharded": shard_metrics,
+                      "profiles": {"denoise": slice_profile, "auto": auto_profile},
                       "launches_by_path": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

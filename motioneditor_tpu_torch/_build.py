@@ -117,6 +117,12 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, mode, dtype, stream
     ]
     lib.me_video_attention.restype = i32
+    lib.me_video_attention_tc.argtypes = [
+        ptr, ptr, ptr, ptr,                 # q, k, v, out
+        i32, i32, i32, i32, i32,            # B, F, N, H, d
+        f32, i32, ptr,                      # scale, mode, stream
+    ]
+    lib.me_video_attention_tc.restype = i32
     lib.me_video_attention_kv.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, k2, v2, mask, out
         i32, i32, i32, i32, i32, i32, i32,  # B, F, N, Fk, M, H, d
@@ -168,6 +174,13 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, mode, dtype, stream
     ]
     lib.me_split_attention.restype = i32
+    lib.me_split_attention_tc.argtypes = [
+        ptr, ptr, ptr, ptr,                 # q, k, v, out
+        ctypes.POINTER(ctypes.c_longlong),  # 12 strides: (G, H, N) of q, k, v, out
+        i32, i32, i32, i32, i32,            # G, H, Nq, Nk, d
+        f32, ptr,                           # scale, stream
+    ]
+    lib.me_split_attention_tc.restype = i32
     lib.me_pair_stats_chunks.argtypes = [i32]  # S
     lib.me_pair_stats_chunks.restype = i32
     lib.me_pair_stats.argtypes = [

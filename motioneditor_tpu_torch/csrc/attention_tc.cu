@@ -1,0 +1,157 @@
+// bf16 tensor-core bodies of the packed video attention (K1) and the
+// split-head flash attention (K8); the mainloop is attention_tc.cuh.
+//
+// Replaces (TPU / Pallas):
+//   K1  motioneditor_tpu/ops/video_flash.py  _video_flash
+//       (_kernel_nomax / _kernel_maxsafe, pallas_call at video_flash.py:248)
+//       here in bf16 with d % 8 == 0, d <= 160; fp32 stays on the CUDA-core
+//       body of video_attention.cu
+//   K8  motioneditor_tpu/ops/flash_attention.py  _flash_3d
+//       (_flash_kernel / _flash_kernel_nomax, pallas_call at flash_attention.py:222)
+//       here in bf16 when every row is 16-byte aligned, d % 8 == 0 and
+//       d <= 160; the rest stays on split_attention.cu
+// The routing rule lives in Python (ops/video_flash.py tensor_core_body),
+// so the wrappers decide which body a launch takes; these entry points
+// refuse what they cannot take rather than fall back.
+//
+// What it computes: softmax(q k^T * scale) v per (query row, head), exactly
+// as the CUDA-core bodies do (an exact online softmax, running max in fp32,
+// scores in log2 units), with P rounded to bf16 before P.V as the plain
+// version rounds its probabilities to the value dtype.
+//   K1  q, k, v, out [B, F, N, C], heads as a channel stride (C = H * d);
+//       query frame f reads the K/V frames of its mode, N keys each:
+//       normal [f] | sparse_causal [0, f-1] | motion_frame [f-1, f] |
+//       dense [0..F-1], f-1 clamped to 0 (frame 0 reads frame 0 twice and
+//       the duplicated keys keep their doubled weight).
+//   K8  [G, H, N, D] views given by element strides, D contiguous; K/V may
+//       broadcast over G (stride 0), the output is written through its
+//       strides (the packed [..., N, H, D] order of the wrapper).
+//
+// What bounds it on the H100. At the main path's shapes (N = 1024-4096
+// queries against 2N keys, d = 40-80) attention is compute-bound: 4 * d
+// flops per (query, key) against 4 * d bytes per key shared by a block's
+// 128-256 queries. Both products run on the tensor cores as asynchronous warpgroup
+// MMAs (wgmma, bf16 in, fp32 out) on tiles that TMA brings into shared
+// memory while the previous ones are in use, and each warpgroup
+// exponentiates tile t while the tensor cores run tile t-1's P.V. Left: at
+// d = 40 the padded depth 48 wastes 1/6 of the mma work, and the softmax's
+// exp2 (one MUFU op per score, 16 per clock per SM) costs more than the two
+// products; the warpgroups are not scheduled against each other (no
+// ping-pong), and the 16-byte column boxes fetch each 32-byte sector twice.
+#include "attention_tc.cuh"
+
+namespace {
+
+using me_tc::bf16;
+using me_tc::Params;
+using me_tc::View;
+
+// cuTensorMapEncodeTiled, looked up in libcuda at first use (no -lcuda at link time)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) ptr = nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+bool aligned(const View& x) {
+  return reinterpret_cast<uintptr_t>(x.ptr) % 16 == 0 && x.sg % 8 == 0 && x.sh % 8 == 0 &&
+         x.sn % 8 == 0;
+}
+
+// a 4-D map (D, N, H, G) of the view, box {8 columns, rows, 1, 1}, rows past
+// N zero-filled. A view broadcast over G (stride 0) gets G = 1 and a stride
+// that is never stepped.
+bool encode(CUtensorMap* map, const View& x, int G, int H, int N, int d, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const long long sg = x.sg != 0 ? x.sg : (x.sn * N > x.sh * H ? x.sn * N : x.sh * H);
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)N, (cuuint64_t)H,
+                              (cuuint64_t)(x.sg != 0 ? G : 1)};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.sn * 2, (cuuint64_t)x.sh * 2, (cuuint64_t)sg * 2};
+  const cuuint32_t box[4] = {8, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x.ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool head_dim_ok(int d) { return d >= 8 && d % 8 == 0 && d <= me_tc::MAX_D; }
+
+// q, k, v, out as [G, H, N, D] views; K/V hold Nk keys per group and pass
+cudaError_t run(const View& q, const View& k, const View& v, const View& out, int G, int H,
+                int Nq, int Nk, int d, float scale, int npass, int video_mode, int F,
+                cudaStream_t stream) {
+  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) || (k.sg == 0) != (v.sg == 0))
+    return cudaErrorInvalidValue;
+  const int kv_groups = video_mode >= 0 ? G : (k.sg == 0 ? 1 : G);
+  Params p{};
+  if (!encode(&p.mk, k, kv_groups, H, Nk, d, me_tc::BK) ||
+      !encode(&p.mv, v, kv_groups, H, Nk, d, me_tc::BK))
+    return cudaErrorInvalidValue;
+  p.out = const_cast<bf16*>(out.ptr);
+  p.osg = out.sg;
+  p.osh = out.sh;
+  p.osn = out.sn;
+  p.Nq = Nq;
+  p.Nk = Nk;
+  p.d = d;
+  p.scale_log2 = scale * me::kLog2e;
+  p.npass = npass;
+  p.video_mode = video_mode;
+  p.F = F;
+  p.kv_bcast = k.sg == 0;
+  return me_tc::with_padded_dim(d, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    if (!encode(&p.mq, q, G, H, Nq, d, me_tc::Shape<DP>::BQ)) return cudaErrorInvalidValue;
+    return me_tc::launch<DP>(p, H, G, stream);
+  });
+}
+
+}  // namespace
+
+// K1, bf16. mode: 0 normal, 1 sparse_causal, 2 motion_frame, 3 dense.
+// Returns a cudaError_t code (0 = launched).
+extern "C" int me_video_attention_tc(const void* q, const void* k, const void* v, void* out,
+                                     int B, int F, int N, int H, int d, float scale, int mode,
+                                     void* stream) {
+  if (!head_dim_ok(d) || mode < 0 || mode > 3 || B < 1 || F < 1 || N < 1 || H < 1 ||
+      B * F > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long C = (long long)H * d;
+  auto view = [&](const void* ptr) {
+    return View{static_cast<const bf16*>(ptr), (long long)N * C, d, C};
+  };
+  return (int)run(view(q), view(k), view(v), view(out), B * F, H, N, N, d, scale,
+                  me::num_passes(mode, F), mode, F, static_cast<cudaStream_t>(stream));
+}
+
+// K8, bf16. strides: 12 element strides, (G, H, N) of q, k, v, out in turn;
+// K/V may broadcast over G (stride 0). Returns a cudaError_t code (0 = launched).
+extern "C" int me_split_attention_tc(const void* q, const void* k, const void* v, void* out,
+                                     const long long* strides, int G, int H, int Nq, int Nk,
+                                     int d, float scale, void* stream) {
+  if (!head_dim_ok(d) || G < 1 || G > 65535 || H < 1 || H > 65535 || Nq < 1 || Nk < 1)
+    return (int)cudaErrorInvalidValue;
+  auto view = [&](const void* ptr, const long long* s) {
+    return View{static_cast<const bf16*>(ptr), s[0], s[1], s[2]};
+  };
+  return (int)run(view(q, strides), view(k, strides + 3), view(v, strides + 6),
+                  view(out, strides + 9), G, H, Nq, Nk, d, scale, 1, -1, 1,
+                  static_cast<cudaStream_t>(stream));
+}

@@ -35,9 +35,11 @@
 // What bounds it on the H100. At the auto path's shapes (Nq = 1024-4096
 // queries against 2Nq keys, d = 40-80) attention is compute-bound: ~4*Nk*d
 // flops per query against 2*d elements per key tile shared by 64 queries.
-// This first version runs on the fp32 CUDA cores and is bounded by the
-// shared-memory bandwidth of its FMA loops, far below the bf16 tensor-core
-// peak, as K1 is; wgmma tiles and TMA loads are the planned next step.
+// This body runs on the fp32 CUDA cores and is bounded by the shared-memory
+// bandwidth of its FMA loops, far below the bf16 tensor-core peak. K8 in
+// bf16 with 16-byte aligned rows, d % 8 == 0 and d <= 160 (the auto path)
+// no longer comes here: it runs the wgmma + TMA body of attention_tc.cu.
+// K8 in fp32 or at other head dims, and K9, still run this one.
 #include <math.h>
 #include <stdint.h>
 

@@ -40,10 +40,11 @@
 //
 // What bounds it on the H100. Attention at these shapes is compute-bound
 // (N = 1024-4096 keys per source frame, d = 40-80): ~4*N_kv*d flops per
-// query against ~2*d*2 bytes per key tile shared by 64 queries. This first
-// version runs on the fp32 CUDA cores and is bounded by shared-memory
-// bandwidth of the FMA loops, far below the bf16 tensor-core peak; wgmma
-// tiles and TMA loads are the planned next step.
+// query against ~2*d*2 bytes per key tile shared by 64 queries. This body
+// runs on the fp32 CUDA cores and is bounded by shared-memory bandwidth of
+// the FMA loops, far below the bf16 tensor-core peak. K1 in bf16 (d % 8 ==
+// 0, d <= 160) no longer comes here: it runs the wgmma + TMA body of
+// attention_tc.cu. K1 in fp32, K2, K4, K12 and K13 still run this one.
 #include <math.h>
 #include <stdint.h>
 

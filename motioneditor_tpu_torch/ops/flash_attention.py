@@ -1,10 +1,14 @@
 """Split-head flash attention on [..., H, N, D]
 (port of motioneditor_tpu/ops/flash_attention.py).
 
-Kernel (CUDA C++, ``csrc/split_attention.cu``, shared with the split-head
-injection kernel of ops/injection_flash.py):
+Kernel (CUDA C++), two bodies chosen by ``tensor_core_body`` from the
+dtype, the head dim and the operands' alignment:
 
   flash_attention   replaces _flash_3d (flash_attention.py:222)
+    bf16, d % 8 == 0, d <= 160, every row 16-byte aligned: the tensor-core
+    body ``csrc/attention_tc.cu`` (also counted as ``flash_attention.tc``);
+    else ``csrc/split_attention.cu``, shared with the split-head injection
+    kernel of ops/injection_flash.py (fp32, d = 9, d up to 256).
 
 It is reached through ``sdpa(..., use_flash=True)`` at ``q.shape[-2] >=
 _FLASH_MIN_Q`` with no bias (ops/attention.py), as in JAX: on the main path
@@ -35,7 +39,12 @@ import torch
 
 from motioneditor_tpu_torch import _build
 from motioneditor_tpu_torch.ops.attention import sdpa
-from motioneditor_tpu_torch.ops.video_flash import KernelWithPlainVJP, needs_grad
+from motioneditor_tpu_torch.ops.video_flash import (
+    KernelWithPlainVJP,
+    needs_grad,
+    rows_aligned,
+    tensor_core_body,
+)
 
 MAX_HEAD_DIM = 256
 _FLASH_CODE, _INJECTION_CODE = 0, 1
@@ -55,14 +64,15 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _strides(*views) -> ctypes.Array:
-    return (ctypes.c_longlong * 18)(*(s for x in views for s in x.stride()[:3]))
+    return (ctypes.c_longlong * (3 * len(views)))(*(s for x in views for s in x.stride()[:3]))
 
 
 def launch_split_attention(name: str, mode: int, q, k, v, scale: float, k2=None, v2=None,
                            mask: Optional[torch.Tensor] = None, frames: int = 1):
-    """Launch csrc/split_attention.cu on [..., H, N, D] operands (K/V may
-    broadcast over q's lead dims) and count the launch under ``name``.
-    Returns q's shape and dtype."""
+    """Launch K8 or K9 on [..., H, N, D] operands (K/V may broadcast over q's
+    lead dims) and count the launch under ``name``: K8 on the tensor-core
+    body where ``tensor_core_body`` says so (and under ``name + ".tc"``),
+    else csrc/split_attention.cu. Returns q's shape and dtype."""
     *lead, h, nq, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM}")
@@ -78,21 +88,26 @@ def launch_split_attention(name: str, mode: int, q, k, v, scale: float, k2=None,
         raise ValueError(f"{name}: keys and values differ in length")
     out = torch.empty((*lead, nq, h, d), dtype=q.dtype, device=q.device)
     out4 = out.view(-1, nq, h, d).transpose(1, 2)  # [G, H, N, D] over the packed order
-    if k2 is None:
-        k2_4 = v2_4 = kv4[0]
-        nt = 0
+    lib, stream = _build.kernels(), _build.stream_handle(q.device)
+    tc = mode == _FLASH_CODE and tensor_core_body(q.dtype, d, rows_aligned(q4, *kv4, out4))
+    if tc:
+        code = lib.me_split_attention_tc(
+            q4.data_ptr(), kv4[0].data_ptr(), kv4[1].data_ptr(), out.data_ptr(),
+            _strides(q4, kv4[0], kv4[1], out4), q4.shape[0], h, nq, kv4[0].shape[-2], d,
+            float(scale), stream)
     else:
-        k2_4, v2_4 = kv4[2], kv4[3]
-        nt = k2_4.shape[-2]
-    code = _build.kernels().me_split_attention(
-        q4.data_ptr(), kv4[0].data_ptr(), kv4[1].data_ptr(), k2_4.data_ptr(), v2_4.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        _strides(q4, kv4[0], kv4[1], k2_4, v2_4, out4),
-        q4.shape[0], h, nq, kv4[0].shape[-2], nt, frames, d, float(scale), mode,
-        _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
-    )
+        k2_4, v2_4 = (kv4[0], kv4[0]) if k2 is None else (kv4[2], kv4[3])
+        code = lib.me_split_attention(
+            q4.data_ptr(), kv4[0].data_ptr(), kv4[1].data_ptr(), k2_4.data_ptr(), v2_4.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            _strides(q4, kv4[0], kv4[1], k2_4, v2_4, out4),
+            q4.shape[0], h, nq, kv4[0].shape[-2], 0 if k2 is None else k2_4.shape[-2], frames,
+            d, float(scale), mode, _build.DTYPE_CODES[q.dtype], stream,
+        )
     _build.check_status(name, code)
     _build.launch_counts[name] += 1
+    if tc:
+        _build.launch_counts[name + ".tc"] += 1
     return out.movedim(-2, -3)
 
 

@@ -18,10 +18,18 @@ normal [f], sparse_causal [0 | f-1], motion_frame [f-1 | f], dense [all],
 with f-1 clamped to 0 (frame 0 reads frame 0 twice, keeping the doubled
 weight of the reference's concatenated keys).
 
+K1 has two bodies, chosen by ``tensor_core_body`` from the dtype, the head
+dim and the rows' alignment: bf16 with d % 8 == 0, d <= 160 runs the
+tensor-core body (``csrc/attention_tc.cu``, counted also under
+``video_flash_attention.tc``); fp32 runs the CUDA-core body of
+``video_attention.cu``. Both bodies load 16-byte vectors, so K1 raises on
+operands whose rows are off a 16-byte boundary. The other three kernels
+have the CUDA-core body only.
+
 Softmax: both dtypes use an exact online softmax (running max, fp32). The
 JAX bf16 kernels instead clamp scores at 60 with no running max; the two
 agree whenever every |logit| < 60, which the on-card bf16 checks assert on
-their inputs. Bound on the H100 and design notes: see the .cu source.
+their inputs. Bound on the H100 and design notes: see the .cu sources.
 
 Each wrapper takes the plain PyTorch version only for CPU tensors; a CUDA
 tensor launches the kernel or raises.
@@ -58,7 +66,28 @@ from motioneditor_tpu_torch.ops.attention import (
 
 _MODE_CODES = {NORMAL: 0, SPARSE_CAUSAL: 1, MOTION_FRAME: 2, DENSE: 3}
 _INJECTION_CODE = 4
+# the largest head dim of both K1 bodies: the last head-dim bucket of
+# csrc/video_attention.cu's dispatch and MAX_D of csrc/attention_tc.cuh
 MAX_HEAD_DIM = 160
+
+
+def rows_aligned(*views) -> bool:
+    """Every row of every [G, H, N, D] view starts on a 16-byte boundary:
+    an aligned base and G, H, N strides that are whole 16-byte units."""
+    return all(x.data_ptr() % 16 == 0 and all(s * x.element_size() % 16 == 0
+                                              for s in x.stride()[:3]) for x in views)
+
+
+def tensor_core_body(dtype: torch.dtype, d: int, rows_aligned: bool) -> bool:
+    """Which body a launch of K1 (video_flash_attention) or K8
+    (flash_attention) takes: the bf16 tensor-core one (csrc/attention_tc.cu)
+    for bf16 operands with d % 8 == 0, d <= 160 and every row on a 16-byte
+    boundary (``rows_aligned`` of the operands' [G, H, N, D] views), else the
+    CUDA-core one (video_attention.cu, split_attention.cu): fp32 (its checks
+    need exact fp32), other head dims, misaligned views. The whole rule: the
+    entry points' own checks only guard it. A function of its arguments
+    alone: a failed launch raises, it is never retried on the other body."""
+    return dtype == torch.bfloat16 and d % 8 == 0 and d <= MAX_HEAD_DIM and rows_aligned
 
 
 def video_flash_supported(c: int, heads: int) -> bool:
@@ -157,16 +186,29 @@ def video_flash_attention(q, k, v, mode: str, scale: float, heads: int) -> torch
 
 
 def _video_flash_kernel(q, k, v, mode, scale, heads):
+    """K1's launch on the body ``tensor_core_body`` picks; a tensor-core
+    launch also counts under ``video_flash_attention.tc``."""
     name = "video_flash_attention"
     b, f, n, c = q.shape
+    d = c // heads
     out = torch.empty_like(q)
-    code = _build.kernels().me_video_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None, out.data_ptr(),
-        b, f, n, heads, c // heads, float(scale), _MODE_CODES[mode],
-        _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
-    )
+    aligned = rows_aligned(*(split_heads(t, heads).flatten(0, 1) for t in (q, k, v, out)))
+    if not aligned:  # both bodies load 16-byte vectors
+        raise ValueError(f"{name}: operands must start on a 16-byte boundary")
+    lib, stream = _build.kernels(), _build.stream_handle(q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    tc = tensor_core_body(q.dtype, d, aligned)
+    if tc:
+        code = lib.me_video_attention_tc(*ptrs, out.data_ptr(), b, f, n, heads, d, float(scale),
+                                         _MODE_CODES[mode], stream)
+    else:
+        code = lib.me_video_attention(*ptrs, None, None, None, out.data_ptr(), b, f, n, heads, d,
+                                      float(scale), _MODE_CODES[mode],
+                                      _build.DTYPE_CODES[q.dtype], stream)
     _build.check_status(name, code)
     _build.launch_counts[name] += 1
+    if tc:
+        _build.launch_counts[name + ".tc"] += 1
     return out
 
 

@@ -1,0 +1,166 @@
+"""The routing rule between the two bodies of K1 (video_flash_attention)
+and K8 (flash_attention): the dtype, the head dim and the rows' alignment
+decide, and nothing else (no fallback after a failed launch).
+
+The rule is Python (ops/video_flash.py ``tensor_core_body`` and
+``rows_aligned``), so it runs here on the CPU. The
+launch functions are driven with a stand-in for the kernel library that
+records which C entry point they call; the kernels themselves are held to
+their plain versions on the card (tests/test_torch_kernels_cuda.py).
+"""
+
+import pytest
+import torch
+
+from motioneditor_tpu_torch import _build
+from motioneditor_tpu_torch.ops import flash_attention as flash_mod
+from motioneditor_tpu_torch.ops import video_flash as video_mod
+from motioneditor_tpu_torch.ops.attention import split_heads
+from motioneditor_tpu_torch.ops.video_flash import rows_aligned, tensor_core_body
+
+
+class RecordingLibrary:
+    """Stands in for the kernel library: every ``me_*`` entry point records
+    its name and returns ``code`` (0: launched)."""
+
+    def __init__(self, code: int = 0):
+        self.calls = []
+        self.code = code
+
+    def __getattr__(self, name):
+        if not name.startswith("me_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append(name)
+            return self.code
+
+        return entry
+
+
+@pytest.fixture
+def lib(monkeypatch):
+    fake = RecordingLibrary()
+    monkeypatch.setattr(_build, "kernels", lambda: fake)
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(_build, "check_operands", lambda *a, **k: None)
+    _build.reset_launch_counts()
+    yield fake
+    _build.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (torch.bfloat16, 40, True, True),
+    (torch.bfloat16, 80, True, True),
+    (torch.bfloat16, 160, True, True),
+    (torch.bfloat16, 8, True, True),
+    (torch.bfloat16, 9, True, False),     # not a multiple of 8
+    (torch.bfloat16, 36, True, False),
+    (torch.bfloat16, 168, True, False),   # past the tensor-core body's 160
+    (torch.bfloat16, 256, True, False),
+    (torch.bfloat16, 40, False, False),   # a row off a 16-byte boundary
+    (torch.float32, 40, True, False),     # fp32 keeps exact fp32 on CUDA cores
+    (torch.float32, 80, True, False),
+    (torch.float16, 40, True, False),
+])
+def test_tensor_core_body_rule(dtype, d, aligned, want):
+    assert tensor_core_body(dtype, d, aligned) is want
+
+
+def test_rows_aligned_reads_base_and_strides():
+    x = torch.zeros((2, 3, 64, 320), dtype=torch.bfloat16)
+    assert rows_aligned(split_heads(x, 8).flatten(0, 1))          # d = 40: strides 40, 320
+    assert not rows_aligned(split_heads(x[..., :36 * 8], 8).flatten(0, 1))  # d = 36
+    flat = torch.zeros((2 * 64 * 320 + 4,), dtype=torch.bfloat16)
+    off = flat[4:].view(2, 64, 8, 40).transpose(1, 2)             # base 8 bytes off
+    assert not rows_aligned(off)
+    bcast = torch.zeros((1, 8, 64, 40), dtype=torch.bfloat16).expand(6, 8, 64, 40)
+    assert bcast.stride(0) == 0 and rows_aligned(bcast)           # K/V broadcast: stride 0
+    x32 = torch.zeros((2, 3, 64, 40), dtype=torch.float32)        # 16 bytes = 4 floats
+    assert rows_aligned(split_heads(x32[..., :32], 4).flatten(0, 1))      # d = 8: 32 bytes
+    assert not rows_aligned(split_heads(x32[..., :36], 4).flatten(0, 1))  # d = 9: 36 bytes
+
+
+@pytest.mark.parametrize("dtype,c,heads,entry", [
+    (torch.bfloat16, 320, 8, "me_video_attention_tc"),
+    (torch.bfloat16, 640, 8, "me_video_attention_tc"),
+    (torch.bfloat16, 1280, 8, "me_video_attention_tc"),
+    (torch.bfloat16, 32, 4, "me_video_attention_tc"),   # d = 8
+    (torch.float32, 320, 8, "me_video_attention"),
+    (torch.float32, 1280, 8, "me_video_attention"),
+])
+@pytest.mark.parametrize("mode", ["normal", "sparse_causal", "motion_frame", "dense"])
+def test_video_flash_launch_takes_the_routed_body(lib, dtype, c, heads, entry, mode):
+    q = torch.zeros((2, 3, 50, c), dtype=dtype)
+    out = video_mod._video_flash_kernel(q, q, q, mode, 0.1, heads)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lib.calls == [entry]
+    tc = int(entry.endswith("_tc"))
+    assert dict(_build.launch_counts) == {
+        "video_flash_attention": 1, **({"video_flash_attention.tc": 1} if tc else {})}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_video_flash_rejects_misaligned_rows(lib, dtype):
+    """Both K1 bodies load 16-byte vectors: operands off a 16-byte boundary
+    raise before any launch, whichever body the dtype would pick."""
+    numel, skip = 2 * 3 * 50 * 320, 8 // torch.tensor([], dtype=dtype).element_size()
+    off = torch.zeros((numel + skip,), dtype=dtype)[skip:].view(2, 3, 50, 320)  # 8 bytes off
+    q = torch.zeros((2, 3, 50, 320), dtype=dtype)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        video_mod._video_flash_kernel(q, off, q, "motion_frame", 0.1, 8)
+    assert lib.calls == [] and not _build.launch_counts
+
+
+def _split_case(case):
+    """(q, k, v) of one K8 routing case, CPU tensors."""
+    if case == "packed_views":   # head-split views of packed [B, F, N, C]
+        x = torch.zeros((2, 3, 64, 320), dtype=torch.bfloat16)
+        return (split_heads(x, 8),) * 3
+    if case == "offset_views":   # the same, 8 bytes off a 16-byte boundary
+        flat = torch.zeros((2 * 3 * 64 * 320 + 4,), dtype=torch.bfloat16)
+        return (split_heads(flat[4:].view(2, 3, 64, 320), 8),) * 3
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    d = {"d9": 9, "d200": 200, "d160": 160}.get(case, 40)
+    q = torch.zeros((2, 3, 4, 100, d), dtype=dtype)
+    kv_lead = (2, 1) if case == "broadcast" else (2, 3)
+    k = torch.zeros((*kv_lead, 4, 150, d), dtype=dtype)
+    return q, k, k
+
+
+@pytest.mark.parametrize("case,tc", [
+    ("plain", True), ("broadcast", True), ("packed_views", True), ("d160", True),
+    ("fp32", False), ("d9", False), ("d200", False), ("offset_views", False),
+])
+def test_flash_attention_launch_takes_the_routed_body(lib, case, tc):
+    q, k, v = _split_case(case)
+    out = flash_mod.launch_split_attention("flash_attention", flash_mod._FLASH_CODE, q, k, v,
+                                           0.1)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert lib.calls == ["me_split_attention_tc" if tc else "me_split_attention"]
+    assert dict(_build.launch_counts) == {
+        "flash_attention": 1, **({"flash_attention.tc": 1} if tc else {})}
+
+
+def test_injection_keeps_the_cuda_core_body(lib):
+    """K9 (the split-head injection) is not rerouted, even where K8 would be."""
+    q = torch.zeros((2, 3, 4, 100, 40), dtype=torch.bfloat16)
+    k = torch.zeros((2, 3, 4, 200, 40), dtype=torch.bfloat16)
+    mask = torch.zeros((3, 200))
+    flash_mod.launch_split_attention("fused_injection_attention", flash_mod._INJECTION_CODE,
+                                     q, k, k, 0.1, q, q, mask, 3)
+    assert lib.calls == ["me_split_attention"]
+    assert dict(_build.launch_counts) == {"fused_injection_attention": 1}
+
+
+def test_a_failed_launch_raises_and_is_not_retried(lib):
+    lib.code = 1  # cudaErrorInvalidValue
+    q = torch.zeros((2, 3, 50, 320), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        video_mod._video_flash_kernel(q, q, q, "motion_frame", 0.1, 8)
+    qs = torch.zeros((2, 4, 100, 40), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        flash_mod.launch_split_attention("flash_attention", flash_mod._FLASH_CODE, qs, qs, qs,
+                                         0.1)
+    assert lib.calls == ["me_video_attention_tc", "me_split_attention_tc"]
+    assert not _build.launch_counts

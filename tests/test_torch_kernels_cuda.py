@@ -6,10 +6,14 @@ a fixture, never at import). Run on a GPU host with
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Shapes cover ragged token counts (not multiples of the 64-query / 32-key
-tiles), every supported head-dim bucket and F up to 24 (32 for the temporal
-backward); the split-head kernels (K8, K9) also take strided head-split
-views, K/V broadcast over frames, and head dims up to 256, d = 9 among
-them (element loads in place of 16-byte vectors). The norm kernels (K10
+tiles, nor of the tensor-core body's 128-query / 64-key ones), every
+supported head-dim bucket and F up to 24 (32 for the temporal backward).
+In bf16, K1 and K8 run the tensor-core body (csrc/attention_tc.cu) where
+ops/video_flash.py ``tensor_core_body`` routes them, and the tests whose
+names hold ``tc`` assert that they did. The split-head kernels (K8, K9)
+also take strided head-split views, K/V broadcast over frames, and head
+dims up to 256, d = 9 among them (element loads in place of 16-byte
+vectors). The norm kernels (K10
 pair statistics, K11 add + LayerNorm) run at the training path's shapes
 and ragged ones, with their own tolerances stated at each test. The
 frame-sharded path's kernels (K12 explicit-K/V attention, K13 explicit-K/V
@@ -19,14 +23,17 @@ split, forward and gradient through the wrapper. Forward
 outputs: fp32 runs with TF32 off, atol 2e-5; bf16 atol
 3e-2 plus rtol 1.6e-2 (torch's bf16 default: one bf16 ulp of an output of
 magnitude 4 is already 0.031), on inputs whose logits stay far below the
-JAX bf16 kernels' clamp of 60. Gradients: fp32 rtol 1e-4, atol 1e-3; bf16
-max error relative to the max |gradient| < 0.06 (the tolerances of
-tests/test_video_flash_bwd.py).
+JAX bf16 kernels' clamp of 60; the bf16 K1 and K8 cases are also held to
+errors scaled to the reference (chip_smoke.py ``scaled_error``), since on
+these inputs an output's RMS, about sqrt(e / keys), falls below that atol.
+Gradients: fp32 rtol 1e-4, atol 1e-3; bf16 max error relative to the max
+|gradient| < 0.06 (the tolerances of tests/test_video_flash_bwd.py).
 """
 
 import pytest
 import torch
 
+from chip_smoke import scaled_error
 from motioneditor_tpu_torch import _build
 from motioneditor_tpu_torch.ops.attention import split_heads
 from motioneditor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
@@ -71,7 +78,6 @@ MODES = ["normal", "sparse_causal", "motion_frame", "dense"]
 TOL = {torch.float32: dict(atol=2e-5, rtol=0.0),
        torch.bfloat16: dict(atol=3e-2, rtol=1.6e-2)}
 
-
 @pytest.fixture
 def device():
     if not torch.cuda.is_available():
@@ -104,6 +110,41 @@ def test_video_flash_kernel(device, dtype, mode, b, f, n, c, heads):
     assert _build.launch_counts["video_flash_attention"] == before + 1
     ref = video_flash_attention_plain(q, k, v, mode, scale, heads)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        scaled_error(out, ref)
+
+
+TC_VIDEO_SHAPES = [  # (b, f, n, c, heads): B*F > 1, so frame-boundary tails occur
+    (2, 3, 200, 320, 8),    # d = 40, N below one 128-query tile
+    (1, 4, 1000, 640, 8),   # d = 80, ragged N
+    (2, 2, 4096, 320, 8),   # d = 40 at 64x64 latents
+    (1, 2, 4096, 640, 8),   # d = 80
+    (2, 2, 200, 1280, 8),   # d = 160
+    (1, 3, 1000, 1280, 8),  # d = 160, ragged N
+]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("b,f,n,c,heads", TC_VIDEO_SHAPES)
+def test_video_flash_tc_kernel(device, mode, b, f, n, c, heads):
+    """K1's bf16 tensor-core body against the plain version: every head
+    (the first and the last included) of every frame, ragged N whose last
+    key tile would otherwise reach into the next frame's tokens."""
+    gen = torch.Generator(device=device).manual_seed(10)
+    q, k, v = (_rand((b, f, n, c), torch.bfloat16, device, gen) for _ in range(3))
+    scale = (c // heads) ** -0.5
+    before = _build.launch_counts["video_flash_attention.tc"]
+    out = video_flash_attention(q, k, v, mode, scale, heads)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["video_flash_attention.tc"] == before + 1
+    ref = video_flash_attention_plain(q, k, v, mode, scale, heads)
+    d = c // heads
+    for h in (0, heads - 1):
+        torch.testing.assert_close(out[..., h * d:(h + 1) * d].float(),
+                                   ref[..., h * d:(h + 1) * d].float(), **TOL[torch.bfloat16])
+        scaled_error(out[..., h * d:(h + 1) * d], ref[..., h * d:(h + 1) * d])
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    scaled_error(out, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -155,6 +196,8 @@ def test_flash_attention_kernel(device, dtype, lead, kv_lead, h, nq, nk, d):
     assert out.shape == q.shape and out.dtype == dtype
     ref = flash_attention_plain(q, k, v, d ** -0.5)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        scaled_error(out, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -167,8 +210,55 @@ def test_flash_attention_kernel_on_split_views(device, dtype, b, f, n, c, heads)
     scale = (c // heads) ** -0.5
     out = flash_attention(q, k, v, scale)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v, scale).float(),
-                               **TOL[dtype])
+    ref = flash_attention_plain(q, k, v, scale)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        scaled_error(out, ref)
+
+
+@pytest.mark.parametrize("lead,kv_lead,h,nq,nk,d,tc", [
+    ((2, 3), (2, 1), 8, 1000, 2000, 40, True),  # K/V broadcast over frames (stride 0)
+    ((2, 8), (2, 8), 8, 1024, 2048, 80, True),  # the auto path at 32x32
+    ((1, 2), (1, 1), 2, 130, 300, 160, True),   # the largest tensor-core head dim
+    ((2,), (2,), 4, 200, 77, 24, True),         # fewer keys than one tile
+    ((1, 2), (1, 2), 2, 100, 150, 168, False),  # d > 160: the CUDA-core body
+    ((2,), (2,), 4, 200, 77, 9, False),         # d = 9: the CUDA-core body
+])
+def test_flash_attention_tc_route(device, lead, kv_lead, h, nq, nk, d, tc):
+    """K8 in bf16 takes the tensor-core body exactly where tensor_core_body
+    says so, and either body matches the plain version."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    q = _rand((*lead, h, nq, d), torch.bfloat16, device, gen)
+    k, v = (_rand((*kv_lead, h, nk, d), torch.bfloat16, device, gen) for _ in range(2))
+    _build.reset_launch_counts()
+    out = flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention"] == 1
+    assert _build.launch_counts["flash_attention.tc"] == int(tc)
+    ref = flash_attention_plain(q, k, v, d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    scaled_error(out, ref)
+
+
+@pytest.mark.parametrize("b,f,n,c,heads,offset", [
+    (2, 3, 1024, 320, 8, 0), (1, 3, 1000, 640, 8, 0), (2, 2, 333, 1280, 8, 0),
+    (2, 2, 200, 320, 8, 4),  # rows 8 bytes off a 16-byte boundary: the CUDA-core body
+])
+def test_flash_attention_tc_on_split_views(device, b, f, n, c, heads, offset):
+    """K8's tensor-core body on head-split views of packed [B, F, N, C]
+    tensors, read in place, writing the packed order through its strides."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    packed = [_rand((b * f * n * c + offset,), torch.bfloat16, device, gen)[offset:].view(
+        b, f, n, c) for _ in range(3)]
+    q, k, v = (split_heads(x, heads) for x in packed)
+    scale = (c // heads) ** -0.5
+    _build.reset_launch_counts()
+    out = flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention.tc"] == int(offset == 0)
+    ref = flash_attention_plain(q, k, v, scale)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    scaled_error(out, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -215,10 +305,14 @@ def assert_grads_close(got, ref, dtype):
 
 def _grad_case(row, dtype, device, gen):
     """(wrapper fn, plain fn, inputs, the kernels its grad path launches)."""
-    if row == "flash":
-        xs = [_rand((2, 3, 4, 200, 40), dtype, device, gen) for _ in range(3)]
+    tc = dtype == torch.bfloat16  # K8 and dense K1 forwards take the tensor-core body
+    if row in ("flash", "flash_broadcast"):
+        kv_shape = (2, 3, 4, 200, 40) if row == "flash" else (2, 1, 4, 333, 40)
+        xs = [_rand((2, 3, 4, 200, 40), dtype, device, gen),
+              *(_rand(kv_shape, dtype, device, gen) for _ in range(2))]
         return (lambda *t: flash_attention(*t, 40 ** -0.5),
-                lambda *t: flash_attention_plain(*t, 40 ** -0.5), xs, ("flash_attention",))
+                lambda *t: flash_attention_plain(*t, 40 ** -0.5), xs,
+                ("flash_attention",) + (("flash_attention.tc",) if tc else ()))
     if row == "fused_injection":
         xs = [_rand((2, 3, 4, n, 16), dtype, device, gen)
               for n in (100, 200, 200, 100, 100)]
@@ -236,7 +330,8 @@ def _grad_case(row, dtype, device, gen):
         return (lambda *t: temporal_flash_attention(*t, scale, heads),
                 lambda *t: temporal_flash_attention_plain(*t, scale, heads), xs,
                 ("temporal_flash_attention", "temporal_flash_attention_bwd"))
-    b, f, n, c, heads = 2, 3, 200, 64, 4
+    b, f, n, c, heads = (1, 3, 333, 640, 8) if row == "dense_d80" else (2, 3, 200, 64, 4)
+    row = "dense" if row == "dense_d80" else row
     scale = (c // heads) ** -0.5
     if row == "injection":
         xs = [_rand((b, f, n, c), dtype, device, gen) for _ in range(5)]
@@ -245,19 +340,22 @@ def _grad_case(row, dtype, device, gen):
                 lambda *t: video_injection_attention_plain(*t, mask, scale, heads), xs,
                 ("video_injection_attention",))
     xs = [_rand((b, f, n, c), dtype, device, gen) for _ in range(3)]
-    kernels = (("video_flash_attention",) if row == "dense" else
+    kernels = ((("video_flash_attention",) + (("video_flash_attention.tc",) if tc else ()))
+               if row == "dense" else
                ("video_flash_fwd_res", "video_flash_bwd_dq", "video_flash_bwd_dkv"))
     return (lambda *t: video_flash_attention(*t, row, scale, heads),
             lambda *t: video_flash_attention_plain(*t, row, scale, heads), xs, kernels)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("row", MODES + ["injection", "temporal", "flash", "fused_injection"])
+@pytest.mark.parametrize("row", MODES + ["injection", "temporal", "flash", "fused_injection",
+                                         "dense_d80", "flash_broadcast"])
 def test_wrapper_gradients_match_plain(device, dtype, row):
     """Gradients flow through every kernel wrapper on a CUDA tensor: those of
     sum(out**2) with respect to every input match the plain version's, and
     the grad path launches its kernels (K4-K7, or the kernel forward with
-    the plain VJP for dense, injection, K8 and K9)."""
+    the plain VJP for dense, injection, K8 and K9; in bf16 the dense K1 and
+    the K8 forwards are the tensor-core body's)."""
     gen = torch.Generator(device=device).manual_seed(5)
     fn, plain, xs, kernels = _grad_case(row, dtype, device, gen)
     xs = [x.requires_grad_() for x in xs]
