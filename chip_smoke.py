@@ -26,7 +26,11 @@ Phases, each raising on failure:
               dk/dv partials, K7 temporal) against their plain versions and
               autograd of the plain forward, at the null-text shapes (B=1,
               F=8, the same (N, C), modes normal / sparse_causal /
-              motion_frame), bf16 and fp32, with times
+              motion_frame), bf16 and fp32, with times; in bf16 K6 runs its
+              tensor-core body (csrc/attention_bwd_tc.cu), whose partials are
+              also held to TC_ERR_LIMITS against the plain partials (made
+              from the plain delta, so K5's delta is held too), and
+              whose TFLOP/s and share of its bound are printed
   4. slice    the injected two-branch denoise segment at full SD-1.5 width
               (UNet + adapter + ControlNet, random init from a seed), bf16,
               512px, 8 frames, injection from block 10, 3 steps over
@@ -82,15 +86,18 @@ Phases, each raising on failure:
   3d. kv      (run after phase 3c) the frame-sharded path's kernels against
               their plain versions in bf16 and fp32: K12 (explicit-K/V
               attention) at q [2, 8, 4096, 320] over motion_frame K/V
-              [2, 8, 8192, 320] and dense K/V [2, 1, 32768, 320], K13
-              (explicit-K/V injection) at the same q, K14 (global-offset
-              temporal attention) at Fq = Fk = 8; then each 2-frame shard of
+              [2, 8, 8192, 320] and dense K/V [2, 1, 32768, 320], and at
+              q [2, 8, 1024, 640] (d = 80) over [2, 8, 2048, 640] and
+              [2, 1, 8192, 640], K13 (explicit-K/V injection) at the same
+              q, K14 (global-offset temporal attention) at Fq = Fk = 8;
+              then, at both sizes, each 2-frame shard of
               a 4-way frame split (K14 at offsets 0, 2, 4, 6; K12 / K13 on
               K/V sliced from the global tensors), also held to its slice of
               the one-rank output; SDPA timed as the yardstick of K12 and,
-              with a boolean mask, of K14; K12's bf16 time is printed beside
-              K1's on the same work (the CUDA-core body against the
-              tensor-core one)
+              with a boolean mask, of K14; in bf16 K12 runs the tensor-core
+              body (csrc/attention_tc.cu), held also to TC_ERR_LIMITS, with
+              its TFLOP/s and share of its bound, and its time is printed
+              beside K1's on the same work
   11. shard   the frame-sharded path at full width in a one-rank NCCL
               process group: the injected denoise segment, bf16, 3 steps
               after a warm-up step, then one stage-1 step after a warm-up
@@ -108,6 +115,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -124,14 +132,17 @@ MODES = ("normal", "sparse_causal", "motion_frame", "dense")
 BWD_MODES = ("normal", "sparse_causal", "motion_frame")
 NULL_STEPS = 5  # phase 6's schedule
 LOGIT_CAP = 60.0  # the JAX bf16 kernels' score clamp (ops/video_flash.py _CAP)
-# K1 and K8 launches in bf16 take the tensor-core body (csrc/attention_tc.cu)
+# K1, K8 and K12 launches in bf16 take the tensor-core body
+# (csrc/attention_tc.cu), K6's at d <= 80 its own (csrc/attention_bwd_tc.cu),
 # and count again as "<name>.tc"; every full-width path below runs in bf16
-TC_KERNELS = ("video_flash_attention", "flash_attention")
+# at d = 40 and 80
+TC_KERNELS = ("video_flash_attention", "flash_attention", "video_flash_attention_kv",
+              "video_flash_bwd_dkv")
 
 
 def tc(per_step: dict) -> dict:
-    """``per_step`` with the tensor-core sub-counts of a bf16 path: each K1
-    and K8 launch there must have taken the tensor-core body."""
+    """``per_step`` with the tensor-core sub-counts of a bf16 path: each K1,
+    K8, K12 and K6 launch there must have taken the tensor-core body."""
     return {**per_step, **{f"{k}.tc": n for k, n in per_step.items() if k in TC_KERNELS}}
 
 
@@ -182,11 +193,11 @@ TRAIN_STEPS = 3
 # so the 10 gated attn1 sites take K4 (again in the recompute) and K5 / K6,
 # the 10 gated attn_temp sites K3 (twice) and K7; K10 61 forward + 58
 # recomputed + 58 backward; K11 30 forward + 30 recomputed
-EXPECTED_PER_STAGE1_STEP = {
+EXPECTED_PER_STAGE1_STEP = tc({
     "video_flash_fwd_res": 20, "video_flash_bwd_dq": 10, "video_flash_bwd_dkv": 10,
     "temporal_flash_attention": 20, "temporal_flash_attention_bwd": 10,
     "channel_pair_stats": 177, "add_layer_norm": 60,
-}
+})
 # stage 2: the ControlNet (no grad) K1 4, K10 27, K11 8; the UNet's down path
 # (no grad) K1 4, K3 4; the adapter (blocks 0-5 gated) K4 12, K3 6; the up
 # path K4 6 + 6 recomputed, K3 6 + 6; backward K5 / K6 12 + 6, K7 6 + 6; K10
@@ -212,9 +223,8 @@ EXPECTED_PER_SHARDED_STEP = tc({
 # per sharded stage-1 step, gradient checkpointing on, knobs off: the 10 gated
 # attn1 sites launch K12 in the forward and again in the recompute, the 10
 # gated attn_temp sites K14 likewise; their gradients are the plain VJPs
-EXPECTED_PER_SHARDED_STAGE1_STEP = {
-    "video_flash_attention_kv": 20, "temporal_flash_attention_global": 20,
-}
+SHARDED_STAGE1_LAUNCHES = {"video_flash_attention_kv": 20, "temporal_flash_attention_global": 20}
+EXPECTED_PER_SHARDED_STAGE1_STEP = tc(SHARDED_STAGE1_LAUNCHES)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense (no tensor cores in fp32)
 PEAK_BYTES = 3.35e12
 KERNEL_INFO = {
@@ -228,7 +238,7 @@ KERNEL_INFO = {
                             "motioneditor_tpu/ops/video_flash_bwd.py:229"),
     "video_flash_bwd_dq": ("motioneditor_tpu_torch/csrc/video_attention_bwd.cu",
                            "motioneditor_tpu/ops/video_flash_bwd.py:403"),
-    "video_flash_bwd_dkv": ("motioneditor_tpu_torch/csrc/video_attention_bwd.cu",
+    "video_flash_bwd_dkv": ("motioneditor_tpu_torch/csrc/attention_bwd_tc.cu",
                             "motioneditor_tpu/ops/video_flash_bwd.py:437"),
     "temporal_flash_attention_bwd": ("motioneditor_tpu_torch/csrc/temporal_attention_bwd.cu",
                                      "motioneditor_tpu/ops/temporal_flash.py:190"),
@@ -240,7 +250,7 @@ KERNEL_INFO = {
                            "motioneditor_tpu/ops/gn_stats.py:78"),
     "add_layer_norm": ("motioneditor_tpu_torch/csrc/add_layer_norm.cu",
                        "motioneditor_tpu/ops/fused_norm.py:73"),
-    "video_flash_attention_kv": ("motioneditor_tpu_torch/csrc/video_attention.cu",
+    "video_flash_attention_kv": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                                  "motioneditor_tpu/ops/video_flash.py:726"),
     "video_injection_attention_kv": ("motioneditor_tpu_torch/csrc/video_attention.cu",
                                      "motioneditor_tpu/ops/video_flash.py:859"),
@@ -572,8 +582,10 @@ def phase_bwd_kernels(device):
     )
     from motioneditor_tpu_torch.ops.video_flash import video_flash_attention_plain
     from motioneditor_tpu_torch.ops.video_flash_bwd import (
+        _delta,
         combine_partials,
         video_flash_bwd_dkv,
+        video_flash_bwd_dkv_plain,
         video_flash_bwd_dq,
         video_flash_bwd_plain,
         video_flash_fwd_res,
@@ -625,10 +637,21 @@ def phase_bwd_kernels(device):
                 dkv_fn = lambda: video_flash_bwd_dkv(  # noqa: E731
                     q, k, v, lse_ref, delta, do, mode, scale, HEADS)
                 dkp, dvp = dkv_fn()
+                torch.cuda.synchronize()
+                tc_line = ""
+                if dtype == torch.bfloat16:  # K6's tensor-core body: its partials as they are,
+                    # against partials from the plain delta, so K5's delta is held too
+                    refs = video_flash_bwd_dkv_plain(q, k, v, lse_ref, _delta(out_ref, do, HEADS),
+                                                     do, mode, scale, HEADS)
+                    worst = {"max": 0.0, "rms": 0.0}
+                    for part, ref_part in zip((dkp, dvp), refs):
+                        for key, value in scaled_error(part, ref_part).items():
+                            worst[key] = max(worst[key], value)
+                    tc_line = scaled_line(results["video_flash_bwd_dkv"], worst)
+                    del refs
                 got = (dq, combine_partials(dkp, mode).to(dtype),
                        combine_partials(dvp, mode).to(dtype))
                 del dkp, dvp
-                torch.cuda.synchronize()
                 bwd_plain = lambda: video_flash_bwd_plain(  # noqa: E731
                     q, k, v, out_ref, lse_ref, do, mode, scale, HEADS)
                 err_plain = grad_error(got, bwd_plain(), dtype)
@@ -643,13 +666,17 @@ def phase_bwd_kernels(device):
                 record("video_flash_bwd_dq", max(err_plain, err_auto), ms_dq, plain_ms,
                        main_case, at, 1.5 * work, nbytes(q, k, v, q, do, q) + 2 * lse_bytes)
                 slots = 1 if mode == "normal" else 2  # fp32 dk / dv partials per source slot
+                dkv_bound = bound(2.0 * work, nbytes(q, k, v, do) + 2 * lse_bytes
+                                  + 2 * slots * q.numel() * 4, dtype)
                 record("video_flash_bwd_dkv", max(err_plain, err_auto), ms_dkv, plain_ms,
-                       main_case, at, 2.0 * work,
-                       nbytes(q, k, v, do) + 2 * lse_bytes + 2 * slots * q.numel() * 4)
+                       main_case, at, dkv_bound["flops"], dkv_bound["bytes"])
+                if dtype == torch.bfloat16:  # the tensor-core body's rate
+                    tc_line += (f", dkv {dkv_bound['flops'] / ms_dkv / 1e9:.1f} TFLOP/s, "
+                                f"{100 * dkv_bound['bound_ms'] / ms_dkv:.1f}% of its bound")
                 log(f"[bwd] {at}: max_abs_err fwd_res {err:.3e}, bwd vs plain {err_plain:.3e}, "
                     f"vs autograd {err_auto:.3e}; fwd_res {ms_fwd:.3f} ms (plain "
                     f"{plain_fwd_ms:.3f}), dq {ms_dq:.3f} ms, dkv {ms_dkv:.3f} ms, plain bwd "
-                    f"{plain_ms:.3f} ms, plain fwd+bwd by autograd {auto_ms:.3f} ms")
+                    f"{plain_ms:.3f} ms, plain fwd+bwd by autograd {auto_ms:.3f} ms{tc_line}")
                 del out_ref, lse_ref, delta
                 torch.cuda.empty_cache()
 
@@ -1481,7 +1508,8 @@ def temporal_pairs(fq: int, fk: int, causal: bool, off: int) -> int:
 
 def phase_kv_kernels(device):
     """K12-K14 against their plain versions at the one-rank shapes and at
-    the shard-local shapes of a 4-way frame split."""
+    the shard-local shapes of a 4-way frame split, at both latent sizes
+    (d = 40 and 80)."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as library_sdpa
 
@@ -1498,12 +1526,12 @@ def phase_kv_kernels(device):
 
     gen = torch.Generator(device=device).manual_seed(SEED + 50)
     results = {name: {"max_abs_err": 0.0} for name in KV_KERNELS}
-    b, f, n, c = 2, FRAMES, LATENT * LATENT, 320
-    d = c // HEADS
-    scale = d ** -0.5
+    b, f = 2, FRAMES
     fl = f // SPLIT
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, (n, c) in itertools.product((torch.bfloat16, torch.float32), KERNEL_SHAPES):
         dt = str(dtype).replace("torch.", "")
+        d = c // HEADS
+        scale = d ** -0.5
         q, k, v, kt, vt = (torch.randn((b, f, n, c), generator=gen, device=device).to(dtype)
                            for _ in range(5))
         mask = (torch.rand((f, n), generator=gen, device=device) > 0.5).float()
@@ -1566,7 +1594,7 @@ def phase_kv_kernels(device):
             r["max_abs_err"] = max(r["max_abs_err"], err)
             at = (f"{dt} q [{b}, {hi - lo}, {n}, {c}] {variant}"
                   + ("" if whole else f", shard {lo // fl} of {SPLIT}"))
-            main = dtype == torch.bfloat16 and whole and variant != "dense"
+            main = dtype == torch.bfloat16 and whole and variant != "dense" and n == 4096
             timing = ""
             if whole or dtype == torch.bfloat16:
                 ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
@@ -1574,6 +1602,11 @@ def phase_kv_kernels(device):
                 if main:
                     r.update(ms=ms, plain_ms=plain_ms, at=at, library_ms=None,
                              **bound(flops, moved, dtype))
+            if dtype == torch.bfloat16 and name == "video_flash_attention_kv":  # tensor cores
+                b_ = bound(flops, moved, dtype)
+                timing += (scaled_line(r, scaled_error(out, ref))
+                           + f", {flops / ms / 1e9:.1f} TFLOP/s, "
+                           f"{100 * b_['bound_ms'] / ms:.1f}% of its bound")
             lib = ""
             if main and name != "video_injection_attention_kv":
                 if name == "video_flash_attention_kv":
@@ -1654,7 +1687,7 @@ def device_busy_share(fn) -> dict:
 # device-time buckets of a profiled step: the first whose substrings the
 # kernel's name contains (lower case)
 PROFILE_BUCKETS = (
-    ("K1/K8 tensor-core body (attention_tc)", ("attention_tc",)),
+    ("tensor-core attention, K1/K8/K12/K6 (attention_tc)", ("attention_tc",)),
     ("K2 and CUDA-core K1 (video_attention_kernel)", ("video_attention_kernel",)),
     ("K3 temporal_attention_kernel", ("temporal_attention",)),
     ("K8/K9 CUDA-core body (split_attention_kernel)", ("split_attention",)),
@@ -1938,7 +1971,8 @@ def phase_sharded_check(device, seg_ctx, train_ctx):
         out[name] = (float(metrics["loss"]),
                      {n: p.grad.clone() for n, p in state.trainable.items()},
                      {n: p.detach().clone() for n, p in state.trainable.items()})
-    if not all(launched["sharded_stage1"].get(k) for k in EXPECTED_PER_SHARDED_STAGE1_STEP):
+    # fp32 here: no launch takes a tensor-core body, so no ".tc" count
+    if not all(launched["sharded_stage1"].get(k) for k in SHARDED_STAGE1_LAUNCHES):
         raise AssertionError(f"the sharded stage-1 step skipped a kernel: {launched}")
     if lead:
         (ls, gs, ps), (lu, gu, pu) = out["sharded"], out["unsharded"]
@@ -1997,9 +2031,9 @@ def main() -> int:
     results.update(phase_kv_kernels(device))
     log(f"[kv] done in {time.perf_counter() - t0:.1f} s")
     k1, k12 = results["video_flash_attention"], results["video_flash_attention_kv"]
-    log(f"[kv] the same work, bf16 q [2, {FRAMES}, 4096, 320] against 2N keys per frame: "
-        f"K12 (the CUDA-core body) {k12['ms']:.3f} ms, K1 (the tensor-core body) "
-        f"{k1['ms']:.3f} ms, SDPA {k1['library_ms']:.3f} ms")
+    log(f"[kv] the same work, bf16 q [2, {FRAMES}, 4096, 320] against 2N keys per frame, "
+        f"both on the tensor-core body: K12 {k12['ms']:.3f} ms, K1 {k1['ms']:.3f} ms, "
+        f"SDPA {k12['library_ms']:.3f} (K12's call) and {k1['library_ms']:.3f} ms (K1's)")
     launches, ms_per_step, slice_profile = phase_slice(device)
     phase_check(device)
     phase_null_check(device)
@@ -2044,6 +2078,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "at": r["at"],
             "library_at": r.get("library_at"), "flops": r["flops"], "bytes": r["bytes"],
+            "tflops": r["flops"] / r["ms"] / 1e9,
             **{k: v for k, v in r.items() if k.startswith("scaled_")},
         })
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,

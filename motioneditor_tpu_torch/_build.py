@@ -129,6 +129,12 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, injection, dtype, stream
     ]
     lib.me_video_attention_kv.restype = i32
+    lib.me_video_attention_kv_tc.argtypes = [
+        ptr, ptr, ptr, ptr,                 # q, k, v, out
+        i32, i32, i32, i32, i32, i32, i32,  # B, F, N, Fk, M, H, d
+        f32, ptr,                           # scale, stream
+    ]
+    lib.me_video_attention_kv_tc.restype = i32
     lib.me_temporal_attention_global.argtypes = [
         ptr, ptr, ptr, ptr,                 # q, k, v, out
         i32, i32, i32, i32, i32, i32,       # B, Fq, Fk, N, H, d
@@ -161,6 +167,13 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, mode, dtype, stream
     ]
     lib.me_video_attention_bwd_dkv.restype = i32
+    lib.me_video_attention_bwd_dkv_tc.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, dout, lse, delta
+        ptr, ptr,                           # dk_part, dv_part
+        i32, i32, i32, i32, i32,            # B, F, N, H, d
+        f32, i32, ptr,                      # scale, mode, stream
+    ]
+    lib.me_video_attention_bwd_dkv_tc.restype = i32
     lib.me_temporal_attention_bwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, dout, dq, dk, dv
         i32, i32, i32, i32, i32,            # B, F, N, H, d

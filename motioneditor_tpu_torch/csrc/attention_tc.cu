@@ -1,5 +1,6 @@
-// bf16 tensor-core bodies of the packed video attention (K1) and the
-// split-head flash attention (K8); the mainloop is attention_tc.cuh.
+// bf16 tensor-core bodies of the packed video attention (K1), the
+// split-head flash attention (K8) and the explicit-K/V video attention
+// (K12); the mainloop is attention_tc.cuh.
 //
 // Replaces (TPU / Pallas):
 //   K1  motioneditor_tpu/ops/video_flash.py  _video_flash
@@ -10,6 +11,9 @@
 //       (_flash_kernel / _flash_kernel_nomax, pallas_call at flash_attention.py:222)
 //       here in bf16 when every row is 16-byte aligned, d % 8 == 0 and
 //       d <= 160; the rest stays on split_attention.cu
+//   K12 motioneditor_tpu/ops/video_flash.py  _video_flash_kv
+//       (pallas_call at video_flash.py:726) here in bf16 with d % 8 == 0,
+//       d <= 160; fp32 stays on video_attention.cu
 // The routing rule lives in Python (ops/video_flash.py tensor_core_body),
 // so the wrappers decide which body a launch takes; these entry points
 // refuse what they cannot take rather than fall back.
@@ -26,6 +30,9 @@
 //   K8  [G, H, N, D] views given by element strides, D contiguous; K/V may
 //       broadcast over G (stride 0), the output is written through its
 //       strides (the packed [..., N, H, D] order of the wrapper).
+//   K12 q, out [B, F, N, C] over an explicit K/V [B, Fk, M, C] built by the
+//       frame-sharded path: the [G, H, N, D] views of K1 with M keys per
+//       K/V group, query group g reading K/V group g / kv_div.
 //
 // What bounds it on the H100. At the main path's shapes (N = 1024-4096
 // queries against 2N keys, d = 40-80) attention is compute-bound: 4 * d
@@ -42,64 +49,24 @@
 
 namespace {
 
+using me_tc::aligned;
 using me_tc::bf16;
+using me_tc::encode;
 using me_tc::Params;
 using me_tc::View;
 
-// cuTensorMapEncodeTiled, looked up in libcuda at first use (no -lcuda at link time)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) ptr = nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-bool aligned(const View& x) {
-  return reinterpret_cast<uintptr_t>(x.ptr) % 16 == 0 && x.sg % 8 == 0 && x.sh % 8 == 0 &&
-         x.sn % 8 == 0;
-}
-
-// a 4-D map (D, N, H, G) of the view, box {8 columns, rows, 1, 1}, rows past
-// N zero-filled. A view broadcast over G (stride 0) gets G = 1 and a stride
-// that is never stepped.
-bool encode(CUtensorMap* map, const View& x, int G, int H, int N, int d, int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const long long sg = x.sg != 0 ? x.sg : (x.sn * N > x.sh * H ? x.sn * N : x.sh * H);
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)N, (cuuint64_t)H,
-                              (cuuint64_t)(x.sg != 0 ? G : 1)};
-  const cuuint64_t strides[3] = {(cuuint64_t)x.sn * 2, (cuuint64_t)x.sh * 2, (cuuint64_t)sg * 2};
-  const cuuint32_t box[4] = {8, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x.ptr), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 bool head_dim_ok(int d) { return d >= 8 && d % 8 == 0 && d <= me_tc::MAX_D; }
 
-// q, k, v, out as [G, H, N, D] views; K/V hold Nk keys per group and pass
+// q, k, v, out as [G, H, N, D] views; K/V hold Nk keys per group and pass.
+// Query group g reads K/V group g / kv_div (video_mode -1) or the frame of
+// K1's mode (video_mode >= 0, kv_div 1).
 cudaError_t run(const View& q, const View& k, const View& v, const View& out, int G, int H,
                 int Nq, int Nk, int d, float scale, int npass, int video_mode, int F,
-                cudaStream_t stream) {
-  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) || (k.sg == 0) != (v.sg == 0))
+                int kv_div, cudaStream_t stream) {
+  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) || (k.sg == 0) != (v.sg == 0) ||
+      kv_div < 1 || G % kv_div != 0)
     return cudaErrorInvalidValue;
-  const int kv_groups = video_mode >= 0 ? G : (k.sg == 0 ? 1 : G);
+  const int kv_groups = G / kv_div;
   Params p{};
   if (!encode(&p.mk, k, kv_groups, H, Nk, d, me_tc::BK) ||
       !encode(&p.mv, v, kv_groups, H, Nk, d, me_tc::BK))
@@ -115,7 +82,7 @@ cudaError_t run(const View& q, const View& k, const View& v, const View& out, in
   p.npass = npass;
   p.video_mode = video_mode;
   p.F = F;
-  p.kv_bcast = k.sg == 0;
+  p.kv_div = kv_div;
   return me_tc::with_padded_dim(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
     if (!encode(&p.mq, q, G, H, Nq, d, me_tc::Shape<DP>::BQ)) return cudaErrorInvalidValue;
@@ -138,7 +105,25 @@ extern "C" int me_video_attention_tc(const void* q, const void* k, const void* v
     return View{static_cast<const bf16*>(ptr), (long long)N * C, d, C};
   };
   return (int)run(view(q), view(k), view(v), view(out), B * F, H, N, N, d, scale,
-                  me::num_passes(mode, F), mode, F, static_cast<cudaStream_t>(stream));
+                  me::num_passes(mode, F), mode, F, 1, static_cast<cudaStream_t>(stream));
+}
+
+// K12, bf16: q, out [B, F, N, C] against the explicit K/V [B, Fk, M, C],
+// Fk in {1, F}; query frame f reads K/V frame (Fk == 1 ? 0 : f), i.e. K/V
+// group (b*F + f) / (Fk == 1 ? F : 1) of the [B*Fk, H, M, d] view.
+// Returns a cudaError_t code (0 = launched).
+extern "C" int me_video_attention_kv_tc(const void* q, const void* k, const void* v, void* out,
+                                        int B, int F, int N, int Fk, int M, int H, int d,
+                                        float scale, void* stream) {
+  if (!head_dim_ok(d) || B < 1 || F < 1 || N < 1 || M < 1 || H < 1 || (Fk != 1 && Fk != F) ||
+      B * F > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long C = (long long)H * d;
+  auto view = [&](const void* ptr, int rows) {
+    return View{static_cast<const bf16*>(ptr), (long long)rows * C, d, C};
+  };
+  return (int)run(view(q, N), view(k, M), view(v, M), view(out, N), B * F, H, N, M, d, scale, 1,
+                  -1, F, Fk == 1 ? F : 1, static_cast<cudaStream_t>(stream));
 }
 
 // K8, bf16. strides: 12 element strides, (G, H, N) of q, k, v, out in turn;
@@ -153,5 +138,5 @@ extern "C" int me_split_attention_tc(const void* q, const void* k, const void* v
   };
   return (int)run(view(q, strides), view(k, strides + 3), view(v, strides + 6),
                   view(out, strides + 9), G, H, Nq, Nk, d, scale, 1, -1, 1,
-                  static_cast<cudaStream_t>(stream));
+                  strides[3] == 0 ? G : 1, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,8 @@
 // The bf16 tensor-core flash-attention mainloop shared by the packed video
-// attention (K1) and the split-head flash attention (K8): attention_tc.cu.
+// attention (K1), the split-head flash attention (K8) and the explicit-K/V
+// video attention (K12): attention_tc.cu. Its building blocks (mbarriers,
+// TMA loads, wgmma, the tensor maps) also serve the flash backward's dK/dV
+// (K6): attention_bwd_tc.cu.
 //
 // Every operand is a [G, H, N, D] view given by element strides, D
 // contiguous (K1's packed [B, F, N, C] is the view G = B*F, strides
@@ -56,10 +59,11 @@ struct Params {
   int Nq, Nk, d;     // Nk: keys of one pass
   float scale_log2;  // softmax scale * log2(e): scores live in log2 units
   int npass;         // passes over Nk keys each
-  int video_mode;    // -1: K8, K/V group g (0 if K/V broadcast); else K1's mode:
+  int video_mode;    // -1: K/V group g / kv_div (K8, K12); else K1's mode:
                      // group b*F + pass_frame(mode, pass, f)
   int F;
-  int kv_bcast;      // K8: K/V broadcast over G (their maps have G = 1)
+  int kv_div;        // query groups per K/V group: 1; K8's broadcast K/V: G (their
+                     // maps have G = 1); K12 with one K/V frame per clip: F
 };
 
 template <int DP>
@@ -176,6 +180,18 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : ME_D8(0), ME_D8(8), ME_D8(16), ME_D8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// S[64 x 32] (+)= A[64 x 16] . B[16 x 32], both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : ME_D8(0), ME_D8(8)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -308,8 +324,7 @@ __global__ void __launch_bounds__(Shape<DP>::NTHREADS, 1)
         if (t >= NS) mbar_wait(empty + s, ((t / NS) - 1) & 1);
         const int pass = t / tiles_per_pass, k0 = (t - pass * tiles_per_pass) * BK;
         const int grp = p.video_mode >= 0 ? b * p.F + me::pass_frame(p.video_mode, pass, f)
-                        : p.kv_bcast   ? 0
-                                       : g;
+                                          : g / p.kv_div;
         unsigned char* ks = KVs + 2 * s * S::KV_BYTES;
         mbar_expect_tx(full + s, 2 * dc * BK * 16);
         for (int c = 0; c < dc; ++c) {
@@ -490,6 +505,53 @@ cudaError_t with_padded_dim(int d, Fn&& fn) {
   if (d <= 96) return fn(Padded<96>{});
   if (d <= 128) return fn(Padded<128>{});
   return fn(Padded<160>{});
+}
+
+// --- host side: tensor maps --------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up in libcuda at first use (no -lcuda at link time)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) ptr = nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+inline bool aligned(const View& x) {
+  return reinterpret_cast<uintptr_t>(x.ptr) % 16 == 0 && x.sg % 8 == 0 && x.sh % 8 == 0 &&
+         x.sn % 8 == 0;
+}
+
+// a 4-D map (D, N, H, G) of the view, box {8 columns, rows, 1, 1}, rows past
+// N zero-filled. A view broadcast over G (stride 0) gets G = 1 and a stride
+// that is never stepped.
+inline bool encode(CUtensorMap* map, const View& x, int G, int H, int N, int d, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const long long sg = x.sg != 0 ? x.sg : (x.sn * N > x.sh * H ? x.sn * N : x.sh * H);
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)N, (cuuint64_t)H,
+                              (cuuint64_t)(x.sg != 0 ? G : 1)};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.sn * 2, (cuuint64_t)x.sh * 2, (cuuint64_t)sg * 2};
+  const cuuint32_t box[4] = {8, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x.ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace me_tc

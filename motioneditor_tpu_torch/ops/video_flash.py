@@ -1,7 +1,8 @@
 """Packed-head video attention and fg/bg injection attention on [B, F, N, C]
 (port of motioneditor_tpu/ops/video_flash.py).
 
-Kernels (CUDA C++, ``csrc/video_attention.cu``, one body for all four):
+Kernels (CUDA C++, ``csrc/video_attention.cu``, one CUDA-core body for all
+four; K1 and K12 in bf16 on ``csrc/attention_tc.cu``):
 
   video_flash_attention         replaces _video_flash         (video_flash.py:248)
   video_injection_attention     replaces _video_injection     (video_flash.py:591)
@@ -18,13 +19,13 @@ normal [f], sparse_causal [0 | f-1], motion_frame [f-1 | f], dense [all],
 with f-1 clamped to 0 (frame 0 reads frame 0 twice, keeping the doubled
 weight of the reference's concatenated keys).
 
-K1 has two bodies, chosen by ``tensor_core_body`` from the dtype, the head
-dim and the rows' alignment: bf16 with d % 8 == 0, d <= 160 runs the
-tensor-core body (``csrc/attention_tc.cu``, counted also under
-``video_flash_attention.tc``); fp32 runs the CUDA-core body of
-``video_attention.cu``. Both bodies load 16-byte vectors, so K1 raises on
-operands whose rows are off a 16-byte boundary. The other three kernels
-have the CUDA-core body only.
+K1 and K12 have two bodies, chosen by ``tensor_core_body`` from the dtype,
+the head dim and the rows' alignment: bf16 with d % 8 == 0, d <= 160 runs
+the tensor-core body (``csrc/attention_tc.cu``, counted also under
+``video_flash_attention.tc`` / ``video_flash_attention_kv.tc``); fp32 runs
+the CUDA-core body of ``video_attention.cu``. Both bodies load 16-byte
+vectors, so K1, K12 and K13 raise on operands whose rows are off a 16-byte
+boundary. K2 and K13 have the CUDA-core body only.
 
 Softmax: both dtypes use an exact online softmax (running max, fp32). The
 JAX bf16 kernels instead clamp scores at 60 with no running max; the two
@@ -79,10 +80,11 @@ def rows_aligned(*views) -> bool:
 
 
 def tensor_core_body(dtype: torch.dtype, d: int, rows_aligned: bool) -> bool:
-    """Which body a launch of K1 (video_flash_attention) or K8
-    (flash_attention) takes: the bf16 tensor-core one (csrc/attention_tc.cu)
-    for bf16 operands with d % 8 == 0, d <= 160 and every row on a 16-byte
-    boundary (``rows_aligned`` of the operands' [G, H, N, D] views), else the
+    """Which body a launch of K1 (video_flash_attention), K8
+    (flash_attention) or K12 (video_flash_attention_kv) takes: the bf16
+    tensor-core one (csrc/attention_tc.cu) for bf16 operands with
+    d % 8 == 0, d <= 160 and every row on a 16-byte boundary
+    (``rows_aligned`` of the operands' [G, H, N, D] views), else the
     CUDA-core one (video_attention.cu, split_attention.cu): fp32 (its checks
     need exact fp32), other head dims, misaligned views. The whole rule: the
     entry points' own checks only guard it. A function of its arguments
@@ -192,12 +194,11 @@ def _video_flash_kernel(q, k, v, mode, scale, heads):
     b, f, n, c = q.shape
     d = c // heads
     out = torch.empty_like(q)
-    aligned = rows_aligned(*(split_heads(t, heads).flatten(0, 1) for t in (q, k, v, out)))
-    if not aligned:  # both bodies load 16-byte vectors
-        raise ValueError(f"{name}: operands must start on a 16-byte boundary")
+    if not rows_aligned(*(split_heads(t, heads).flatten(0, 1) for t in (q, k, v, out))):
+        raise ValueError(f"{name}: operands must start on a 16-byte boundary")  # both bodies
     lib, stream = _build.kernels(), _build.stream_handle(q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    tc = tensor_core_body(q.dtype, d, aligned)
+    tc = tensor_core_body(q.dtype, d, rows_aligned=True)
     if tc:
         code = lib.me_video_attention_tc(*ptrs, out.data_ptr(), b, f, n, heads, d, float(scale),
                                          _MODE_CODES[mode], stream)
@@ -332,19 +333,34 @@ def video_flash_attention_kv(q, k, v, scale: float, heads: int) -> torch.Tensor:
 
 
 def _video_kv_kernel(q, k, v, k_tgt, v_tgt, mask, scale, heads):
+    """K12's launch (K13's with ``mask``). K12 takes the body
+    ``tensor_core_body`` picks, counted also under
+    ``video_flash_attention_kv.tc``; K13 has the CUDA-core body only."""
     injection = mask is not None
     name = "video_injection_attention_kv" if injection else "video_flash_attention_kv"
     b, f, n, c = q.shape
     fk, m = k.shape[1:3]
+    d = c // heads
     out = torch.empty_like(q)
-    code = _build.kernels().me_video_attention_kv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *(t.data_ptr() if injection else None for t in (k_tgt, v_tgt, mask)), out.data_ptr(),
-        b, f, n, fk, m, heads, c // heads, float(scale), int(injection),
-        _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
-    )
+    operands = (q, k, v, out) + ((k_tgt, v_tgt) if injection else ())
+    if not rows_aligned(*(split_heads(t, heads).flatten(0, 1) for t in operands)):
+        raise ValueError(f"{name}: operands must start on a 16-byte boundary")  # both bodies
+    lib, stream = _build.kernels(), _build.stream_handle(q.device)
+    tc = not injection and tensor_core_body(q.dtype, d, rows_aligned=True)
+    if tc:
+        code = lib.me_video_attention_kv_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            out.data_ptr(), b, f, n, fk, m, heads, d,
+                                            float(scale), stream)
+    else:
+        code = lib.me_video_attention_kv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(t.data_ptr() if injection else None for t in (k_tgt, v_tgt, mask)), out.data_ptr(),
+            b, f, n, fk, m, heads, d, float(scale), int(injection),
+            _build.DTYPE_CODES[q.dtype], stream)
     _build.check_status(name, code)
     _build.launch_counts[name] += 1
+    if tc:
+        _build.launch_counts[name + ".tc"] += 1
     return out
 
 

@@ -8,7 +8,8 @@ Kernels (CUDA C++):
                            the log-sum-exp per (query row, head)
   video_flash_bwd  dq      replaces _dq_kernel           (video_flash_bwd.py:403)
   video_flash_bwd  dk/dv   replaces _dkv_kernel          (video_flash_bwd.py:437)
-                           csrc/video_attention_bwd.cu
+                           csrc/video_attention_bwd.cu; in bf16 with d <= 80
+                           csrc/attention_bwd_tc.cu (tensor cores)
 
 ``VideoFlashAttentionFn`` is the autograd Function that
 ``video_flash_attention`` takes under autograd for the modes normal,
@@ -18,6 +19,13 @@ lse. dK/dV come from the kernel as per-(target frame, source slot) fp32
 partials [B, F, S, N, C]; ``combine_partials`` scatters them onto the source
 frames with a few index adds, as JAX's ``_combine_partials`` does outside
 its kernels.
+
+The dk/dv kernel has two bodies, chosen by ``dkv_tensor_core_body`` (a
+pure function of the dtype, the head dim and the rows' alignment): bf16 with
+d % 8 == 0, d <= 80 and aligned rows runs the tensor-core body (counted also
+under ``video_flash_bwd_dkv.tc``), the rest the CUDA-core body. Both load
+16-byte vectors, so misaligned operands raise; a failed launch raises and is
+never retried on the other body.
 
 The softmax is K1's exact one (no CAP = 60 clamp indicator), so the
 gradients are those of the plain version's softmax.
@@ -31,15 +39,34 @@ from __future__ import annotations
 import torch
 
 from motioneditor_tpu_torch import _build
-from motioneditor_tpu_torch.ops.attention import MOTION_FRAME, NORMAL, SPARSE_CAUSAL
+from motioneditor_tpu_torch.ops.attention import (
+    MOTION_FRAME,
+    NORMAL,
+    SPARSE_CAUSAL,
+    split_heads,
+)
 from motioneditor_tpu_torch.ops.video_flash import (
     _MODE_CODES,
     _check_shapes,
     _source_frames,
+    rows_aligned,
+    tensor_core_body,
     video_flash_attention_plain,
 )
 
 BWD_MODES = (NORMAL, SPARSE_CAUSAL, MOTION_FRAME)
+# the largest head dim of the dk/dv kernel's tensor-core body
+# (csrc/attention_bwd_tc.cu DKV_MAX_D): its dK and dV accumulators take d
+# fp32 registers a thread
+DKV_TC_MAX_HEAD_DIM = 80
+
+
+def dkv_tensor_core_body(dtype: torch.dtype, d: int, rows_aligned: bool) -> bool:
+    """Which body a launch of K6 (video_flash_bwd_dkv) takes: the bf16
+    tensor-core one (csrc/attention_bwd_tc.cu) where ``tensor_core_body``
+    would take K1's and d <= 80, else the CUDA-core one
+    (video_attention_bwd.cu). A function of its arguments alone."""
+    return tensor_core_body(dtype, d, rows_aligned) and d <= DKV_TC_MAX_HEAD_DIM
 
 
 def num_slots(mode: str) -> int:
@@ -63,7 +90,7 @@ def _per_frame(q, k, v, f: int, mode: str, heads: int):
 
     kf = torch.cat([k[:, g] for g in src], dim=1)
     vf = torch.cat([v[:, g] for g in src], dim=1)
-    return src, heads_of(q[:, f]), heads_of(kf), heads_of(vf)
+    return heads_of(q[:, f]), heads_of(kf), heads_of(vf)
 
 
 def _merge(x):
@@ -78,40 +105,63 @@ def video_flash_fwd_res_plain(q, k, v, mode: str, scale: float, heads: int):
     _check_mode("video_flash_fwd_res_plain", mode)
     lses = []
     for f in range(q.shape[1]):
-        _, qh, kh, _ = _per_frame(q, k, v, f, mode, heads)
+        qh, kh, _ = _per_frame(q, k, v, f, mode, heads)
         s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
         lses.append(torch.logsumexp(s, dim=-1).transpose(1, 2))  # [B, N, H]
     out = video_flash_attention_plain(q, k, v, mode, scale, heads)
     return out, torch.stack(lses, dim=1)
 
 
+def _frame_grads(q, k, v, lse, delta, do, f: int, mode: str, scale: float, heads: int):
+    """fp32 dq [B, N, C] of target frame ``f`` and its dk / dv over the
+    concatenated source frames [B, S*N, C]: P = exp(S - lse),
+    dS = P o (dO V^T - delta), dQ = scale dS K, dK = scale dS^T Q,
+    dV = P^T dO; ``delta`` [B, F, N, H] = rowsum(dO o O)."""
+    b, _, n, c = q.shape
+    qh, kh, vh = _per_frame(q, k, v, f, mode, heads)
+    gh = do[:, f].float().reshape(b, n, heads, c // heads).transpose(1, 2)
+    p = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale
+                  - lse[:, f].transpose(1, 2)[..., None])
+    ds = p * (torch.matmul(gh, vh.transpose(-1, -2)) - delta[:, f].transpose(1, 2)[..., None])
+    return (_merge(scale * torch.matmul(ds, kh)),
+            _merge(scale * torch.matmul(ds.transpose(-1, -2), qh)),
+            _merge(torch.matmul(p.transpose(-1, -2), gh)))
+
+
+def _delta(out, do, heads: int):
+    """rowsum(dO o O) per (query row, head), [B, F, N, H] fp32."""
+    b, f, n, c = out.shape
+    return (do.float() * out.float()).reshape(b, f, n, heads, c // heads).sum(-1)
+
+
 def video_flash_bwd_plain(q, k, v, out, lse, do, mode: str, scale: float, heads: int):
-    """Plain PyTorch version of the flash backward, frame by frame in fp32:
-    P = exp(S - lse), D = rowsum(dO o O), dS = P o (dO V^T - D),
-    dQ = scale dS K, dK = scale dS^T Q, dV = P^T dO, with each source
-    frame's share of dK/dV added onto that frame. Returns (dq, dk, dv) in
-    the dtypes of q, k, v."""
+    """Plain PyTorch version of the flash backward, frame by frame in fp32
+    (``_frame_grads``), with each source frame's share of dK/dV added onto
+    that frame. Returns (dq, dk, dv) in the dtypes of q, k, v."""
     _check_mode("video_flash_bwd_plain", mode)
     b, nf, n, c = q.shape
-    d = c // heads
+    delta = _delta(out, do, heads)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
     for f in range(nf):
-        src, qh, kh, vh = _per_frame(q, k, v, f, mode, heads)
-        gh = do[:, f].float().reshape(b, n, heads, d).transpose(1, 2)
-        oh = out[:, f].float().reshape(b, n, heads, d).transpose(1, 2)
-        p = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale
-                      - lse[:, f].transpose(1, 2)[..., None])
-        delta = (gh * oh).sum(-1, keepdim=True)
-        ds = p * (torch.matmul(gh, vh.transpose(-1, -2)) - delta)
-        dq[:, f] = _merge(scale * torch.matmul(ds, kh))
-        dk_f = _merge(scale * torch.matmul(ds.transpose(-1, -2), qh))
-        dv_f = _merge(torch.matmul(p.transpose(-1, -2), gh))
-        for slot, g in enumerate(src):
+        dq[:, f], dk_f, dv_f = _frame_grads(q, k, v, lse, delta, do, f, mode, scale, heads)
+        for slot, g in enumerate(_source_frames(mode, f, nf)):
             dk[:, g] += dk_f[:, slot * n:(slot + 1) * n]
             dv[:, g] += dv_f[:, slot * n:(slot + 1) * n]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def video_flash_bwd_dkv_plain(q, k, v, lse, delta, do, mode: str, scale: float, heads: int):
+    """Plain PyTorch version of the dk/dv kernel: the fp32 partials
+    [B, F, S, N, C] of dk and dv per (target frame, source slot), from the
+    forward's lse and delta = rowsum(dO o O), both [B, F, N, H]."""
+    _check_mode("video_flash_bwd_dkv_plain", mode)
+    b, nf, n, c = q.shape
+    parts = [_frame_grads(q, k, v, lse, delta, do, f, mode, scale, heads)[1:]
+             for f in range(nf)]
+    return tuple(torch.stack([p[i].reshape(b, -1, n, c) for p in parts], dim=1)
+                 for i in range(2))
 
 
 def combine_partials(p: torch.Tensor, mode: str) -> torch.Tensor:
@@ -187,20 +237,33 @@ def video_flash_bwd_dq(q, k, v, out, lse, do, mode: str, scale: float, heads: in
 
 def video_flash_bwd_dkv(q, k, v, lse, delta, do, mode: str, scale: float, heads: int):
     """The dk/dv kernel (CUDA tensors only): fp32 partials [B, F, S, N, C]
-    of dk and dv per (target frame, source slot), for combine_partials."""
+    of dk and dv per (target frame, source slot), for combine_partials, on
+    the body ``dkv_tensor_core_body`` picks (a tensor-core launch counts
+    also under ``video_flash_bwd_dkv.tc``)."""
     name = "video_flash_bwd_dkv"
     args = _bwd_args(name, q, k, v, lse, heads, mode, scale, do)
     _build.check_operands(name, (delta,), dtype=torch.float32)
     if delta.shape != lse.shape:
         raise ValueError(f"{name}: delta shape {tuple(delta.shape)} != {tuple(lse.shape)}")
     b, f, n, c = q.shape
+    d = c // heads
+    if not rows_aligned(*(split_heads(t, heads).flatten(0, 1) for t in (q, k, v, do))):
+        raise ValueError(f"{name}: operands must start on a 16-byte boundary")  # both bodies
     dkp = torch.empty((b, f, num_slots(mode), n, c), dtype=torch.float32, device=q.device)
     dvp = torch.empty_like(dkp)
-    code = _build.kernels().me_video_attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dkp.data_ptr(), dvp.data_ptr(), *args)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dkp.data_ptr(), dvp.data_ptr())
+    lib = _build.kernels()
+    tc = dkv_tensor_core_body(q.dtype, d, rows_aligned=True)
+    if tc:  # bf16 only: no dtype code
+        *shape, _, stream = args
+        code = lib.me_video_attention_bwd_dkv_tc(*ptrs, *shape, stream)
+    else:
+        code = lib.me_video_attention_bwd_dkv(*ptrs, *args)
     _build.check_status(name, code)
     _build.launch_counts[name] += 1
+    if tc:
+        _build.launch_counts[name + ".tc"] += 1
     return dkp, dvp
 
 

@@ -1,13 +1,17 @@
-"""The routing rule between the two bodies of K1 (video_flash_attention)
-and K8 (flash_attention): the dtype, the head dim and the rows' alignment
+"""The routing rule between the two bodies of K1 (video_flash_attention),
+K8 (flash_attention), K12 (video_flash_attention_kv) and K6
+(video_flash_bwd_dkv): the dtype, the head dim and the rows' alignment
 decide, and nothing else (no fallback after a failed launch).
 
 The rule is Python (ops/video_flash.py ``tensor_core_body`` and
-``rows_aligned``), so it runs here on the CPU. The
+``rows_aligned``, ops/video_flash_bwd.py ``dkv_tensor_core_body``), so it
+runs here on the CPU. The
 launch functions are driven with a stand-in for the kernel library that
 records which C entry point they call; the kernels themselves are held to
 their plain versions on the card (tests/test_torch_kernels_cuda.py).
 """
+
+import math
 
 import pytest
 import torch
@@ -16,7 +20,9 @@ from motioneditor_tpu_torch import _build
 from motioneditor_tpu_torch.ops import flash_attention as flash_mod
 from motioneditor_tpu_torch.ops import video_flash as video_mod
 from motioneditor_tpu_torch.ops.attention import split_heads
+from motioneditor_tpu_torch.ops import video_flash_bwd as bwd_mod
 from motioneditor_tpu_torch.ops.video_flash import rows_aligned, tensor_core_body
+from motioneditor_tpu_torch.ops.video_flash_bwd import dkv_tensor_core_body
 
 
 class RecordingLibrary:
@@ -65,6 +71,23 @@ def lib(monkeypatch):
 ])
 def test_tensor_core_body_rule(dtype, d, aligned, want):
     assert tensor_core_body(dtype, d, aligned) is want
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (torch.bfloat16, 40, True, True),     # the 64x64 sites of SD-1.5
+    (torch.bfloat16, 80, True, True),     # the 32x32 sites
+    (torch.bfloat16, 8, True, True),
+    (torch.bfloat16, 64, True, True),
+    (torch.bfloat16, 88, True, False),    # past the dK / dV registers' 80
+    (torch.bfloat16, 160, True, False),
+    (torch.bfloat16, 36, True, False),    # not a multiple of 8
+    (torch.bfloat16, 40, False, False),   # a row off a 16-byte boundary
+    (torch.float32, 40, True, False),     # fp32 keeps exact fp32 on CUDA cores
+    (torch.float32, 80, True, False),
+    (torch.float16, 40, True, False),
+])
+def test_dkv_tensor_core_body_rule(dtype, d, aligned, want):
+    assert dkv_tensor_core_body(dtype, d, aligned) is want
 
 
 def test_rows_aligned_reads_base_and_strides():
@@ -163,4 +186,94 @@ def test_a_failed_launch_raises_and_is_not_retried(lib):
         flash_mod.launch_split_attention("flash_attention", flash_mod._FLASH_CODE, qs, qs, qs,
                                          0.1)
     assert lib.calls == ["me_video_attention_tc", "me_split_attention_tc"]
+    assert not _build.launch_counts
+
+
+def _off(shape, dtype):
+    """A contiguous tensor whose base is 8 bytes off a 16-byte boundary."""
+    numel, skip = math.prod(shape), 8 // torch.tensor([], dtype=dtype).element_size()
+    return torch.zeros((numel + skip,), dtype=dtype)[skip:].view(shape)
+
+
+@pytest.mark.parametrize("dtype,c,heads,entry", [
+    (torch.bfloat16, 320, 8, "me_video_attention_kv_tc"),
+    (torch.bfloat16, 640, 8, "me_video_attention_kv_tc"),
+    (torch.bfloat16, 1280, 8, "me_video_attention_kv_tc"),
+    (torch.float32, 320, 8, "me_video_attention_kv"),
+    (torch.float32, 640, 8, "me_video_attention_kv"),
+])
+@pytest.mark.parametrize("fk", ["one", "per_frame"])
+def test_video_flash_kv_launch_takes_the_routed_body(lib, dtype, c, heads, entry, fk):
+    """K12 over K/V [B, Fk, M, C] with Fk = 1 (the dense sharded site) or F."""
+    q = torch.zeros((2, 3, 50, c), dtype=dtype)
+    kv = torch.zeros((2, 1, 150, c) if fk == "one" else (2, 3, 100, c), dtype=dtype)
+    out = video_mod._video_kv_kernel(q, kv, kv, None, None, None, 0.1, heads)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lib.calls == [entry]
+    tc = int(entry.endswith("_tc"))
+    assert dict(_build.launch_counts) == {
+        "video_flash_attention_kv": 1, **({"video_flash_attention_kv.tc": 1} if tc else {})}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_video_injection_kv_keeps_the_cuda_core_body(lib, dtype):
+    """K13 (the explicit-K/V injection) is not rerouted, even where K12 is."""
+    q = torch.zeros((2, 3, 50, 320), dtype=dtype)
+    ks = torch.zeros((2, 3, 100, 320), dtype=dtype)
+    video_mod._video_kv_kernel(q, ks, ks, q, q, torch.zeros((3, 100)), 0.1, 8)
+    assert lib.calls == ["me_video_attention_kv"]
+    assert dict(_build.launch_counts) == {"video_injection_attention_kv": 1}
+
+
+def _dkv_args(dtype, c, heads, mode="motion_frame", b=2, f=3, n=50, q=None):
+    q = torch.zeros((b, f, n, c), dtype=dtype) if q is None else q
+    rows = torch.zeros((b, f, n, heads))
+    return (q, q, q, rows, rows, q, mode, 0.1, heads)
+
+
+@pytest.mark.parametrize("dtype,c,heads,entry", [
+    (torch.bfloat16, 320, 8, "me_video_attention_bwd_dkv_tc"),   # d = 40
+    (torch.bfloat16, 640, 8, "me_video_attention_bwd_dkv_tc"),   # d = 80
+    (torch.bfloat16, 32, 4, "me_video_attention_bwd_dkv_tc"),    # d = 8
+    (torch.bfloat16, 768, 8, "me_video_attention_bwd_dkv"),      # d = 96: past 80
+    (torch.bfloat16, 1280, 8, "me_video_attention_bwd_dkv"),     # d = 160
+    (torch.float32, 320, 8, "me_video_attention_bwd_dkv"),
+    (torch.float32, 640, 8, "me_video_attention_bwd_dkv"),
+])
+@pytest.mark.parametrize("mode", ["normal", "sparse_causal", "motion_frame"])
+def test_dkv_launch_takes_the_routed_body(lib, dtype, c, heads, entry, mode):
+    dkp, dvp = bwd_mod.video_flash_bwd_dkv(*_dkv_args(dtype, c, heads, mode))
+    slots = 1 if mode == "normal" else 2
+    assert dkp.shape == dvp.shape == (2, 3, slots, 50, c) and dkp.dtype == torch.float32
+    assert lib.calls == [entry]
+    tc = int(entry.endswith("_tc"))
+    assert dict(_build.launch_counts) == {
+        "video_flash_bwd_dkv": 1, **({"video_flash_bwd_dkv.tc": 1} if tc else {})}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["kv", "injection_kv", "dkv"])
+def test_kv_and_dkv_reject_misaligned_rows(lib, dtype, kernel):
+    """K12, K13 and K6 load 16-byte vectors on both bodies: an operand off
+    a 16-byte boundary raises before any launch."""
+    q = torch.zeros((2, 3, 50, 320), dtype=dtype)
+    off = _off((2, 3, 50, 320), dtype)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        if kernel == "kv":
+            video_mod._video_kv_kernel(q, off, q, None, None, None, 0.1, 8)
+        elif kernel == "injection_kv":
+            video_mod._video_kv_kernel(q, q, q, off, q, torch.zeros((3, 50)), 0.1, 8)
+        else:
+            bwd_mod.video_flash_bwd_dkv(*_dkv_args(dtype, 320, 8, q=off))
+    assert lib.calls == [] and not _build.launch_counts
+
+
+def test_failed_kv_and_dkv_launches_raise_and_are_not_retried(lib):
+    lib.code = 1  # cudaErrorInvalidValue
+    q = torch.zeros((2, 3, 50, 320), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        video_mod._video_kv_kernel(q, q, q, None, None, None, 0.1, 8)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        bwd_mod.video_flash_bwd_dkv(*_dkv_args(torch.bfloat16, 320, 8))
+    assert lib.calls == ["me_video_attention_kv_tc", "me_video_attention_bwd_dkv_tc"]
     assert not _build.launch_counts

@@ -1,14 +1,25 @@
-"""The scaled error limits that hold the bf16 outputs of K1 and K8
-(chip_smoke.py's ``scaled_error`` and ``TC_ERR_LIMITS``, also used by
-tests/test_torch_kernels_cuda.py) tell a right output from a wrong one at the main path's
-key counts, where an output's RMS (about sqrt(e / keys) on inputs whose
-logits are ~N(0, 1)) is smaller than the bf16 atol of 3e-2.
+"""The scaled error limits that hold the bf16 outputs of the tensor-core
+bodies (chip_smoke.py's ``scaled_error`` and ``TC_ERR_LIMITS``, also used by
+tests/test_torch_kernels_cuda.py) tell a right output from a wrong one at
+the main path's sizes.
 
-Here on the CPU, with the plain versions, at 8192 keys (motion_frame at
-N = 4096) and 32768 (dense, 8 frames): the bf16 plain output against the
-fp32 one, a sound rounding difference, passes; outputs that miss one
-64-key tile of each K/V pass, or one frame of dense mode's keys, fail the
-scaled limits though they pass atol 3e-2 / rtol 1.6e-2.
+Forward (K1, K8, K12): an output's RMS (about sqrt(e / keys) on inputs
+whose logits are ~N(0, 1)) is smaller than the bf16 atol of 3e-2. Here on
+the CPU, with the plain versions, at 8192 keys (motion_frame at N = 4096)
+and 32768 (dense, 8 frames): the bf16 plain output against the fp32 one, a
+sound rounding difference, passes; outputs that miss one 64-key tile of
+each K/V pass, or one frame of dense mode's keys, fail the scaled limits
+though they pass atol 3e-2 / rtol 1.6e-2.
+
+Backward (K6's dK/dV partials): 4096 queries of one target frame against
+its 8192 source keys (motion_frame at N = 4096). Partials with P and dS
+rounded to bf16, as the tensor-core body rounds them, pass against the
+fp32 plain partials; partials that miss one 64-query tile, or whose dS
+lacks the - delta term, fail. The bf16 gradient check of the kernel tests
+(max error < 0.06 of max |ref|) and atol 3e-2 both pass the dS without
+- delta (its dK is off by 4% of max |ref| at most, 2% in RMS); a missing
+query tile moves single values by 0.028-0.10, around that atol (the first
+tile's dV passes it): only the scaled limits catch every fault.
 """
 
 import pytest
@@ -16,6 +27,11 @@ import torch
 
 from chip_smoke import scaled_error
 from motioneditor_tpu_torch.ops.video_flash import video_flash_attention_kv_plain
+from motioneditor_tpu_torch.ops.video_flash_bwd import (
+    _delta,
+    video_flash_bwd_dkv_plain,
+    video_flash_fwd_res_plain,
+)
 from test_torch_kernels_cuda import TOL
 
 D, TILE = 40, 64
@@ -55,3 +71,66 @@ def test_missing_keys_fail_the_scaled_limits(case):
     torch.testing.assert_close(out.float(), ref, **TOL[torch.bfloat16])  # the atol misses it
     with pytest.raises(AssertionError, match="error .* of the reference.s"):
         scaled_error(out, ref)
+
+
+@pytest.fixture(scope="module")
+def backward_case():
+    """One target frame (frame 1 of a motion_frame pair at N = 4096, so its
+    8192 keys are two distinct frames) and the fp32 plain partials of its
+    two slots, [4096 keys x 2, d]."""
+    gen = torch.Generator().manual_seed(1)
+    q, k, v, do = (torch.randn((1, 2, 4096, D), generator=gen).bfloat16().float()
+                   for _ in range(4))
+    scale = D ** -0.5
+    out, lse = video_flash_fwd_res_plain(q, k, v, "motion_frame", scale, 1)
+    delta = _delta(out, do, 1)
+    dkp, dvp = video_flash_bwd_dkv_plain(q, k, v, lse, delta, do, "motion_frame", scale, 1)
+    frame = dict(q=q[0, 1], k=k[0].reshape(-1, D), v=v[0].reshape(-1, D), do=do[0, 1],
+                 lse=lse[0, 1], delta=delta[0, 1], scale=scale)
+    return frame, (dkp[0, 1].reshape(-1, D), dvp[0, 1].reshape(-1, D))
+
+
+def _partials(frame, rounded=False, skip_rows=None, with_delta=True):
+    """dK and dV of one target frame's keys, the formulas of the dk/dv
+    kernel written out; ``rounded`` rounds P and dS to bf16 before their
+    products, ``skip_rows`` drops those query rows' contribution."""
+    p = torch.exp(frame["q"] @ frame["k"].T * frame["scale"] - frame["lse"])
+    if skip_rows is not None:
+        p[skip_rows] = 0.0
+    ds = p * (frame["do"] @ frame["v"].T - (frame["delta"] if with_delta else 0.0))
+    if rounded:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    return frame["scale"] * ds.T @ frame["q"], p.T @ frame["do"]
+
+
+def test_dkv_partials_helper_is_the_plain_version(backward_case):
+    frame, ref = backward_case
+    for got, want in zip(_partials(frame), ref):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_dkv_bf16_rounding_passes(backward_case):
+    frame, ref = backward_case
+    for got, want in zip(_partials(frame, rounded=True), ref):
+        scaled_error(got, want)
+
+
+@pytest.mark.parametrize("case", ["first_query_tile", "last_query_tile", "no_delta"])
+def test_dkv_faults_fail_the_scaled_limits(backward_case, case):
+    frame, ref = backward_case
+    atol = TOL[torch.bfloat16]["atol"]
+    if case == "no_delta":
+        got = _partials(frame, with_delta=False)
+        faulty = got[:1]  # dV does not read delta
+        # the kernel tests' bf16 gradient check and the atol both miss it
+        assert (got[0] - ref[0]).abs().max() / ref[0].abs().max() < 0.06
+        assert (got[0] - ref[0]).abs().max() < atol
+    else:
+        lo = 0 if case == "first_query_tile" else 4096 - TILE
+        got = _partials(frame, skip_rows=slice(lo, lo + TILE))
+        faulty = got
+        if case == "first_query_tile":  # the atol misses it in dV
+            assert (got[1] - ref[1]).abs().max() < atol
+    for out, want in zip(faulty, ref):
+        with pytest.raises(AssertionError, match="error .* of the reference.s"):
+            scaled_error(out, want)

@@ -8,9 +8,11 @@ a fixture, never at import). Run on a GPU host with
 Shapes cover ragged token counts (not multiples of the 64-query / 32-key
 tiles, nor of the tensor-core body's 128-query / 64-key ones), every
 supported head-dim bucket and F up to 24 (32 for the temporal backward).
-In bf16, K1 and K8 run the tensor-core body (csrc/attention_tc.cu) where
-ops/video_flash.py ``tensor_core_body`` routes them, and the tests whose
-names hold ``tc`` assert that they did. The split-head kernels (K8, K9)
+In bf16, K1, K8 and K12 run the tensor-core body (csrc/attention_tc.cu)
+where ops/video_flash.py ``tensor_core_body`` routes them, K6 its own
+(csrc/attention_bwd_tc.cu) where ops/video_flash_bwd.py
+``dkv_tensor_core_body`` does, and the tests whose names hold ``tc`` assert
+that they did. The split-head kernels (K8, K9)
 also take strided head-split views, K/V broadcast over frames, and head
 dims up to 256, d = 9 among them (element loads in place of 16-byte
 vectors). The norm kernels (K10
@@ -25,7 +27,9 @@ outputs: fp32 runs with TF32 off, atol 2e-5; bf16 atol
 magnitude 4 is already 0.031), on inputs whose logits stay far below the
 JAX bf16 kernels' clamp of 60; the bf16 K1 and K8 cases are also held to
 errors scaled to the reference (chip_smoke.py ``scaled_error``), since on
-these inputs an output's RMS, about sqrt(e / keys), falls below that atol.
+these inputs an output's RMS, about sqrt(e / keys), falls below that atol;
+so are the bf16 K12 outputs and K6's fp32 dK / dV partials against the
+plain partials.
 Gradients: fp32 rtol 1e-4, atol 1e-3; bf16 max error relative to the max
 |gradient| < 0.06 (the tolerances of tests/test_video_flash_bwd.py).
 """
@@ -66,7 +70,10 @@ from motioneditor_tpu_torch.ops.video_flash import (
     video_injection_attention_kv_plain,
 )
 from motioneditor_tpu_torch.ops.video_flash_bwd import (
+    _delta,
     video_flash_bwd,
+    video_flash_bwd_dkv,
+    video_flash_bwd_dkv_plain,
     video_flash_bwd_plain,
     video_flash_fwd_res,
     video_flash_fwd_res_plain,
@@ -418,6 +425,62 @@ def test_video_flash_bwd_kernels(device, dtype, mode, b, f, n, c, heads):
     assert_grads_close(got, ref, dtype)
 
 
+# K6's tensor-core body: d = 40 and 80 (the gated sites of SD-1.5), N below
+# one 128-key block and one query tile, and at 32x32 latents; B = 2 once per d
+TC_DKV_SHAPES = [
+    (1, 3, 200, 320, 8),    # d = 40, ragged N
+    (2, 3, 200, 640, 8),    # d = 80, ragged N, B = 2
+    (2, 4, 1024, 320, 8),   # d = 40, B = 2
+    (1, 4, 1024, 640, 8),   # d = 80
+]
+
+
+@pytest.mark.parametrize("mode", ["normal", "sparse_causal", "motion_frame"])
+@pytest.mark.parametrize("b,f,n,c,heads", TC_DKV_SHAPES)
+def test_video_flash_bwd_dkv_tc_kernel(device, mode, b, f, n, c, heads):
+    """K6's bf16 tensor-core body against the plain partials, slot by slot
+    (motion_frame's frame 0 reads frame 0 in both slots, sparse_causal's
+    slot 0 is frame 0 for every target): every partial is held to the
+    scaled limits and to the gradients' tolerance."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    q, k, v, do = (_rand((b, f, n, c), torch.bfloat16, device, gen) for _ in range(4))
+    scale = (c // heads) ** -0.5
+    out, lse = video_flash_fwd_res_plain(q, k, v, mode, scale, heads)
+    delta = _delta(out, do, heads)
+    _build.reset_launch_counts()
+    got = video_flash_bwd_dkv(q, k, v, lse, delta, do, mode, scale, heads)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"video_flash_bwd_dkv": 1, "video_flash_bwd_dkv.tc": 1}
+    ref = video_flash_bwd_dkv_plain(q, k, v, lse, delta, do, mode, scale, heads)
+    for part, want in zip(got, ref):
+        assert part.shape == want.shape and part.dtype == torch.float32
+        for slot in range(part.shape[2]):
+            assert_grads_close((part[:, :, slot],), (want[:, :, slot],), torch.bfloat16)
+            scaled_error(part[:, :, slot], want[:, :, slot])
+
+
+@pytest.mark.parametrize("b,f,n,c,heads,tc", [
+    (1, 2, 200, 768, 8, False),   # d = 96: past the tensor-core body's 80
+    (1, 2, 200, 320, 8, True),
+])
+def test_video_flash_bwd_dkv_tc_route(device, b, f, n, c, heads, tc):
+    """In bf16, K6 takes the tensor-core body exactly where
+    dkv_tensor_core_body says so, and either body matches the plain partials."""
+    gen = torch.Generator(device=device).manual_seed(14)
+    q, k, v, do = (_rand((b, f, n, c), torch.bfloat16, device, gen) for _ in range(4))
+    scale = (c // heads) ** -0.5
+    out, lse = video_flash_fwd_res_plain(q, k, v, "motion_frame", scale, heads)
+    delta = _delta(out, do, heads)
+    _build.reset_launch_counts()
+    got = video_flash_bwd_dkv(q, k, v, lse, delta, do, "motion_frame", scale, heads)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["video_flash_bwd_dkv.tc"] == int(tc)
+    ref = video_flash_bwd_dkv_plain(q, k, v, lse, delta, do, "motion_frame", scale, heads)
+    assert_grads_close(got, ref, torch.bfloat16)
+    for part, want in zip(got, ref):
+        scaled_error(part, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,f,n,c,heads", [
@@ -590,6 +653,66 @@ def test_video_flash_kv_kernel(device, dtype, b, f, n, c, heads, fk, m):
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
+# K12's tensor-core body: (B, F of q, N, C, heads, Fk, M)
+TC_KV_SHAPES = [
+    (2, 8, 4096, 320, 8, 8, 8192),    # one rank: motion_frame K/V over 2N tokens
+    (2, 8, 4096, 320, 8, 1, 32768),   # one rank: the dense site's one K/V frame
+    (1, 8, 4096, 320, 8, 1, 32768),   # B = 1
+    (1, 8, 4096, 320, 8, 8, 8192),
+    (2, 2, 4096, 320, 8, 2, 8192),    # a 2-frame shard of a 4-way split
+    (2, 2, 4096, 320, 8, 1, 32768),
+    (2, 3, 200, 320, 8, 3, 400),      # N = 200: below one query block, ragged keys
+    (1, 3, 200, 640, 8, 1, 600),      # d = 80, Fk = 1
+    (2, 2, 200, 1280, 8, 2, 333),     # d = 160
+]
+
+
+@pytest.mark.parametrize("b,f,n,c,heads,fk,m", TC_KV_SHAPES)
+def test_video_flash_kv_tc_kernel(device, b, f, n, c, heads, fk, m):
+    """K12's bf16 tensor-core body against the plain version, the first and
+    the last head apart and the whole output, to the scaled limits."""
+    gen = torch.Generator(device=device).manual_seed(25)
+    q = _rand((b, f, n, c), torch.bfloat16, device, gen)
+    k, v = (_rand((b, fk, m, c), torch.bfloat16, device, gen) for _ in range(2))
+    scale = (c // heads) ** -0.5
+    _build.reset_launch_counts()
+    out = video_flash_attention_kv(q, k, v, scale, heads)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"video_flash_attention_kv": 1,
+                                          "video_flash_attention_kv.tc": 1}
+    ref = video_flash_attention_kv_plain(q, k, v, scale, heads)
+    d = c // heads
+    for h in (0, heads - 1):
+        torch.testing.assert_close(out[..., h * d:(h + 1) * d].float(),
+                                   ref[..., h * d:(h + 1) * d].float(), **TOL[torch.bfloat16])
+        scaled_error(out[..., h * d:(h + 1) * d], ref[..., h * d:(h + 1) * d])
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    scaled_error(out, ref)
+
+
+@pytest.mark.parametrize("shard", [0, 1, 2, 3])
+def test_kv_tc_on_a_4_way_split(device, shard):
+    """Each 2-frame shard at 64x64 latents on K12's tensor-core body gives
+    its slice of the unsharded K1 output (also the tensor-core body's)."""
+    gen = torch.Generator(device=device).manual_seed(26)
+    b, f, n, c, heads = 2, 8, 4096, 320, 8
+    q, k, v = (_rand((b, f, n, c), torch.bfloat16, device, gen) for _ in range(3))
+    scale = (c // heads) ** -0.5
+    lo, hi = 2 * shard, 2 * shard + 2
+    k_mf, v_mf = _motion_frame_kv(k), _motion_frame_kv(v)
+    _build.reset_launch_counts()
+    got = video_flash_attention_kv(q[:, lo:hi].contiguous(), k_mf[:, lo:hi].contiguous(),
+                                   v_mf[:, lo:hi].contiguous(), scale, heads)
+    dense = video_flash_attention_kv(q[:, lo:hi].contiguous(), k.reshape(b, 1, f * n, c),
+                                     v.reshape(b, 1, f * n, c), scale, heads)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["video_flash_attention_kv.tc"] == 2
+    for out, mode in ((got, "motion_frame"), (dense, "dense")):
+        want = video_flash_attention(q, k, v, mode, scale, heads)[:, lo:hi]
+        torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+        scaled_error(out, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,f,n,c,heads", [(2, 8, 4096, 320, 8), (2, 2, 4096, 320, 8),
                                            (2, 3, 333, 640, 8), (1, 2, 200, 32, 4)])
@@ -688,7 +811,8 @@ def _kv_grad_case(row, dtype, device, gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("row", ["kv", "kv_dense", "injection_kv", "temporal_global"])
 def test_kv_wrapper_gradients_match_plain(device, dtype, row):
-    """K12-K14 under autograd: the kernel forward, the plain version's VJP."""
+    """K12-K14 under autograd: the kernel forward (K12's on the tensor-core
+    body in bf16), the plain version's VJP."""
     gen = torch.Generator(device=device).manual_seed(24)
     fn, plain, xs, kernel = _kv_grad_case(row, dtype, device, gen)
     xs = [x.requires_grad_() for x in xs]
@@ -696,7 +820,8 @@ def test_kv_wrapper_gradients_match_plain(device, dtype, row):
     out = fn(*xs)
     got = torch.autograd.grad(out.float().pow(2).sum(), xs)
     torch.cuda.synchronize()
-    assert dict(_build.launch_counts) == {kernel: 1}
+    tc = dtype == torch.bfloat16 and kernel == "video_flash_attention_kv"  # K12's tc body
+    assert dict(_build.launch_counts) == {kernel: 1, **({kernel + ".tc": 1} if tc else {})}
     ref = torch.autograd.grad(plain(*xs).float().pow(2).sum(), xs)
     assert_grads_close(got, ref, dtype)
 

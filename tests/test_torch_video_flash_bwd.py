@@ -20,6 +20,8 @@ import torch
 from motioneditor_tpu.ops.video_flash import _pick_blocks
 from motioneditor_tpu.ops.video_flash import video_flash_attention as jax_video_flash_attention
 from motioneditor_tpu.ops.video_flash_bwd import _combine_partials as jax_combine_partials
+from motioneditor_tpu.ops.video_flash_bwd import pick_blocks_bwd
+from motioneditor_tpu.ops.video_flash_bwd import video_flash_bwd as jax_video_flash_bwd
 from motioneditor_tpu.ops.video_flash_bwd import video_flash_fwd_res as jax_video_flash_fwd_res
 
 from motioneditor_tpu_torch.ops.video_flash import (
@@ -29,7 +31,9 @@ from motioneditor_tpu_torch.ops.video_flash import (
 )
 from motioneditor_tpu_torch.ops.video_flash_bwd import (
     VideoFlashAttentionFn,
+    _delta,
     combine_partials,
+    video_flash_bwd_dkv_plain,
     video_flash_bwd_plain,
     video_flash_fwd_res_plain,
 )
@@ -136,3 +140,33 @@ def test_function_skips_inputs_without_grad():
     VideoFlashAttentionFn.apply(q, k, v, "motion_frame", 0.5, 4).sum().backward()
     assert q.grad is None and k.grad is None
     assert v.grad is not None and v.grad.shape == v.shape
+
+
+@pytest.mark.parametrize("mode", BWD_MODES)
+def test_dkv_plain_partials_match_jax(mode):
+    """The plain version of the dk/dv kernel (K6): its per-(target, slot)
+    partials, scattered by combine_partials, against dk / dv of JAX's Pallas
+    flash backward in interpret mode on JAX's own residuals, and its
+    partials against video_flash_bwd_plain's combined dk / dv."""
+    c, heads = 320, 8
+    q, k, v, do = _inputs(5, c, count=4)
+    scale = (c // heads) ** -0.5
+    bq, bk = _pick_blocks(N, c, 4, kv_streams=2, heads=heads)
+    out, lse = jax_video_flash_fwd_res(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mode,
+                                       scale, heads, bq, bk, True)
+    bq, bk = pick_blocks_bwd(N, c, 4, heads)
+    _, dk_ref, dv_ref = jax_video_flash_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out,
+                                            lse, jnp.asarray(do), mode, scale, heads, bq, bk,
+                                            True)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    out_t = torch.from_numpy(np.asarray(out))
+    lse_t = torch.from_numpy(np.asarray(lse)[..., :heads].copy())
+    dkp, dvp = video_flash_bwd_dkv_plain(qt, kt, vt, lse_t, _delta(out_t, dot, heads), dot, mode,
+                                         scale, heads)
+    slots = 1 if mode == "normal" else 2
+    assert dkp.shape == dvp.shape == (B, F, slots, N, c) and dkp.dtype == torch.float32
+    assert_close(combine_partials(dkp, mode), dk_ref, atol=1e-3, rtol=1e-4)
+    assert_close(combine_partials(dvp, mode), dv_ref, atol=1e-3, rtol=1e-4)
+    _, dk, dv = video_flash_bwd_plain(qt, kt, vt, out_t, lse_t, dot, mode, scale, heads)
+    torch.testing.assert_close(combine_partials(dkp, mode), dk, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(combine_partials(dvp, mode), dv, atol=1e-6, rtol=1e-6)
