@@ -26,11 +26,14 @@ Phases, each raising on failure:
               dk/dv partials, K7 temporal) against their plain versions and
               autograd of the plain forward, at the null-text shapes (B=1,
               F=8, the same (N, C), modes normal / sparse_causal /
-              motion_frame), bf16 and fp32, with times; in bf16 K6 runs its
-              tensor-core body (csrc/attention_bwd_tc.cu), whose partials are
-              also held to TC_ERR_LIMITS against the plain partials (made
-              from the plain delta, so K5's delta is held too), and
-              whose TFLOP/s and share of its bound are printed
+              motion_frame), bf16 and fp32, with times, TFLOP/s and shares
+              of the bound at both shapes; in bf16 K4, K5 and K6 run their
+              tensor-core bodies (csrc/attention_tc.cu,
+              csrc/attention_dq_tc.cu, csrc/attention_bwd_tc.cu): K4's
+              output, K5's dQ (against the fp32 plain dQ) and K6's partials
+              (made from the plain delta) are also held to TC_ERR_LIMITS,
+              K4's lse to atol 1e-4 and K5's delta to the plain
+              rowsum(dO o O)
   4. slice    the injected two-branch denoise segment at full SD-1.5 width
               (UNet + adapter + ControlNet, random init from a seed), bf16,
               512px, 8 frames, injection from block 10, 3 steps over
@@ -82,7 +85,10 @@ Phases, each raising on failure:
               frames, batch 1, gradient checkpointing: a warm-up step and 3
               steps each with both knobs on, asserting finite losses, that
               only the trainables moved and the per-step launch counts; then
-              the same steps with both knobs off; ms per step and peak memory
+              the same steps with both knobs off; ms per step and peak memory;
+              one more stage-1 step (knobs on) under torch.profiler: the
+              device's busy share and kernel time per bucket (K4, K5, K6 and
+              K7 each their own)
   3d. kv      (run after phase 3c) the frame-sharded path's kernels against
               their plain versions in bf16 and fp32: K12 (explicit-K/V
               attention) at q [2, 8, 4096, 320] over motion_frame K/V
@@ -132,17 +138,18 @@ MODES = ("normal", "sparse_causal", "motion_frame", "dense")
 BWD_MODES = ("normal", "sparse_causal", "motion_frame")
 NULL_STEPS = 5  # phase 6's schedule
 LOGIT_CAP = 60.0  # the JAX bf16 kernels' score clamp (ops/video_flash.py _CAP)
-# K1, K8 and K12 launches in bf16 take the tensor-core body
-# (csrc/attention_tc.cu), K6's at d <= 80 its own (csrc/attention_bwd_tc.cu),
-# and count again as "<name>.tc"; every full-width path below runs in bf16
-# at d = 40 and 80
+# K1, K8, K12 and K4 launches in bf16 take the tensor-core body
+# (csrc/attention_tc.cu), K5's and K6's at d <= 80 their own
+# (csrc/attention_dq_tc.cu, csrc/attention_bwd_tc.cu), and count again as
+# "<name>.tc"; every full-width path below runs in bf16 at d = 40 and 80, so
+# every launch of these kernels there takes the tensor-core body
 TC_KERNELS = ("video_flash_attention", "flash_attention", "video_flash_attention_kv",
-              "video_flash_bwd_dkv")
+              "video_flash_fwd_res", "video_flash_bwd_dq", "video_flash_bwd_dkv")
 
 
 def tc(per_step: dict) -> dict:
     """``per_step`` with the tensor-core sub-counts of a bf16 path: each K1,
-    K8, K12 and K6 launch there must have taken the tensor-core body."""
+    K8, K12, K4, K5 and K6 launch there must have taken the tensor-core body."""
     return {**per_step, **{f"{k}.tc": n for k, n in per_step.items() if k in TC_KERNELS}}
 
 
@@ -234,9 +241,9 @@ KERNEL_INFO = {
                                   "motioneditor_tpu/ops/video_flash.py:591"),
     "temporal_flash_attention": ("motioneditor_tpu_torch/csrc/temporal_attention.cu",
                                  "motioneditor_tpu/ops/temporal_flash.py:208"),
-    "video_flash_fwd_res": ("motioneditor_tpu_torch/csrc/video_attention.cu",
+    "video_flash_fwd_res": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                             "motioneditor_tpu/ops/video_flash_bwd.py:229"),
-    "video_flash_bwd_dq": ("motioneditor_tpu_torch/csrc/video_attention_bwd.cu",
+    "video_flash_bwd_dq": ("motioneditor_tpu_torch/csrc/attention_dq_tc.cu",
                            "motioneditor_tpu/ops/video_flash_bwd.py:403"),
     "video_flash_bwd_dkv": ("motioneditor_tpu_torch/csrc/attention_bwd_tc.cu",
                             "motioneditor_tpu/ops/video_flash_bwd.py:437"),
@@ -595,11 +602,19 @@ def phase_bwd_kernels(device):
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     results = {name: {"max_abs_err": 0.0} for name in BACKWARD_KERNELS}
 
-    def record(name, err, ms, plain_ms, main_case, at, flops, moved):
+    def record(name, err, ms, plain_ms, main_case, at, flops, moved, small_case=False):
+        """Keeps the largest error and the numbers of the main case (and of
+        the 32x32 sites' case, ``small_case``); returns the rate and the
+        share of the bound for the log."""
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        b = bound(flops, moved, dtype)
         if main_case:
-            r.update(ms=ms, plain_ms=plain_ms, at=at, **bound(flops, moved, dtype))
+            r.update(ms=ms, plain_ms=plain_ms, at=at, **b)
+        if small_case:
+            r.update(ms_32x32=ms, bound_ms_32x32=b["bound_ms"], at_32x32=at)
+        return (f", {name.removeprefix('video_flash_')} {b['flops'] / ms / 1e9:.1f} TFLOP/s, "
+                f"{100 * b['bound_ms'] / ms:.1f}% of its bound")
 
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).replace("torch.", "")
@@ -611,6 +626,7 @@ def phase_bwd_kernels(device):
                 raise AssertionError(f"bf16 inputs reach logit >= {LOGIT_CAP}")
             for mode in BWD_MODES:
                 main_case = dtype == torch.bfloat16 and n == 4096 and mode == "motion_frame"
+                small_case = dtype == torch.bfloat16 and n == 1024 and mode == "motion_frame"
                 at = f"{dt} B=1 F={FRAMES} N={n} C={c} {mode}"
                 fwd = lambda: video_flash_fwd_res(q, k, v, mode, scale, HEADS)  # noqa: E731
                 fwd_plain = lambda: video_flash_fwd_res_plain(  # noqa: E731
@@ -622,14 +638,18 @@ def phase_bwd_kernels(device):
                 torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
                 err = max((out.float() - out_ref.float()).abs().max().item(),
                           (lse - lse_ref).abs().max().item())
+                tc_line = ""
+                if dtype == torch.bfloat16:  # K4's tensor-core body: its output, scaled
+                    tc_line = scaled_line(results["video_flash_fwd_res"],
+                                          scaled_error(out, out_ref))
                 del out, lse
                 ms_fwd, plain_fwd_ms = time_ms(fwd), time_ms(fwd_plain)
                 # the forward's 2 products per (query, key, head); dq recomputes S and
                 # forms dP and dQ (3), dk/dv form S, dP, dV and dK (4)
                 work = video_work("video_flash_attention", mode, q)
                 lse_bytes = nbytes(lse_ref)
-                record("video_flash_fwd_res", err, ms_fwd, plain_fwd_ms, main_case, at, work,
-                       nbytes(q, k, v, q) + lse_bytes)
+                tc_line += record("video_flash_fwd_res", err, ms_fwd, plain_fwd_ms, main_case, at,
+                                  work, nbytes(q, k, v, q) + lse_bytes, small_case)
 
                 dq_fn = lambda: video_flash_bwd_dq(  # noqa: E731
                     q, k, v, out_ref, lse_ref, do, mode, scale, HEADS)
@@ -638,17 +658,26 @@ def phase_bwd_kernels(device):
                     q, k, v, lse_ref, delta, do, mode, scale, HEADS)
                 dkp, dvp = dkv_fn()
                 torch.cuda.synchronize()
-                tc_line = ""
-                if dtype == torch.bfloat16:  # K6's tensor-core body: its partials as they are,
-                    # against partials from the plain delta, so K5's delta is held too
-                    refs = video_flash_bwd_dkv_plain(q, k, v, lse_ref, _delta(out_ref, do, HEADS),
+                if dtype == torch.bfloat16:
+                    # K5's tensor-core body: dQ against the fp32 plain dQ of the same bf16
+                    # residuals, and its delta against the plain rowsum(dO o O)
+                    plain_delta = _delta(out_ref, do, HEADS)
+                    torch.testing.assert_close(delta, plain_delta, atol=1e-5, rtol=1e-5)
+                    dq_ref = video_flash_bwd_plain(*(t.float() for t in (q, k, v, out_ref)),
+                                                   lse_ref, do.float(), mode, scale, HEADS)[0]
+                    tc_line += scaled_line(results["video_flash_bwd_dq"],
+                                           scaled_error(dq, dq_ref))
+                    del dq_ref
+                    # K6's tensor-core body: its partials as they are, against partials
+                    # from the plain delta
+                    refs = video_flash_bwd_dkv_plain(q, k, v, lse_ref, plain_delta,
                                                      do, mode, scale, HEADS)
                     worst = {"max": 0.0, "rms": 0.0}
                     for part, ref_part in zip((dkp, dvp), refs):
                         for key, value in scaled_error(part, ref_part).items():
                             worst[key] = max(worst[key], value)
-                    tc_line = scaled_line(results["video_flash_bwd_dkv"], worst)
-                    del refs
+                    tc_line += scaled_line(results["video_flash_bwd_dkv"], worst)
+                    del refs, plain_delta
                 got = (dq, combine_partials(dkp, mode).to(dtype),
                        combine_partials(dvp, mode).to(dtype))
                 del dkp, dvp
@@ -663,16 +692,14 @@ def phase_bwd_kernels(device):
                 ms_dq, ms_dkv, plain_ms = time_ms(dq_fn), time_ms(dkv_fn), time_ms(bwd_plain)
                 auto_ms = time_ms(lambda: plain_autograd(
                     lambda *t: video_flash_attention_plain(*t, mode, scale, HEADS), (q, k, v), do))
-                record("video_flash_bwd_dq", max(err_plain, err_auto), ms_dq, plain_ms,
-                       main_case, at, 1.5 * work, nbytes(q, k, v, q, do, q) + 2 * lse_bytes)
+                tc_line += record("video_flash_bwd_dq", max(err_plain, err_auto), ms_dq,
+                                  plain_ms, main_case, at, 1.5 * work,
+                                  nbytes(q, k, v, q, do, q) + 2 * lse_bytes, small_case)
                 slots = 1 if mode == "normal" else 2  # fp32 dk / dv partials per source slot
-                dkv_bound = bound(2.0 * work, nbytes(q, k, v, do) + 2 * lse_bytes
-                                  + 2 * slots * q.numel() * 4, dtype)
-                record("video_flash_bwd_dkv", max(err_plain, err_auto), ms_dkv, plain_ms,
-                       main_case, at, dkv_bound["flops"], dkv_bound["bytes"])
-                if dtype == torch.bfloat16:  # the tensor-core body's rate
-                    tc_line += (f", dkv {dkv_bound['flops'] / ms_dkv / 1e9:.1f} TFLOP/s, "
-                                f"{100 * dkv_bound['bound_ms'] / ms_dkv:.1f}% of its bound")
+                tc_line += record("video_flash_bwd_dkv", max(err_plain, err_auto), ms_dkv,
+                                  plain_ms, main_case, at, 2.0 * work,
+                                  nbytes(q, k, v, do) + 2 * lse_bytes
+                                  + 2 * slots * q.numel() * 4, small_case)
                 log(f"[bwd] {at}: max_abs_err fwd_res {err:.3e}, bwd vs plain {err_plain:.3e}, "
                     f"vs autograd {err_auto:.3e}; fwd_res {ms_fwd:.3f} ms (plain "
                     f"{plain_fwd_ms:.3f}), dq {ms_dq:.3f} ms, dkv {ms_dkv:.3f} ms, plain bwd "
@@ -1421,7 +1448,8 @@ def phase_train_check(device):
 
 def phase_train(device):
     """Stage 1 then stage 2 at full width, bf16 frozen weights with fp32
-    masters, gradient checkpointing: both knobs on, then off."""
+    masters, gradient checkpointing: both knobs on, then off; one more
+    stage-1 step with the knobs on under torch.profiler."""
     import torch
 
     from motioneditor_tpu_torch import _build
@@ -1474,6 +1502,10 @@ def phase_train(device):
             metrics[f"{stage}_peak_gib_knobs_{key}"] = peak
             log(f"[train] {stage} knobs {key}: {TRAIN_STEPS} steps, {ms:.1f} ms/step, peak "
                 f"{peak:.2f} GiB, losses {losses}, launches {launches}")
+            if stage == "stage1" and on:  # one more step under torch.profiler
+                with norm_knobs(on):
+                    profile = profile_step(lambda: step(TRAIN_STEPS + 1))
+                log(f"[train] profiled stage-1 step: {json.dumps(profile)}")
             if not all(math.isfinite(v) for v in losses):
                 raise AssertionError(f"{stage}: losses are not finite: {losses}")
             moved = {n for n, p in unet.named_parameters() if not torch.equal(p, before[n])}
@@ -1489,7 +1521,7 @@ def phase_train(device):
             torch.cuda.empty_cache()
     del cn
     torch.cuda.empty_cache()
-    return paths, metrics
+    return paths, metrics, profile
 
 
 def motion_frame_kv(x):
@@ -1687,7 +1719,11 @@ def device_busy_share(fn) -> dict:
 # device-time buckets of a profiled step: the first whose substrings the
 # kernel's name contains (lower case)
 PROFILE_BUCKETS = (
-    ("tensor-core attention, K1/K8/K12/K6 (attention_tc)", ("attention_tc",)),
+    ("K4 forward with lse (attention_tc_lse)", ("attention_tc_lse",)),
+    ("K5 dq (attention_tc_dq)", ("attention_tc_dq",)),
+    ("K6 dk/dv (attention_tc_dkv)", ("attention_tc_dkv",)),
+    ("K7 temporal backward (temporal_bwd)", ("temporal_bwd",)),
+    ("tensor-core attention, K1/K8/K12 (attention_tc)", ("attention_tc",)),
     ("K2 and CUDA-core K1 (video_attention_kernel)", ("video_attention_kernel",)),
     ("K3 temporal_attention_kernel", ("temporal_attention",)),
     ("K8/K9 CUDA-core body (split_attention_kernel)", ("split_attention",)),
@@ -2049,7 +2085,7 @@ def main() -> int:
     paths["train_check"] = phase_train_check(device)
     log(f"[train-check] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    train_paths, train_metrics = phase_train(device)
+    train_paths, train_metrics, stage1_profile = phase_train(device)
     paths.update(train_paths)
     log(f"[train] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2079,13 +2115,14 @@ def main() -> int:
             "library_ms": r.get("library_ms"), "at": r["at"],
             "library_at": r.get("library_at"), "flops": r["flops"], "bytes": r["bytes"],
             "tflops": r["flops"] / r["ms"] / 1e9,
-            **{k: v for k, v in r.items() if k.startswith("scaled_")},
+            **{k: v for k, v in r.items() if k.startswith("scaled_") or k.endswith("_32x32")},
         })
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
                       "train": train_metrics, "norm_yardsticks": yardsticks,
                       "sharded": shard_metrics,
-                      "profiles": {"denoise": slice_profile, "auto": auto_profile},
+                      "profiles": {"denoise": slice_profile, "auto": auto_profile,
+                                   "stage1": stage1_profile},
                       "launches_by_path": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

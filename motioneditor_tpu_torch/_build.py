@@ -153,6 +153,12 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, mode, dtype, stream
     ]
     lib.me_video_attention_fwd_res.restype = i32
+    lib.me_video_attention_fwd_res_tc.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,            # q, k, v, out, lse
+        i32, i32, i32, i32, i32,            # B, F, N, H, d
+        f32, i32, ptr,                      # scale, mode, stream
+    ]
+    lib.me_video_attention_fwd_res_tc.restype = i32
     lib.me_video_attention_bwd_dq.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, out, dout, lse
         ptr, ptr,                           # delta, dq
@@ -160,6 +166,13 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, ptr,                 # scale, mode, dtype, stream
     ]
     lib.me_video_attention_bwd_dq.restype = i32
+    lib.me_video_attention_bwd_dq_tc.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, out, dout, lse
+        ptr, ptr,                           # delta, dq
+        i32, i32, i32, i32, i32,            # B, F, N, H, d
+        f32, i32, ptr,                      # scale, mode, stream
+    ]
+    lib.me_video_attention_bwd_dq_tc.restype = i32
     lib.me_video_attention_bwd_dkv.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, dout, lse, delta
         ptr, ptr,                           # dk_part, dv_part

@@ -1,12 +1,17 @@
-// bf16 tensor-core bodies of the packed video attention (K1), the
-// split-head flash attention (K8) and the explicit-K/V video attention
-// (K12); the mainloop is attention_tc.cuh.
+// bf16 tensor-core bodies of the packed video attention (K1), its
+// residual-saving forward (K4), the split-head flash attention (K8) and the
+// explicit-K/V video attention (K12); the mainloop is attention_tc.cuh.
 //
 // Replaces (TPU / Pallas):
 //   K1  motioneditor_tpu/ops/video_flash.py  _video_flash
 //       (_kernel_nomax / _kernel_maxsafe, pallas_call at video_flash.py:248)
 //       here in bf16 with d % 8 == 0, d <= 160; fp32 stays on the CUDA-core
 //       body of video_attention.cu
+//   K4  motioneditor_tpu/ops/video_flash_bwd.py  video_flash_fwd_res
+//       (pallas_call at video_flash_bwd.py:229) here in bf16 with K1's rule;
+//       fp32 stays on video_attention.cu. K1's mainloop, whose epilogue also
+//       writes (m + log2 l) * ln 2 of every valid row (the lse instantiation,
+//       attention_tc_lse_kernel; K1's own code is unchanged)
 //   K8  motioneditor_tpu/ops/flash_attention.py  _flash_3d
 //       (_flash_kernel / _flash_kernel_nomax, pallas_call at flash_attention.py:222)
 //       here in bf16 when every row is 16-byte aligned, d % 8 == 0 and
@@ -14,9 +19,10 @@
 //   K12 motioneditor_tpu/ops/video_flash.py  _video_flash_kv
 //       (pallas_call at video_flash.py:726) here in bf16 with d % 8 == 0,
 //       d <= 160; fp32 stays on video_attention.cu
-// The routing rule lives in Python (ops/video_flash.py tensor_core_body),
-// so the wrappers decide which body a launch takes; these entry points
-// refuse what they cannot take rather than fall back.
+// The routing rule lives in Python (ops/video_flash.py tensor_core_body,
+// ops/video_flash_bwd.py fwd_res_tensor_core_body), so the wrappers decide
+// which body a launch takes; these entry points refuse what they cannot take
+// rather than fall back.
 //
 // What it computes: softmax(q k^T * scale) v per (query row, head), exactly
 // as the CUDA-core bodies do (an exact online softmax, running max in fp32,
@@ -27,6 +33,7 @@
 //       normal [f] | sparse_causal [0, f-1] | motion_frame [f-1, f] |
 //       dense [0..F-1], f-1 clamped to 0 (frame 0 reads frame 0 twice and
 //       the duplicated keys keep their doubled weight).
+//   K4  K1, and the fp32 log-sum-exp of the scaled scores [B, F, N, H].
 //   K8  [G, H, N, D] views given by element strides, D contiguous; K/V may
 //       broadcast over G (stride 0), the output is written through its
 //       strides (the packed [..., N, H, D] order of the wrapper).
@@ -60,9 +67,10 @@ bool head_dim_ok(int d) { return d >= 8 && d % 8 == 0 && d <= me_tc::MAX_D; }
 // q, k, v, out as [G, H, N, D] views; K/V hold Nk keys per group and pass.
 // Query group g reads K/V group g / kv_div (video_mode -1) or the frame of
 // K1's mode (video_mode >= 0, kv_div 1).
-cudaError_t run(const View& q, const View& k, const View& v, const View& out, int G, int H,
-                int Nq, int Nk, int d, float scale, int npass, int video_mode, int F,
-                int kv_div, cudaStream_t stream) {
+// lse (nullptr: not written) is [G, N, H] fp32.
+cudaError_t run(const View& q, const View& k, const View& v, const View& out, float* lse,
+                int G, int H, int Nq, int Nk, int d, float scale, int npass, int video_mode,
+                int F, int kv_div, cudaStream_t stream) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) || (k.sg == 0) != (v.sg == 0) ||
       kv_div < 1 || G % kv_div != 0)
     return cudaErrorInvalidValue;
@@ -75,6 +83,10 @@ cudaError_t run(const View& q, const View& k, const View& v, const View& out, in
   p.osg = out.sg;
   p.osh = out.sh;
   p.osn = out.sn;
+  p.lse = lse;
+  p.lsg = (long long)Nq * H;
+  p.lsh = 1;
+  p.lsn = H;
   p.Nq = Nq;
   p.Nk = Nk;
   p.d = d;
@@ -104,7 +116,24 @@ extern "C" int me_video_attention_tc(const void* q, const void* k, const void* v
   auto view = [&](const void* ptr) {
     return View{static_cast<const bf16*>(ptr), (long long)N * C, d, C};
   };
-  return (int)run(view(q), view(k), view(v), view(out), B * F, H, N, N, d, scale,
+  return (int)run(view(q), view(k), view(v), view(out), nullptr, B * F, H, N, N, d, scale,
+                  me::num_passes(mode, F), mode, F, 1, static_cast<cudaStream_t>(stream));
+}
+
+// K4, bf16: K1 that also writes lse [B, F, N, H] fp32 (natural log) for the
+// backward (attention_dq_tc.cu, attention_bwd_tc.cu). mode: 0 normal,
+// 1 sparse_causal, 2 motion_frame, 3 dense. Returns a cudaError_t code.
+extern "C" int me_video_attention_fwd_res_tc(const void* q, const void* k, const void* v,
+                                             void* out, float* lse, int B, int F, int N, int H,
+                                             int d, float scale, int mode, void* stream) {
+  if (!head_dim_ok(d) || mode < 0 || mode > 3 || lse == nullptr || B < 1 || F < 1 || N < 1 ||
+      H < 1 || B * F > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long C = (long long)H * d;
+  auto view = [&](const void* ptr) {
+    return View{static_cast<const bf16*>(ptr), (long long)N * C, d, C};
+  };
+  return (int)run(view(q), view(k), view(v), view(out), lse, B * F, H, N, N, d, scale,
                   me::num_passes(mode, F), mode, F, 1, static_cast<cudaStream_t>(stream));
 }
 
@@ -122,8 +151,8 @@ extern "C" int me_video_attention_kv_tc(const void* q, const void* k, const void
   auto view = [&](const void* ptr, int rows) {
     return View{static_cast<const bf16*>(ptr), (long long)rows * C, d, C};
   };
-  return (int)run(view(q, N), view(k, M), view(v, M), view(out, N), B * F, H, N, M, d, scale, 1,
-                  -1, F, Fk == 1 ? F : 1, static_cast<cudaStream_t>(stream));
+  return (int)run(view(q, N), view(k, M), view(v, M), view(out, N), nullptr, B * F, H, N, M, d,
+                  scale, 1, -1, F, Fk == 1 ? F : 1, static_cast<cudaStream_t>(stream));
 }
 
 // K8, bf16. strides: 12 element strides, (G, H, N) of q, k, v, out in turn;
@@ -137,6 +166,6 @@ extern "C" int me_split_attention_tc(const void* q, const void* k, const void* v
     return View{static_cast<const bf16*>(ptr), s[0], s[1], s[2]};
   };
   return (int)run(view(q, strides), view(k, strides + 3), view(v, strides + 6),
-                  view(out, strides + 9), G, H, Nq, Nk, d, scale, 1, -1, 1,
+                  view(out, strides + 9), nullptr, G, H, Nq, Nk, d, scale, 1, -1, 1,
                   strides[3] == 0 ? G : 1, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 // The bf16 tensor-core flash-attention mainloop shared by the packed video
-// attention (K1), the split-head flash attention (K8) and the explicit-K/V
+// attention (K1), its residual-saving forward (K4, which also writes the
+// log-sum-exp), the split-head flash attention (K8) and the explicit-K/V
 // video attention (K12): attention_tc.cu. Its building blocks (mbarriers,
 // TMA loads, wgmma, the tensor maps) also serve the flash backward's dK/dV
-// (K6): attention_bwd_tc.cu.
+// (K6, attention_bwd_tc.cu) and dQ (K5, attention_dq_tc.cu).
 //
 // Every operand is a [G, H, N, D] view given by element strides, D
 // contiguous (K1's packed [B, F, N, C] is the view G = B*F, strides
@@ -56,6 +57,8 @@ struct Params {
   CUtensorMap mq, mk, mv;  // 4-D maps (D, N, H, G), box {8, rows, 1, 1}
   bf16* out;
   long long osg, osh, osn;
+  float* lse;              // K4: the natural-log log-sum-exp of every (row, head),
+  long long lsg, lsh, lsn; // element strides of G, H and N; nullptr: not written
   int Nq, Nk, d;     // Nk: keys of one pass
   float scale_log2;  // softmax scale * log2(e): scores live in log2 units
   int npass;         // passes over Nk keys each
@@ -271,9 +274,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // --- the kernel ---------------------------------------------------------------
 
-template <int DP>
-__global__ void __launch_bounds__(Shape<DP>::NTHREADS, 1)
-    attention_tc_kernel(const __grid_constant__ Params p) {
+// The kernel's body; LSE also writes the log-sum-exp of every valid row
+// (K4), which K1's, K8's and K12's instantiations do not compile.
+template <int DP, bool LSE>
+__device__ __forceinline__ void attention_body(const Params& p) {
   using S = Shape<DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* Qs = smem;
@@ -454,18 +458,22 @@ __global__ void __launch_bounds__(Shape<DP>::NTHREADS, 1)
   for (int hh = 0; hh < S::NH; ++hh) fence_regs(o[hh]);
 
   // epilogue: full row sums across the quad, then O / l as bf16 pairs
-  float inv[2];
+  float l[2], inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[i] = 1.f / l;
+    l[i] = l_run[i];
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.f / l[i];
   }
   bf16* og = p.out + g * p.osg + (long long)h * p.osh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int n = q0 + wg * 64 + (warp % 4) * 16 + (lane >> 2) + 8 * i;
+    if constexpr (LSE) {  // m_run is in log2 units: lse = (m + log2 l) * ln 2
+      if (quad == 0 && n < p.Nq)
+        p.lse[g * p.lsg + h * p.lsh + n * p.lsn] = (m_run[i] + log2f(l[i])) * me::kLn2;
+    }
     if (n < p.Nq) {
       bf16* orow = og + (long long)n * p.osn;
 #pragma unroll
@@ -480,14 +488,29 @@ __global__ void __launch_bounds__(Shape<DP>::NTHREADS, 1)
   }
 }
 
+// K1, K8, K12
+template <int DP>
+__global__ void __launch_bounds__(Shape<DP>::NTHREADS, 1)
+    attention_tc_kernel(const __grid_constant__ Params p) {
+  attention_body<DP, false>(p);
+}
+
+// K4: K1 that also writes the log-sum-exp (its own name in a profile)
+template <int DP>
+__global__ void __launch_bounds__(Shape<DP>::NTHREADS, 1)
+    attention_tc_lse_kernel(const __grid_constant__ Params p) {
+  attention_body<DP, true>(p);
+}
+
 template <int DP>
 cudaError_t launch(const Params& p, int H, int G, cudaStream_t stream) {
   using S = Shape<DP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
+  auto* kernel = p.lse != nullptr ? attention_tc_lse_kernel<DP> : attention_tc_kernel<DP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Nq + S::BQ - 1) / S::BQ, H, G);
-  attention_tc_kernel<DP><<<grid, S::NTHREADS, S::bytes, stream>>>(p);
+  kernel<<<grid, S::NTHREADS, S::bytes, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -4,9 +4,12 @@
 Kernels (CUDA C++):
 
   video_flash_fwd_res      replaces video_flash_fwd_res  (video_flash_bwd.py:229)
-                           csrc/video_attention.cu: K1's body, also writing
-                           the log-sum-exp per (query row, head)
+                           K1's body, also writing the log-sum-exp per
+                           (query row, head): csrc/video_attention.cu; in
+                           bf16 csrc/attention_tc.cu (tensor cores)
   video_flash_bwd  dq      replaces _dq_kernel           (video_flash_bwd.py:403)
+                           csrc/video_attention_bwd.cu; in bf16 with d <= 80
+                           csrc/attention_dq_tc.cu (tensor cores)
   video_flash_bwd  dk/dv   replaces _dkv_kernel          (video_flash_bwd.py:437)
                            csrc/video_attention_bwd.cu; in bf16 with d <= 80
                            csrc/attention_bwd_tc.cu (tensor cores)
@@ -20,12 +23,13 @@ partials [B, F, S, N, C]; ``combine_partials`` scatters them onto the source
 frames with a few index adds, as JAX's ``_combine_partials`` does outside
 its kernels.
 
-The dk/dv kernel has two bodies, chosen by ``dkv_tensor_core_body`` (a
-pure function of the dtype, the head dim and the rows' alignment): bf16 with
-d % 8 == 0, d <= 80 and aligned rows runs the tensor-core body (counted also
-under ``video_flash_bwd_dkv.tc``), the rest the CUDA-core body. Both load
-16-byte vectors, so misaligned operands raise; a failed launch raises and is
-never retried on the other body.
+Each of the three kernels has two bodies, chosen by a pure function of
+the dtype, the head dim and the rows' alignment: ``fwd_res_tensor_core_body``
+(K1's rule: bf16 with d % 8 == 0, d <= 160), ``dq_tensor_core_body`` and
+``dkv_tensor_core_body`` (the same with d <= 80). A tensor-core launch
+counts also under ``<name>.tc``; the rest run the CUDA-core bodies. All
+bodies load 16-byte vectors, so misaligned operands raise; a failed launch
+raises and is never retried on the other body.
 
 The softmax is K1's exact one (no CAP = 60 clamp indicator), so the
 gradients are those of the plain version's softmax.
@@ -55,10 +59,25 @@ from motioneditor_tpu_torch.ops.video_flash import (
 )
 
 BWD_MODES = (NORMAL, SPARSE_CAUSAL, MOTION_FRAME)
-# the largest head dim of the dk/dv kernel's tensor-core body
-# (csrc/attention_bwd_tc.cu DKV_MAX_D): its dK and dV accumulators take d
-# fp32 registers a thread
+# the largest head dim of the dq and dk/dv kernels' tensor-core bodies
+# (csrc/attention_dq_tc.cu DQ_MAX_D, csrc/attention_bwd_tc.cu DKV_MAX_D):
+# their accumulators (dQ; dK and dV) take d / 2 and d fp32 registers a thread
+DQ_TC_MAX_HEAD_DIM = 80
 DKV_TC_MAX_HEAD_DIM = 80
+
+
+# Which body a launch of K4 (video_flash_fwd_res) takes: K1's rule, since it
+# runs K1's mainloop with an lse epilogue (csrc/attention_tc.cu); else the
+# CUDA-core one (video_attention.cu)
+fwd_res_tensor_core_body = tensor_core_body
+
+
+def dq_tensor_core_body(dtype: torch.dtype, d: int, rows_aligned: bool) -> bool:
+    """Which body a launch of K5 (video_flash_bwd_dq) takes: the bf16
+    tensor-core one (csrc/attention_dq_tc.cu) where ``tensor_core_body``
+    would take K1's and d <= 80, else the CUDA-core one
+    (video_attention_bwd.cu). A function of its arguments alone."""
+    return tensor_core_body(dtype, d, rows_aligned) and d <= DQ_TC_MAX_HEAD_DIM
 
 
 def dkv_tensor_core_body(dtype: torch.dtype, d: int, rows_aligned: bool) -> bool:
@@ -186,6 +205,19 @@ def combine_partials(p: torch.Tensor, mode: str) -> torch.Tensor:
     raise ValueError(f"combine_partials: unknown mode {mode}")
 
 
+def _check_rows_aligned(name, heads, *tensors):
+    """Every body loads 16-byte vectors: raise before any launch on an
+    operand whose rows are off a 16-byte boundary."""
+    if not rows_aligned(*(split_heads(t, heads).flatten(0, 1) for t in tensors)):
+        raise ValueError(f"{name}: operands must start on a 16-byte boundary")
+
+
+def _count(name: str, tc: bool) -> None:
+    _build.launch_counts[name] += 1
+    if tc:
+        _build.launch_counts[name + ".tc"] += 1
+
+
 def video_flash_fwd_res(q, k, v, mode: str, scale: float, heads: int):
     """K1's forward plus the fp32 log-sum-exp [B, F, N, H] of every
     (query row, head): the residuals of the backward."""
@@ -195,16 +227,30 @@ def video_flash_fwd_res(q, k, v, mode: str, scale: float, heads: int):
     _check_mode(name, mode)
     _check_shapes(name, q, heads, k, v)
     _build.check_operands(name, (q, k, v))
+    return _fwd_res_kernel(q, k, v, mode, scale, heads)
+
+
+def _fwd_res_kernel(q, k, v, mode, scale, heads):
+    """K4's launch on the body ``fwd_res_tensor_core_body`` picks; a
+    tensor-core launch also counts under ``video_flash_fwd_res.tc``."""
+    name = "video_flash_fwd_res"
     b, f, n, c = q.shape
+    d = c // heads
     out = torch.empty_like(q)
+    _check_rows_aligned(name, heads, q, k, v, out)
     lse = torch.empty((b, f, n, heads), dtype=torch.float32, device=q.device)
-    code = _build.kernels().me_video_attention_fwd_res(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, f, n, heads, c // heads, float(scale), _MODE_CODES[mode],
-        _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
-    )
+    lib, stream = _build.kernels(), _build.stream_handle(q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    tc = fwd_res_tensor_core_body(q.dtype, d, rows_aligned=True)
+    if tc:  # bf16 only: no dtype code
+        code = lib.me_video_attention_fwd_res_tc(*ptrs, b, f, n, heads, d, float(scale),
+                                                 _MODE_CODES[mode], stream)
+    else:
+        code = lib.me_video_attention_fwd_res(*ptrs, b, f, n, heads, d, float(scale),
+                                              _MODE_CODES[mode], _build.DTYPE_CODES[q.dtype],
+                                              stream)
     _build.check_status(name, code)
-    _build.launch_counts[name] += 1
+    _count(name, tc)
     return out, lse
 
 
@@ -222,16 +268,25 @@ def _bwd_args(name, q, k, v, lse, heads, mode, scale, *others):
 
 def video_flash_bwd_dq(q, k, v, out, lse, do, mode: str, scale: float, heads: int):
     """The dq kernel (CUDA tensors only): returns dq and
-    delta = rowsum(dO o O) [B, F, N, H] fp32, which the dk/dv kernel reads."""
+    delta = rowsum(dO o O) [B, F, N, H] fp32, which the dk/dv kernel reads,
+    on the body ``dq_tensor_core_body`` picks (a tensor-core launch counts
+    also under ``video_flash_bwd_dq.tc``)."""
     name = "video_flash_bwd_dq"
     args = _bwd_args(name, q, k, v, lse, heads, mode, scale, out, do)
     delta = torch.empty_like(lse)
     dq = torch.empty_like(q)
-    code = _build.kernels().me_video_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args)
+    _check_rows_aligned(name, heads, q, k, v, out, do, dq)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    lib = _build.kernels()
+    tc = dq_tensor_core_body(q.dtype, q.shape[3] // heads, rows_aligned=True)
+    if tc:  # bf16 only: no dtype code
+        *shape, _, stream = args
+        code = lib.me_video_attention_bwd_dq_tc(*ptrs, *shape, stream)
+    else:
+        code = lib.me_video_attention_bwd_dq(*ptrs, *args)
     _build.check_status(name, code)
-    _build.launch_counts[name] += 1
+    _count(name, tc)
     return dq, delta
 
 
@@ -247,8 +302,7 @@ def video_flash_bwd_dkv(q, k, v, lse, delta, do, mode: str, scale: float, heads:
         raise ValueError(f"{name}: delta shape {tuple(delta.shape)} != {tuple(lse.shape)}")
     b, f, n, c = q.shape
     d = c // heads
-    if not rows_aligned(*(split_heads(t, heads).flatten(0, 1) for t in (q, k, v, do))):
-        raise ValueError(f"{name}: operands must start on a 16-byte boundary")  # both bodies
+    _check_rows_aligned(name, heads, q, k, v, do)
     dkp = torch.empty((b, f, num_slots(mode), n, c), dtype=torch.float32, device=q.device)
     dvp = torch.empty_like(dkp)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -261,9 +315,7 @@ def video_flash_bwd_dkv(q, k, v, lse, delta, do, mode: str, scale: float, heads:
     else:
         code = lib.me_video_attention_bwd_dkv(*ptrs, *args)
     _build.check_status(name, code)
-    _build.launch_counts[name] += 1
-    if tc:
-        _build.launch_counts[name + ".tc"] += 1
+    _count(name, tc)
     return dkp, dvp
 
 

@@ -1,11 +1,13 @@
 """The routing rule between the two bodies of K1 (video_flash_attention),
-K8 (flash_attention), K12 (video_flash_attention_kv) and K6
+K8 (flash_attention), K12 (video_flash_attention_kv), K4
+(video_flash_fwd_res), K5 (video_flash_bwd_dq) and K6
 (video_flash_bwd_dkv): the dtype, the head dim and the rows' alignment
 decide, and nothing else (no fallback after a failed launch).
 
 The rule is Python (ops/video_flash.py ``tensor_core_body`` and
-``rows_aligned``, ops/video_flash_bwd.py ``dkv_tensor_core_body``), so it
-runs here on the CPU. The
+``rows_aligned``, ops/video_flash_bwd.py ``fwd_res_tensor_core_body``,
+``dq_tensor_core_body`` and ``dkv_tensor_core_body``), so it runs here on
+the CPU. The
 launch functions are driven with a stand-in for the kernel library that
 records which C entry point they call; the kernels themselves are held to
 their plain versions on the card (tests/test_torch_kernels_cuda.py).
@@ -22,7 +24,11 @@ from motioneditor_tpu_torch.ops import video_flash as video_mod
 from motioneditor_tpu_torch.ops.attention import split_heads
 from motioneditor_tpu_torch.ops import video_flash_bwd as bwd_mod
 from motioneditor_tpu_torch.ops.video_flash import rows_aligned, tensor_core_body
-from motioneditor_tpu_torch.ops.video_flash_bwd import dkv_tensor_core_body
+from motioneditor_tpu_torch.ops.video_flash_bwd import (
+    dkv_tensor_core_body,
+    dq_tensor_core_body,
+    fwd_res_tensor_core_body,
+)
 
 
 class RecordingLibrary:
@@ -277,3 +283,125 @@ def test_failed_kv_and_dkv_launches_raise_and_are_not_retried(lib):
         bwd_mod.video_flash_bwd_dkv(*_dkv_args(torch.bfloat16, 320, 8))
     assert lib.calls == ["me_video_attention_kv_tc", "me_video_attention_bwd_dkv_tc"]
     assert not _build.launch_counts
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (torch.bfloat16, 40, True, True),     # the 64x64 sites of SD-1.5
+    (torch.bfloat16, 80, True, True),     # the 32x32 sites
+    (torch.bfloat16, 160, True, True),    # K1's mainloop takes d <= 160
+    (torch.bfloat16, 8, True, True),
+    (torch.bfloat16, 168, True, False),   # past K1's 160
+    (torch.bfloat16, 36, True, False),    # not a multiple of 8
+    (torch.bfloat16, 40, False, False),   # a row off a 16-byte boundary
+    (torch.float32, 40, True, False),     # fp32 keeps exact fp32 on CUDA cores
+    (torch.float32, 80, True, False),
+    (torch.float16, 40, True, False),
+])
+def test_fwd_res_tensor_core_body_rule(dtype, d, aligned, want):
+    assert fwd_res_tensor_core_body(dtype, d, aligned) is want
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (torch.bfloat16, 40, True, True),     # the 64x64 sites of SD-1.5
+    (torch.bfloat16, 80, True, True),     # the 32x32 sites
+    (torch.bfloat16, 8, True, True),
+    (torch.bfloat16, 64, True, True),
+    (torch.bfloat16, 88, True, False),    # past the dQ registers' 80
+    (torch.bfloat16, 160, True, False),
+    (torch.bfloat16, 36, True, False),    # not a multiple of 8
+    (torch.bfloat16, 40, False, False),   # a row off a 16-byte boundary
+    (torch.float32, 40, True, False),     # fp32 keeps exact fp32 on CUDA cores
+    (torch.float32, 80, True, False),
+    (torch.float16, 40, True, False),
+])
+def test_dq_tensor_core_body_rule(dtype, d, aligned, want):
+    assert dq_tensor_core_body(dtype, d, aligned) is want
+
+
+@pytest.mark.parametrize("dtype,c,heads,entry", [
+    (torch.bfloat16, 320, 8, "me_video_attention_fwd_res_tc"),   # d = 40
+    (torch.bfloat16, 640, 8, "me_video_attention_fwd_res_tc"),   # d = 80
+    (torch.bfloat16, 1280, 8, "me_video_attention_fwd_res_tc"),  # d = 160
+    (torch.bfloat16, 32, 4, "me_video_attention_fwd_res_tc"),    # d = 8
+    (torch.float32, 320, 8, "me_video_attention_fwd_res"),
+    (torch.float32, 640, 8, "me_video_attention_fwd_res"),
+])
+@pytest.mark.parametrize("mode", ["normal", "sparse_causal", "motion_frame"])
+def test_fwd_res_launch_takes_the_routed_body(lib, dtype, c, heads, entry, mode):
+    out, lse = bwd_mod._fwd_res_kernel(torch.zeros((2, 3, 50, c), dtype=dtype),
+                                       *(torch.zeros((2, 3, 50, c), dtype=dtype),) * 2,
+                                       mode, 0.1, heads)
+    assert out.shape == (2, 3, 50, c) and out.dtype == dtype
+    assert lse.shape == (2, 3, 50, heads) and lse.dtype == torch.float32
+    assert lib.calls == [entry]
+    tc = int(entry.endswith("_tc"))
+    assert dict(_build.launch_counts) == {
+        "video_flash_fwd_res": 1, **({"video_flash_fwd_res.tc": 1} if tc else {})}
+
+
+def _dq_args(dtype, c, heads, mode="motion_frame", b=2, f=3, n=50, q=None):
+    q = torch.zeros((b, f, n, c), dtype=dtype) if q is None else q
+    return (q, q, q, q, torch.zeros((b, f, n, heads)), q, mode, 0.1, heads)
+
+
+@pytest.mark.parametrize("dtype,c,heads,entry", [
+    (torch.bfloat16, 320, 8, "me_video_attention_bwd_dq_tc"),    # d = 40
+    (torch.bfloat16, 640, 8, "me_video_attention_bwd_dq_tc"),    # d = 80
+    (torch.bfloat16, 32, 4, "me_video_attention_bwd_dq_tc"),     # d = 8
+    (torch.bfloat16, 768, 8, "me_video_attention_bwd_dq"),       # d = 96: past 80
+    (torch.bfloat16, 1280, 8, "me_video_attention_bwd_dq"),      # d = 160
+    (torch.float32, 320, 8, "me_video_attention_bwd_dq"),
+    (torch.float32, 640, 8, "me_video_attention_bwd_dq"),
+])
+@pytest.mark.parametrize("mode", ["normal", "sparse_causal", "motion_frame"])
+def test_dq_launch_takes_the_routed_body(lib, dtype, c, heads, entry, mode):
+    dq, delta = bwd_mod.video_flash_bwd_dq(*_dq_args(dtype, c, heads, mode))
+    assert dq.shape == (2, 3, 50, c) and dq.dtype == dtype
+    assert delta.shape == (2, 3, 50, heads) and delta.dtype == torch.float32
+    assert lib.calls == [entry]
+    tc = int(entry.endswith("_tc"))
+    assert dict(_build.launch_counts) == {
+        "video_flash_bwd_dq": 1, **({"video_flash_bwd_dq.tc": 1} if tc else {})}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel,operand", [
+    ("fwd_res", "q"), ("fwd_res", "k"), ("dq", "q"), ("dq", "out"), ("dq", "do"),
+])
+def test_fwd_res_and_dq_reject_misaligned_rows(lib, dtype, kernel, operand):
+    """K4 and K5 load 16-byte vectors on both bodies: an operand off a
+    16-byte boundary raises before any launch."""
+    shape = (2, 3, 50, 320)
+    ops = {"q": torch.zeros(shape, dtype=dtype), "k": torch.zeros(shape, dtype=dtype),
+           "out": torch.zeros(shape, dtype=dtype), "do": torch.zeros(shape, dtype=dtype)}
+    ops[operand] = _off(shape, dtype)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        if kernel == "fwd_res":
+            bwd_mod._fwd_res_kernel(ops["q"], ops["k"], ops["k"], "motion_frame", 0.1, 8)
+        else:
+            bwd_mod.video_flash_bwd_dq(ops["q"], ops["k"], ops["k"], ops["out"],
+                                       torch.zeros((2, 3, 50, 8)), ops["do"], "motion_frame",
+                                       0.1, 8)
+    assert lib.calls == [] and not _build.launch_counts
+
+
+def test_failed_fwd_res_and_dq_launches_raise_and_are_not_retried(lib):
+    lib.code = 1  # cudaErrorInvalidValue
+    q = torch.zeros((2, 3, 50, 320), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        bwd_mod._fwd_res_kernel(q, q, q, "motion_frame", 0.1, 8)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        bwd_mod.video_flash_bwd_dq(*_dq_args(torch.bfloat16, 320, 8))
+    assert lib.calls == ["me_video_attention_fwd_res_tc", "me_video_attention_bwd_dq_tc"]
+    assert not _build.launch_counts
+
+
+def test_fwd_res_takes_the_plain_version_on_the_cpu(lib):
+    """A CPU tensor runs K4's plain version and launches nothing."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 20, 32), generator=gen) for _ in range(3))
+    out, lse = bwd_mod.video_flash_fwd_res(q, k, v, "motion_frame", 0.25, 4)
+    ref, ref_lse = bwd_mod.video_flash_fwd_res_plain(q, k, v, "motion_frame", 0.25, 4)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=0, rtol=0)
+    assert lib.calls == [] and not _build.launch_counts

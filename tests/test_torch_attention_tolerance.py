@@ -20,6 +20,16 @@ lacks the - delta term, fail. The bf16 gradient check of the kernel tests
 - delta (its dK is off by 4% of max |ref| at most, 2% in RMS); a missing
 query tile moves single values by 0.028-0.10, around that atol (the first
 tile's dV passes it): only the scaled limits catch every fault.
+
+Backward (K5's dQ, and K4's lse that it reads): one target frame at the two
+gated sites, 4096 queries against 8192 keys (d = 40) and 1024 against 2048
+(d = 80). A dQ with P and dS rounded to bf16 passes against the fp32 plain
+dQ; a dQ that misses one 64-key tile, or whose dS lacks the - delta term,
+fails. An lse short of one key tile's sum fails the lse check (atol 1e-4,
+chip_smoke.py phase 3b and the kernel tests) at both sites; the dQ made
+from it fails the scaled limits at 2048 keys, but at 8192 keys it is off by
+one tile in 128 (~0.8% in RMS) and reads under them: there the lse check
+is what catches it.
 """
 
 import pytest
@@ -30,6 +40,7 @@ from motioneditor_tpu_torch.ops.video_flash import video_flash_attention_kv_plai
 from motioneditor_tpu_torch.ops.video_flash_bwd import (
     _delta,
     video_flash_bwd_dkv_plain,
+    video_flash_bwd_plain,
     video_flash_fwd_res_plain,
 )
 from test_torch_kernels_cuda import TOL
@@ -134,3 +145,76 @@ def test_dkv_faults_fail_the_scaled_limits(backward_case, case):
     for out, want in zip(faulty, ref):
         with pytest.raises(AssertionError, match="error .* of the reference.s"):
             scaled_error(out, want)
+
+
+@pytest.fixture(scope="module", params=[(4096, 40), (1024, 80)], ids=["n4096_d40", "n1024_d80"])
+def dq_case(request):
+    """One target frame (frame 1 of a motion_frame pair, so its 2n keys are
+    two distinct frames) at a gated site's (n, d), and its fp32 plain dQ."""
+    n, d = request.param
+    gen = torch.Generator().manual_seed(2)
+    q, k, v, do = (torch.randn((1, 2, n, d), generator=gen).bfloat16().float()
+                   for _ in range(4))
+    scale = d ** -0.5
+    out, lse = video_flash_fwd_res_plain(q, k, v, "motion_frame", scale, 1)
+    dq = video_flash_bwd_plain(q, k, v, out, lse, do, "motion_frame", scale, 1)[0]
+    keys = k[0].reshape(-1, d)
+    frame = dict(q=q[0, 1], k=keys, v=v[0].reshape(-1, d), do=do[0, 1], lse=lse[0, 1],
+                 delta=_delta(out, do, 1)[0, 1], scale=scale,
+                 scores=q[0, 1] @ keys.T * scale)
+    return frame, dq[0, 1]
+
+
+def _dq(frame, rounded=False, skip_keys=None, with_delta=True, lse=None):
+    """dQ of one target frame, the formulas of the dq kernel written out;
+    ``rounded`` rounds P and dS to bf16, ``skip_keys`` drops those keys'
+    contribution, ``lse`` replaces the forward's."""
+    p = torch.exp(frame["scores"] - (frame["lse"] if lse is None else lse))
+    if skip_keys is not None:
+        p[:, skip_keys] = 0.0
+    if rounded:
+        p = p.bfloat16().float()
+    ds = p * (frame["do"] @ frame["v"].T - (frame["delta"] if with_delta else 0.0))
+    if rounded:
+        ds = ds.bfloat16().float()
+    return frame["scale"] * ds @ frame["k"]
+
+
+def test_dq_helper_is_the_plain_version(dq_case):
+    frame, ref = dq_case
+    torch.testing.assert_close(_dq(frame), ref, atol=1e-5, rtol=1e-4)
+
+
+def test_dq_bf16_rounding_passes(dq_case):
+    frame, ref = dq_case
+    scaled_error(_dq(frame, rounded=True), ref)
+
+
+@pytest.mark.parametrize("case", ["first_key_tile", "last_key_tile", "no_delta"])
+def test_dq_faults_fail_the_scaled_limits(dq_case, case):
+    frame, ref = dq_case
+    keys = frame["k"].shape[0]
+    if case == "no_delta":
+        got = _dq(frame, with_delta=False)
+    else:
+        lo = 0 if case == "first_key_tile" else keys - TILE
+        got = _dq(frame, skip_keys=slice(lo, lo + TILE))
+    with pytest.raises(AssertionError, match="error .* of the reference.s"):
+        scaled_error(got, ref)
+
+
+def test_lse_short_of_one_key_tile(dq_case):
+    """An lse that misses the last 64-key tile's sum fails the lse check at
+    both sites; the dQ made from it fails the scaled limits at 2048 keys
+    and reads under them at 8192."""
+    frame, ref = dq_case
+    keys = frame["k"].shape[0]
+    short = torch.logsumexp(frame["scores"][:, :keys - TILE], dim=-1, keepdim=True)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(short, frame["lse"], atol=1e-4, rtol=1e-5)
+    got = _dq(frame, lse=short)
+    if keys <= 2048:
+        with pytest.raises(AssertionError, match="error .* of the reference.s"):
+            scaled_error(got, ref)
+    else:
+        scaled_error(got, ref)  # one tile in 128: the lse check is what catches it

@@ -8,11 +8,11 @@ a fixture, never at import). Run on a GPU host with
 Shapes cover ragged token counts (not multiples of the 64-query / 32-key
 tiles, nor of the tensor-core body's 128-query / 64-key ones), every
 supported head-dim bucket and F up to 24 (32 for the temporal backward).
-In bf16, K1, K8 and K12 run the tensor-core body (csrc/attention_tc.cu)
-where ops/video_flash.py ``tensor_core_body`` routes them, K6 its own
-(csrc/attention_bwd_tc.cu) where ops/video_flash_bwd.py
-``dkv_tensor_core_body`` does, and the tests whose names hold ``tc`` assert
-that they did. The split-head kernels (K8, K9)
+In bf16, K1, K8, K12 and K4 run the tensor-core body (csrc/attention_tc.cu)
+where ops/video_flash.py ``tensor_core_body`` routes them, K5 and K6 their
+own (csrc/attention_dq_tc.cu, csrc/attention_bwd_tc.cu) where
+ops/video_flash_bwd.py ``dq_tensor_core_body`` and ``dkv_tensor_core_body``
+do, and the tests whose names hold ``tc`` assert that they did. The split-head kernels (K8, K9)
 also take strided head-split views, K/V broadcast over frames, and head
 dims up to 256, d = 9 among them (element loads in place of 16-byte
 vectors). The norm kernels (K10
@@ -28,8 +28,8 @@ magnitude 4 is already 0.031), on inputs whose logits stay far below the
 JAX bf16 kernels' clamp of 60; the bf16 K1 and K8 cases are also held to
 errors scaled to the reference (chip_smoke.py ``scaled_error``), since on
 these inputs an output's RMS, about sqrt(e / keys), falls below that atol;
-so are the bf16 K12 outputs and K6's fp32 dK / dV partials against the
-plain partials.
+so are the bf16 K12 and K4 outputs, K5's dQ against the fp32 plain dQ and
+K6's fp32 dK / dV partials against the plain partials.
 Gradients: fp32 rtol 1e-4, atol 1e-3; bf16 max error relative to the max
 |gradient| < 0.06 (the tolerances of tests/test_video_flash_bwd.py).
 """
@@ -71,8 +71,10 @@ from motioneditor_tpu_torch.ops.video_flash import (
 )
 from motioneditor_tpu_torch.ops.video_flash_bwd import (
     _delta,
+    VideoFlashAttentionFn,
     video_flash_bwd,
     video_flash_bwd_dkv,
+    video_flash_bwd_dq,
     video_flash_bwd_dkv_plain,
     video_flash_bwd_plain,
     video_flash_fwd_res,
@@ -479,6 +481,72 @@ def test_video_flash_bwd_dkv_tc_route(device, b, f, n, c, heads, tc):
     assert_grads_close(got, ref, torch.bfloat16)
     for part, want in zip(got, ref):
         scaled_error(part, want)
+
+
+@pytest.mark.parametrize("mode", ["normal", "sparse_causal", "motion_frame"])
+@pytest.mark.parametrize("b,f,n,c,heads", TC_DKV_SHAPES)
+def test_video_flash_fwd_res_tc_kernel(device, mode, b, f, n, c, heads):
+    """K4's bf16 tensor-core body (K1's mainloop with the lse epilogue)
+    against its plain version: the output to the bf16 tolerance and the
+    scaled limits, the lse of every row (ragged N: the rows of the last
+    block past N are not written) to atol 1e-4."""
+    gen = torch.Generator(device=device).manual_seed(15)
+    q, k, v = (_rand((b, f, n, c), torch.bfloat16, device, gen) for _ in range(3))
+    scale = (c // heads) ** -0.5
+    _build.reset_launch_counts()
+    out, lse = video_flash_fwd_res(q, k, v, mode, scale, heads)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"video_flash_fwd_res": 1, "video_flash_fwd_res.tc": 1}
+    ref, lse_ref = video_flash_fwd_res_plain(q, k, v, mode, scale, heads)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    scaled_error(out, ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["normal", "sparse_causal", "motion_frame"])
+@pytest.mark.parametrize("b,f,n,c,heads", TC_DKV_SHAPES)
+def test_video_flash_bwd_dq_tc_kernel(device, mode, b, f, n, c, heads):
+    """K5's bf16 tensor-core body against the plain dQ computed in fp32 from
+    the same bf16 residuals (to the gradients' tolerance and the scaled
+    limits) and its delta against the plain rowsum(dO o O)."""
+    gen = torch.Generator(device=device).manual_seed(16)
+    q, k, v, do = (_rand((b, f, n, c), torch.bfloat16, device, gen) for _ in range(4))
+    scale = (c // heads) ** -0.5
+    out, lse = video_flash_fwd_res_plain(q, k, v, mode, scale, heads)
+    _build.reset_launch_counts()
+    dq, delta = video_flash_bwd_dq(q, k, v, out, lse, do, mode, scale, heads)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"video_flash_bwd_dq": 1, "video_flash_bwd_dq.tc": 1}
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16
+    torch.testing.assert_close(delta, _delta(out, do, heads), atol=1e-5, rtol=1e-5)
+    ref = video_flash_bwd_plain(*(t.float() for t in (q, k, v, out)), lse, do.float(), mode,
+                                scale, heads)[0]
+    assert_grads_close((dq.float(),), (ref,), torch.bfloat16)
+    scaled_error(dq, ref)
+
+
+@pytest.mark.parametrize("mode", ["normal", "sparse_causal", "motion_frame"])
+@pytest.mark.parametrize("b,f,n,c,heads", [
+    (1, 3, 200, 320, 8),    # d = 40, ragged N
+    (1, 2, 333, 640, 8),    # d = 80, ragged N
+])
+def test_video_flash_tc_gradients_match_plain_autograd(device, mode, b, f, n, c, heads):
+    """The gradients through VideoFlashAttentionFn in bf16, with K4, K5 and
+    K6 each on its tensor-core body, against autograd of the plain forward."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    xs = [_rand((b, f, n, c), torch.bfloat16, device, gen).requires_grad_() for _ in range(3)]
+    scale = (c // heads) ** -0.5
+    _build.reset_launch_counts()
+    out = VideoFlashAttentionFn.apply(*xs, mode, scale, heads)
+    got = torch.autograd.grad(out.float().pow(2).sum(), xs)
+    torch.cuda.synchronize()
+    names = ("video_flash_fwd_res", "video_flash_bwd_dq", "video_flash_bwd_dkv")
+    assert dict(_build.launch_counts) == {**{k: 1 for k in names},
+                                          **{k + ".tc": 1 for k in names}}
+    ref = torch.autograd.grad(
+        video_flash_attention_plain(*xs, mode, scale, heads).float().pow(2).sum(), xs)
+    assert_grads_close(got, ref, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
