@@ -18,10 +18,15 @@ Phases, each raising on failure:
               computes the same function (scaled_dot_product_attention for
               K8, for K1 motion_frame on split-head views of q against the
               [f-1 | f] K/V built before the timing, and for K3 causal),
-              timed as a yardstick; in bf16, K1 and K8 run their tensor-core
-              body (csrc/attention_tc.cu), whose TFLOP/s and share of its
-              bound are printed at every shape, and whose errors are also
-              held to limits scaled to the reference (TC_ERR_LIMITS)
+              timed as a yardstick; in bf16, K1, K2 and K8 run their
+              tensor-core body (csrc/attention_tc.cu), whose TFLOP/s and
+              share of its bound are printed at every shape, and whose errors
+              are also held to limits scaled to the reference
+              (TC_ERR_LIMITS); K2 in bf16 also with a fractional and a mixed
+              fg mask (INJECTION_MASKS), its CUDA-core body timed on the
+              same inputs by a direct call, and SDPA over split-head views
+              of q against the 5N keys [K*m | K*(1-m) | K_tgt] as its
+              yardstick
   3b. bwd     the backward kernels (K4 residual-saving forward, K5 dq, K6
               dk/dv partials, K7 temporal) against their plain versions and
               autograd of the plain forward, at the null-text shapes (B=1,
@@ -38,7 +43,7 @@ Phases, each raising on failure:
               (UNet + adapter + ControlNet, random init from a seed), bf16,
               512px, 8 frames, injection from block 10, 3 steps over
               timesteps[4:7]; asserts finite output and the per-step kernel
-              launch counts (every K1 launch on the tensor-core body),
+              launch counts (every K1 and K2 launch on the tensor-core body),
               prints ms per step; then one more step under torch.profiler:
               the device's busy share and kernel time per bucket
   5. check    a tiny fp32 segment whose level-0 attention reaches the
@@ -103,7 +108,10 @@ Phases, each raising on failure:
               with a boolean mask, of K14; in bf16 K12 runs the tensor-core
               body (csrc/attention_tc.cu), held also to TC_ERR_LIMITS, with
               its TFLOP/s and share of its bound, and its time is printed
-              beside K1's on the same work
+              beside K1's on the same work; so does K13 (the injection
+              instantiation), also with the fractional and mixed masks, its
+              CUDA-core body timed by a direct call and SDPA over the 2M + N
+              injected keys as its yardstick
   11. shard   the frame-sharded path at full width in a one-rank NCCL
               process group: the injected denoise segment, bf16, 3 steps
               after a warm-up step, then one stage-1 step after a warm-up
@@ -138,18 +146,30 @@ MODES = ("normal", "sparse_causal", "motion_frame", "dense")
 BWD_MODES = ("normal", "sparse_causal", "motion_frame")
 NULL_STEPS = 5  # phase 6's schedule
 LOGIT_CAP = 60.0  # the JAX bf16 kernels' score clamp (ops/video_flash.py _CAP)
-# K1, K8, K12 and K4 launches in bf16 take the tensor-core body
-# (csrc/attention_tc.cu), K5's and K6's at d <= 80 their own
-# (csrc/attention_dq_tc.cu, csrc/attention_bwd_tc.cu), and count again as
-# "<name>.tc"; every full-width path below runs in bf16 at d = 40 and 80, so
-# every launch of these kernels there takes the tensor-core body
-TC_KERNELS = ("video_flash_attention", "flash_attention", "video_flash_attention_kv",
+# K1, K2, K8, K12, K13 and K4 launches in bf16 take the tensor-core body
+# (csrc/attention_tc.cu; K2 and K13 its injection instantiation), K5's and
+# K6's at d <= 80 their own (csrc/attention_dq_tc.cu,
+# csrc/attention_bwd_tc.cu), and count again as "<name>.tc"; every
+# full-width path below runs in bf16 at d = 40 and 80, so every launch of
+# these kernels there takes the tensor-core body
+TC_KERNELS = ("video_flash_attention", "video_injection_attention", "flash_attention",
+              "video_flash_attention_kv", "video_injection_attention_kv",
               "video_flash_fwd_res", "video_flash_bwd_dq", "video_flash_bwd_dkv")
+# K2's and K13's bf16 checks: the fg masks besides the pipeline's binary one
+# (every binary mask gives the same output, so only masks whose min(m, 1 - m)
+# varies by key show a mask read from the wrong frame or row): uniform in
+# [0, 1], and mixed (``fg_mask``), so both softmax paths of the injection
+# instantiation run within one launch. With
+# those two the output is held to the plain version in fp32 on the same bf16
+# inputs: the bf16 plain version rounds m and K*m to bf16, which the kernel
+# does not, and reads up to ~2% of max |ref| off the fp32 one (PERF.md)
+INJECTION_MASKS = ("binary", "fractional", "mixed")
 
 
 def tc(per_step: dict) -> dict:
     """``per_step`` with the tensor-core sub-counts of a bf16 path: each K1,
-    K8, K12, K4, K5 and K6 launch there must have taken the tensor-core body."""
+    K2, K8, K12, K13, K4, K5 and K6 launch there must have taken the
+    tensor-core body."""
     return {**per_step, **{f"{k}.tc": n for k, n in per_step.items() if k in TC_KERNELS}}
 
 
@@ -237,7 +257,7 @@ PEAK_BYTES = 3.35e12
 KERNEL_INFO = {
     "video_flash_attention": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                               "motioneditor_tpu/ops/video_flash.py:248"),
-    "video_injection_attention": ("motioneditor_tpu_torch/csrc/video_attention.cu",
+    "video_injection_attention": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                                   "motioneditor_tpu/ops/video_flash.py:591"),
     "temporal_flash_attention": ("motioneditor_tpu_torch/csrc/temporal_attention.cu",
                                  "motioneditor_tpu/ops/temporal_flash.py:208"),
@@ -259,7 +279,7 @@ KERNEL_INFO = {
                        "motioneditor_tpu/ops/fused_norm.py:73"),
     "video_flash_attention_kv": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                                  "motioneditor_tpu/ops/video_flash.py:726"),
-    "video_injection_attention_kv": ("motioneditor_tpu_torch/csrc/video_attention.cu",
+    "video_injection_attention_kv": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                                      "motioneditor_tpu/ops/video_flash.py:859"),
     "temporal_flash_attention_global": ("motioneditor_tpu_torch/csrc/temporal_attention.cu",
                                         "motioneditor_tpu/ops/temporal_flash.py:361"),
@@ -308,12 +328,16 @@ def tolerance(dtype):
 TC_ERR_LIMITS = {"max": 0.02, "rms": 0.01}
 
 
-def scaled_error(out, ref) -> dict:
-    """max |out - ref| / max |ref| and ||out - ref|| / ||ref||; raises past
-    ``TC_ERR_LIMITS``."""
+def scaled_of(out, ref) -> dict:
+    """max |out - ref| / max |ref| and ||out - ref|| / ||ref||."""
     diff, ref = out.float() - ref.float(), ref.float()
-    got = {"max": (diff.abs().max() / ref.abs().max()).item(),
-           "rms": (diff.norm() / ref.norm()).item()}
+    return {"max": (diff.abs().max() / ref.abs().max()).item(),
+            "rms": (diff.norm() / ref.norm()).item()}
+
+
+def scaled_error(out, ref) -> dict:
+    """``scaled_of``; raises past ``TC_ERR_LIMITS``."""
+    got = scaled_of(out, ref)
     for key, limit in TC_ERR_LIMITS.items():
         if not got[key] <= limit:
             raise AssertionError(f"{key} error {got[key]:.3e} of the reference's > {limit}")
@@ -321,11 +345,12 @@ def scaled_error(out, ref) -> dict:
 
 
 def logit_bound(q, k, heads: int, scale: float) -> float:
-    """Upper bound on |q.k| * scale over all head pairs (Cauchy-Schwarz)."""
-    b, f, n, c = q.shape
-    qn = q.float().reshape(b, f, n, heads, -1).norm(dim=-1).amax().item()
-    kn = k.float().reshape(b, f, n, heads, -1).norm(dim=-1).amax().item()
-    return qn * kn * scale
+    """Upper bound on |q.k| * scale over all head pairs (Cauchy-Schwarz) of
+    packed [..., C] operands, whatever their token counts."""
+    def top(x):
+        return x.float().unflatten(-1, (heads, -1)).norm(dim=-1).amax().item()
+
+    return top(q) * top(k) * scale
 
 
 def bound(flops: float, moved: float, dtype) -> dict:
@@ -353,6 +378,40 @@ def video_work(name: str, variant: str, q) -> float:
     keys = {"normal": n, "sparse_causal": 2 * n, "motion_frame": 2 * n, "dense": f * n,
             "injection": 3 * n}[variant]  # injection: 2N source keys scored once, N target
     return 4.0 * b * f * n * keys * c
+
+
+def fg_mask(kind: str, shape, device, gen):
+    """An fp32 fg mask [..., keys]: binary, fractional (uniform in [0, 1]),
+    all 0, all 1, or mixed: binary in even 64-key tiles, and in odd ones
+    binary at even keys and fractional at odd keys."""
+    import torch
+
+    u = torch.rand(shape, generator=gen, device=device)
+    if kind == "fractional":
+        return u
+    if kind in ("zeros", "ones"):
+        return torch.full(shape, float(kind == "ones"), device=device)
+    binary = (u > 0.5).float()
+    if kind == "binary":
+        return binary
+    key = torch.arange(shape[-1], device=device)
+    return torch.where(((key // 64) % 2 == 0) | (key % 2 == 0), binary, u)
+
+
+def injection_keys(q, ks, vs, kt, vt, mask):
+    """The keys and values one SDPA call needs for K2's or K13's function,
+    as split-head [B*F, H, 2M + N, d] copies of [K*m | K*(1-m) | K_tgt] and
+    [V | V | V_tgt] (ks, vs: the [B, F, M, C] source of each query frame,
+    mask [F, M]), and the split-head view of q."""
+    import torch
+
+    def split(x):
+        return x.view(-1, x.shape[2], HEADS, x.shape[3] // HEADS).transpose(1, 2)
+
+    m = mask[None, :, :, None].to(ks.dtype)
+    k_inj = torch.cat([ks * m, ks * (1.0 - m), kt], dim=2)
+    v_inj = torch.cat([vs, vs, vt], dim=2)
+    return split(q), split(k_inj), split(v_inj), split
 
 
 def library_time(dtype, ref, fn) -> float:
@@ -394,6 +453,7 @@ def phase_kernels(device):
     from torch.nn.functional import scaled_dot_product_attention as library_sdpa
 
     gen = torch.Generator(device=device).manual_seed(SEED)
+    mask_gen = torch.Generator(device=device).manual_seed(SEED + 7)
     results = {name: {"max_abs_err": 0.0} for name in FORWARD_KERNELS}
 
     def split(x):  # [B, F, N, C] -> [B*F, H, N, d], a view
@@ -421,10 +481,19 @@ def phase_kernels(device):
                  lambda m=mode: video_flash_attention_plain(q, k, v, m, scale, HEADS))
                 for mode in MODES
             ]
-            cases.append((("video_injection_attention", "injection"),
-                          lambda: video_injection_attention(q, k, v, k2, v2, mask, scale, HEADS),
-                          lambda: video_injection_attention_plain(q, k, v, k2, v2, mask, scale,
-                                                                  HEADS)))
+            masks = {"binary": mask}
+            if dtype == torch.bfloat16:
+                masks.update({kind: fg_mask(kind, (FRAMES, n), device, mask_gen)
+                              for kind in INJECTION_MASKS if kind != "binary"})
+            exact = {kind: tuple(t.float() if kind != "binary" else t for t in (q, k, v, k2, v2))
+                     for kind in masks}  # see INJECTION_MASKS
+            cases += [
+                (("video_injection_attention",
+                  "injection" + ("" if kind == "binary" else f" {kind}")),
+                 lambda m=m: video_injection_attention(q, k, v, k2, v2, m, scale, HEADS),
+                 lambda m=m, x=exact[kind]: video_injection_attention_plain(*x, m, scale, HEADS))
+                for kind, m in masks.items()
+            ]
             cases.append((("temporal_flash_attention", "causal"),
                           lambda: temporal_flash_attention(q, k, v, scale, HEADS, causal=True),
                           lambda: temporal_flash_attention_plain(q, k, v, scale, HEADS,
@@ -440,10 +509,31 @@ def phase_kernels(device):
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 main_bf16 = dtype == torch.bfloat16 and n == 4096
                 bf16 = dtype == torch.bfloat16
+                injection = name == "video_injection_attention"
                 lib = ""
-                if bf16 and name == "video_flash_attention":  # the tensor-core body
+                if bf16 and (injection or name == "video_flash_attention"):  # tensor cores
                     lib = scaled_line(r, scaled_error(out, ref))
+                if bf16 and ref.dtype == torch.float32:  # the bf16 plain version's own error
+                    got = scaled_of(video_injection_attention_plain(
+                        q, k, v, k2, v2, masks[variant.split()[1]], scale, HEADS), ref)
+                    lib += (f", bf16 plain version vs fp32 max {got['max']:.3e} "
+                            f"rms {got['rms']:.3e}")
                 ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+                if bf16 and variant == "injection":
+                    # the CUDA-core body on the same bf16 inputs, and SDPA on split-head
+                    # views of q against the [K*m | K*(1-m) | K_tgt] keys of every frame
+                    # (5N), made before the timing
+                    cc_ms = time_ms(cuda_core_injection(q, k, v, k2, v2, mask, ref, scale))
+                    m_mf = torch.cat([torch.cat([mask[:1], mask[:-1]]), mask], dim=1)
+                    lq, lk, lv, split_ = injection_keys(q, motion_frame_kv(k),
+                                                        motion_frame_kv(v), k2, v2, m_mf)
+                    lib_ms = library_time(dtype, split_(ref), lambda: library_sdpa(
+                        lq, lk, lv, scale=scale))
+                    del lq, lk, lv
+                    if main_bf16:
+                        r.update(cuda_core_ms=cc_ms, library_ms=lib_ms,
+                                 library_at=f"bf16 B=2 F={FRAMES} N={n} C={c} injection")
+                    lib += f", CUDA-core body {cc_ms:.3f} ms, library {lib_ms:.3f} ms"
                 if bf16 and (variant == "motion_frame" or (main_bf16 and variant == "causal")):
                     # the library call gets its layout for free: split-head views of
                     # q against the [f-1 | f] K/V of every frame, or [B*N, H, F, d]
@@ -461,8 +551,10 @@ def phase_kernels(device):
                         r["library_ms"] = lib_ms
                         r["library_at"] = f"bf16 B=2 F={FRAMES} N={n} C={c} {variant}"
                     lib += f", library {lib_ms:.3f} ms"
-                if bf16 and variant == "motion_frame":  # the tensor-core body's rate
-                    b_ = bound(video_work(name, variant, q), nbytes(q, k, v, q), dtype)
+                if bf16 and (variant == "motion_frame" or injection):  # tensor-core rate
+                    b_ = (bound(video_work(name, "injection", q),
+                                nbytes(q, k, v, q, k2, v2, mask), dtype) if injection else
+                          bound(video_work(name, variant, q), nbytes(q, k, v, q), dtype))
                     lib += (f", {b_['flops'] / ms / 1e9:.1f} TFLOP/s, "
                             f"{100 * b_['bound_ms'] / ms:.1f}% of its bound")
                 del out, ref
@@ -477,6 +569,35 @@ def phase_kernels(device):
                 torch.cuda.empty_cache()
     results.update(phase_split_kernels(device, gen))
     return results
+
+
+def cuda_core_injection(q, k, v, k2, v2, mask, ref, scale, m=None):
+    """A launch of K2's CUDA-core body (K13's with ``m``, the source
+    tokens per frame) on the given inputs, called directly for its time
+    beside the tensor-core body's; its output is first held to ``ref``."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+
+    lib, stream = _build.kernels(), _build.stream_handle(q.device)
+    out = torch.empty_like(q)
+    b, f, n, c = q.shape
+    ptrs = [t.data_ptr() for t in (q, k, v, k2, v2, mask, out)]
+    dtype = _build.DTYPE_CODES[q.dtype]
+
+    def launch():
+        if m is None:
+            code = lib.me_video_attention(*ptrs, b, f, n, HEADS, c // HEADS, float(scale), 4,
+                                          dtype, stream)
+        else:
+            code = lib.me_video_attention_kv(*ptrs, b, f, n, f, m, HEADS, c // HEADS,
+                                             float(scale), 1, dtype, stream)
+        _build.check_status("CUDA-core injection", code)
+
+    launch()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **tolerance(q.dtype))
+    return launch
 
 
 def phase_split_kernels(device, gen):
@@ -1557,6 +1678,7 @@ def phase_kv_kernels(device):
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    mask_gen = torch.Generator(device=device).manual_seed(SEED + 57)
     results = {name: {"max_abs_err": 0.0} for name in KV_KERNELS}
     b, f = 2, FRAMES
     fl = f // SPLIT
@@ -1583,11 +1705,13 @@ def phase_kv_kernels(device):
                     (lambda: video_flash_attention_kv_plain(qs, kk, vv, scale, HEADS)),
                     4.0 * qs.numel() * kk.shape[2], nbytes(qs, kk, vv, qs))
 
-        def inj_case(lo, hi):
+        def inj_case(lo, hi, mm=m_mf, exact=False):
+            """``exact``: the plain version in fp32 (see INJECTION_MASKS)."""
             args = [x[:, lo:hi].contiguous() for x in (q, k_mf, v_mf, kt, vt)]
-            ms = m_mf[lo:hi].contiguous()
+            ms = mm[lo:hi].contiguous()
+            plain_args = [x.float() for x in args] if exact else args
             return ((lambda: video_injection_attention_kv(*args, ms, scale, HEADS)),
-                    (lambda: video_injection_attention_kv_plain(*args, ms, scale, HEADS)),
+                    (lambda: video_injection_attention_kv_plain(*plain_args, ms, scale, HEADS)),
                     4.0 * args[0].numel() * (2 * n + n), nbytes(*args, ms, args[0]))
 
         def temporal_case(lo, hi):
@@ -1602,6 +1726,10 @@ def phase_kv_kernels(device):
                  ("video_flash_attention_kv", "dense", 0, f, kv_case(0, f, kd, vd)),
                  ("video_injection_attention_kv", "injection", 0, f, inj_case(0, f)),
                  ("temporal_flash_attention_global", "causal", 0, f, temporal_case(0, f))]
+        if dtype == torch.bfloat16:  # K13 with the other fg masks, the [F, 2N] of [prev | cur]
+            cases += [("video_injection_attention_kv", f"injection {kind}", 0, f,
+                       inj_case(0, f, fg_mask(kind, (f, 2 * n), device, mask_gen), True))
+                      for kind in INJECTION_MASKS if kind != "binary"]
         for r in range(SPLIT):
             lo, hi = r * fl, (r + 1) * fl
             cases += [("video_flash_attention_kv", "motion_frame", lo, hi,
@@ -1626,7 +1754,8 @@ def phase_kv_kernels(device):
             r["max_abs_err"] = max(r["max_abs_err"], err)
             at = (f"{dt} q [{b}, {hi - lo}, {n}, {c}] {variant}"
                   + ("" if whole else f", shard {lo // fl} of {SPLIT}"))
-            main = dtype == torch.bfloat16 and whole and variant != "dense" and n == 4096
+            main = (dtype == torch.bfloat16 and whole and n == 4096
+                    and variant in ("motion_frame", "injection", "causal"))
             timing = ""
             if whole or dtype == torch.bfloat16:
                 ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
@@ -1634,14 +1763,27 @@ def phase_kv_kernels(device):
                 if main:
                     r.update(ms=ms, plain_ms=plain_ms, at=at, library_ms=None,
                              **bound(flops, moved, dtype))
-            if dtype == torch.bfloat16 and name == "video_flash_attention_kv":  # tensor cores
+            if dtype == torch.bfloat16 and name != "temporal_flash_attention_global":  # K12, K13
                 b_ = bound(flops, moved, dtype)
                 timing += (scaled_line(r, scaled_error(out, ref))
                            + f", {flops / ms / 1e9:.1f} TFLOP/s, "
                            f"{100 * b_['bound_ms'] / ms:.1f}% of its bound")
             lib = ""
-            if main and name != "video_injection_attention_kv":
-                if name == "video_flash_attention_kv":
+            if dtype == torch.bfloat16 and whole and variant == "injection":
+                # the CUDA-core body on the same bf16 inputs, called directly
+                cc_ms = time_ms(cuda_core_injection(q, k_mf, v_mf, kt, vt, m_mf, ref, scale,
+                                                    2 * n))
+                lib += f", CUDA-core body {cc_ms:.3f} ms"
+                if main:
+                    r["cuda_core_ms"] = cc_ms
+            if main:
+                if name == "video_injection_attention_kv":
+                    # SDPA on split-head views of q against the 2M + N keys
+                    # [K*m | K*(1-m) | K_tgt] of every frame, made before the timing
+                    lq, lk, lv, split_ = injection_keys(q, k_mf, v_mf, kt, vt, m_mf)
+                    lref = split_(ref)
+                    lib_fn = lambda: library_sdpa(lq, lk, lv, scale=scale)  # noqa: E731
+                elif name == "video_flash_attention_kv":
                     # SDPA on [B*F, H, N, d] against [B*F, H, 2N, d]: split-head views
                     def split(x):
                         return x.view(-1, x.shape[2], HEADS, d).transpose(1, 2)
@@ -1660,7 +1802,7 @@ def phase_kv_kernels(device):
                                                   scale=scale)
                 r["library_ms"] = library_time(dtype, lref, lib_fn)
                 r["library_at"] = at
-                lib = f", library {r['library_ms']:.3f} ms"
+                lib += f", library {r['library_ms']:.3f} ms"
                 del lq, lk, lv, lref
             log(f"[kv] {name} {at}: max_abs_err={err:.3e}{timing}{lib}")
             del out, ref
@@ -1723,8 +1865,9 @@ PROFILE_BUCKETS = (
     ("K5 dq (attention_tc_dq)", ("attention_tc_dq",)),
     ("K6 dk/dv (attention_tc_dkv)", ("attention_tc_dkv",)),
     ("K7 temporal backward (temporal_bwd)", ("temporal_bwd",)),
+    ("K2/K13 injection (attention_tc_inj)", ("attention_tc_inj",)),
     ("tensor-core attention, K1/K8/K12 (attention_tc)", ("attention_tc",)),
-    ("K2 and CUDA-core K1 (video_attention_kernel)", ("video_attention_kernel",)),
+    ("CUDA-core K1/K2/K4/K12/K13, fp32 (video_attention_kernel)", ("video_attention_kernel",)),
     ("K3 temporal_attention_kernel", ("temporal_attention",)),
     ("K8/K9 CUDA-core body (split_attention_kernel)", ("split_attention",)),
     ("cuBLAS / CUTLASS matmuls", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
@@ -2070,6 +2213,12 @@ def main() -> int:
     log(f"[kv] the same work, bf16 q [2, {FRAMES}, 4096, 320] against 2N keys per frame, "
         f"both on the tensor-core body: K12 {k12['ms']:.3f} ms, K1 {k1['ms']:.3f} ms, "
         f"SDPA {k12['library_ms']:.3f} (K12's call) and {k1['library_ms']:.3f} ms (K1's)")
+    k2, k13 = results["video_injection_attention"], results["video_injection_attention_kv"]
+    log(f"[kv] the injection, bf16 q [2, {FRAMES}, 4096, 320] against 2N source keys scored "
+        f"once and N target keys per frame: tensor cores K2 {k2['ms']:.3f} ms, K13 "
+        f"{k13['ms']:.3f} ms; CUDA-core bodies {k2['cuda_core_ms']:.3f} and "
+        f"{k13['cuda_core_ms']:.3f} ms; SDPA over the 5N injected keys "
+        f"{k2['library_ms']:.3f} and {k13['library_ms']:.3f} ms")
     launches, ms_per_step, slice_profile = phase_slice(device)
     phase_check(device)
     phase_null_check(device)
@@ -2112,7 +2261,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launched, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms"), "at": r["at"],
+            "library_ms": r.get("library_ms"), "cuda_core_ms": r.get("cuda_core_ms"),
+            "at": r["at"],
             "library_at": r.get("library_at"), "flops": r["flops"], "bytes": r["bytes"],
             "tflops": r["flops"] / r["ms"] / 1e9,
             **{k: v for k, v in r.items() if k.startswith("scaled_") or k.endswith("_32x32")},

@@ -1,0 +1,126 @@
+"""Times the bf16 injection kernels (K2, K13) against K1 on one GPU, for
+this checkout and for copies of it whose injection instantiation takes
+one consumer warpgroup fewer than K1's at padded d <= 48 or at d <= 80.
+
+    python3 chip_variants.py
+
+Each variant runs in its own process from its own copy under
+build/variants/ (git-ignored), which builds its own kernels. Per variant:
+ptxas's registers and spills of the injection instantiations, then at
+chip_smoke.py's KERNEL_SHAPES K1 motion_frame and K2 / K13 with each fg
+mask of chip_smoke.INJECTION_MASKS, each held to the plain version as
+chip_smoke.py holds it (binary masks to the bf16 plain version, the others
+to the fp32 one) and timed with CUDA events. For fractional and mixed
+masks it also prints the output's scaled error against the bf16 plain
+version, which rounds m and K*m to bf16. Exits 1 without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+# the warpgroup rule of csrc/attention_tc.cuh and the variants of it
+WGS_LINE = "  static constexpr int WGS = DP <= 48 ? 4 : DP <= 80 ? 3 : 2;"
+VARIANTS = {
+    "inj_wgs3_at_d48": "  static constexpr int WGS = DP <= 48 ? (INJ ? 3 : 4) : DP <= 80 ? 3 : 2;",
+    "inj_wgs2_at_d80": "  static constexpr int WGS = DP <= 48 ? 4 : DP <= 80 ? (INJ ? 2 : 3) : 2;",
+}
+
+
+def make_copy(name: str, line: str) -> Path:
+    """A copy of the package and chip_smoke.py with ``line`` in place of
+    the warpgroup rule."""
+    dst = ROOT / "build" / "variants" / name
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    shutil.copytree(ROOT / "motioneditor_tpu_torch", dst / "motioneditor_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    cuh = dst / "motioneditor_tpu_torch" / "csrc" / "attention_tc.cuh"
+    text = cuh.read_text()
+    if text.count(WGS_LINE) != 1:
+        raise RuntimeError(f"{cuh}: the warpgroup rule is not the expected line")
+    cuh.write_text(text.replace(WGS_LINE, line))
+    return dst
+
+
+def time_root(root: str) -> None:
+    """The measurements of one checkout (run in a child process)."""
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.ops.video_flash import (
+        video_flash_attention,
+        video_injection_attention,
+        video_injection_attention_kv,
+        video_injection_attention_kv_plain,
+        video_injection_attention_plain,
+    )
+
+    path, log = _build.build()
+    usage = {k: v for k, v in cs.ptxas_usage(log).items() if "inj" in k}
+    print(f"[{root}] ptxas {json.dumps(usage)}", flush=True)
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(cs.SEED)
+    for n, c in cs.KERNEL_SHAPES:
+        q, k, v, kt, vt = (torch.randn((2, cs.FRAMES, n, c), generator=gen, device=device)
+                           .bfloat16() for _ in range(5))
+        scale = (c // cs.HEADS) ** -0.5
+        k_mf, v_mf = cs.motion_frame_kv(k), cs.motion_frame_kv(v)
+        ms = cs.time_ms(lambda: video_flash_attention(q, k, v, "motion_frame", scale, cs.HEADS),
+                        reps=10)
+        print(f"[{root}] K1 motion_frame N={n} C={c}: {ms:.3f} ms", flush=True)
+        for kind in cs.INJECTION_MASKS:
+            m = cs.fg_mask(kind, (cs.FRAMES, n), device, gen)
+            m_mf = torch.cat([torch.cat([m[:1], m[:-1]]), m], dim=1).contiguous()
+            cases = {
+                "K2": (lambda: video_injection_attention(q, k, v, kt, vt, m, scale, cs.HEADS),
+                       video_injection_attention_plain, (q, k, v, kt, vt, m)),
+                "K13": (lambda: video_injection_attention_kv(q, k_mf, v_mf, kt, vt, m_mf, scale,
+                                                             cs.HEADS),
+                        video_injection_attention_kv_plain, (q, k_mf, v_mf, kt, vt, m_mf)),
+            }
+            for name, (fn, plain, args) in cases.items():
+                out = fn()
+                torch.cuda.synchronize()
+                bf16_ref = plain(*args, scale, cs.HEADS)
+                ref = bf16_ref if kind == "binary" else plain(
+                    *(t.float() for t in args[:5]), args[5], scale, cs.HEADS)
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           **cs.tolerance(torch.bfloat16))
+                got = cs.scaled_error(out, ref)
+                line = f"scaled max {got['max']:.3e} rms {got['rms']:.3e}"
+                if kind != "binary":
+                    vs = cs.scaled_of(out, bf16_ref)
+                    line += f", against the bf16 plain version max {vs['max']:.3e}"
+                ms = cs.time_ms(fn, reps=10)
+                print(f"[{root}] {name} {kind} N={n} C={c}: {ms:.3f} ms, {line}", flush=True)
+                del out, ref, bf16_ref
+        del q, k, v, kt, vt, k_mf, v_mf
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_variants: no CUDA device", file=sys.stderr)
+        return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--time":
+        time_root(sys.argv[2])
+        return 0
+    roots = [ROOT] + [make_copy(name, line) for name, line in VARIANTS.items()]
+    for root in roots:
+        subprocess.run([sys.executable, __file__, "--time", str(root)], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

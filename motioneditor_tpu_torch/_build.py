@@ -135,6 +135,18 @@ def kernels() -> ctypes.CDLL:
         f32, ptr,                           # scale, stream
     ]
     lib.me_video_attention_kv_tc.restype = i32
+    lib.me_video_injection_tc.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_src, v_src, k_tgt, v_tgt, mask, out
+        i32, i32, i32, i32, i32,            # B, F, N, H, d
+        f32, ptr,                           # scale, stream
+    ]
+    lib.me_video_injection_tc.restype = i32
+    lib.me_video_injection_kv_tc.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_src, v_src, k_tgt, v_tgt, mask, out
+        i32, i32, i32, i32, i32, i32, i32,  # B, F, N, Fk, M, H, d
+        f32, ptr,                           # scale, stream
+    ]
+    lib.me_video_injection_kv_tc.restype = i32
     lib.me_temporal_attention_global.argtypes = [
         ptr, ptr, ptr, ptr,                 # q, k, v, out
         i32, i32, i32, i32, i32, i32,       # B, Fq, Fk, N, H, d

@@ -1,6 +1,7 @@
 // bf16 tensor-core bodies of the packed video attention (K1), its
-// residual-saving forward (K4), the split-head flash attention (K8) and the
-// explicit-K/V video attention (K12); the mainloop is attention_tc.cuh.
+// residual-saving forward (K4), the split-head flash attention (K8), the
+// explicit-K/V video attention (K12), the fg/bg injection attention (K2)
+// and its explicit-K/V twin (K13); the mainloop is attention_tc.cuh.
 //
 // Replaces (TPU / Pallas):
 //   K1  motioneditor_tpu/ops/video_flash.py  _video_flash
@@ -19,6 +20,12 @@
 //   K12 motioneditor_tpu/ops/video_flash.py  _video_flash_kv
 //       (pallas_call at video_flash.py:726) here in bf16 with d % 8 == 0,
 //       d <= 160; fp32 stays on video_attention.cu
+//   K2  motioneditor_tpu/ops/video_flash.py  _video_injection
+//       (_inj_kernel_nomax / _inj_kernel_maxsafe, pallas_call at :591) and
+//   K13 motioneditor_tpu/ops/video_flash.py  _video_injection_kv
+//       (pallas_call at :859) here in bf16 with K1's rule: the injection
+//       instantiation (attention_tc_inj_kernel); fp32 stays on
+//       video_attention.cu
 // The routing rule lives in Python (ops/video_flash.py tensor_core_body,
 // ops/video_flash_bwd.py fwd_res_tensor_core_body), so the wrappers decide
 // which body a launch takes; these entry points refuse what they cannot take
@@ -40,6 +47,15 @@
 //   K12 q, out [B, F, N, C] over an explicit K/V [B, Fk, M, C] built by the
 //       frame-sharded path: the [G, H, N, D] views of K1 with M keys per
 //       K/V group, query group g reading K/V group g / kv_div.
+//   K2  the edit rows' softmax over [K_src[f-1]*m, K_src[f-1]*(1-m),
+//       K_src[f]*m, K_src[f]*(1-m), K_tgt[f]] with values [V_src[f-1] x2,
+//       V_src[f] x2, V_tgt[f]], m the [F, N] fg mask row of the key's frame:
+//       each source key is scored once and weighs its V row by the sum of
+//       its two logits' exponentials (attention_tc.cuh), so 3N keys are
+//       scored, not 5N. Frame 0 reads frame 0 in both source passes.
+//   K13 the same over an explicit source K/V [B, F, M, C] (one masked pass
+//       of M keys, mask row [F, M] of the query's frame), then the N target
+//       keys of frame f.
 //
 // What bounds it on the H100. At the main path's shapes (N = 1024-4096
 // queries against 2N keys, d = 40-80) attention is compute-bound: 4 * d
@@ -52,6 +68,8 @@
 // exp2 (one MUFU op per score, 16 per clock per SM) costs more than the two
 // products; the warpgroups are not scheduled against each other (no
 // ping-pong), and the 16-byte column boxes fetch each 32-byte sector twice.
+// K2's and K13's binary-mask tiles add one MUFU op per row and tile to
+// K1's; a tile with a fractional mask value pays two per score.
 #include "attention_tc.cuh"
 
 namespace {
@@ -64,13 +82,24 @@ using me_tc::View;
 
 bool head_dim_ok(int d) { return d >= 8 && d % 8 == 0 && d <= me_tc::MAX_D; }
 
+// The injection variant's extra operands (K2, K13): the target rows' K/V
+// ([G, H, Nt, D] views), the fp32 fg mask with mask_row floats per row, and
+// the number of masked source passes before the target pass.
+struct Injection {
+  View k, v;
+  const float* mask;
+  long long mask_row;
+  int nsrc, Nt;
+};
+
 // q, k, v, out as [G, H, N, D] views; K/V hold Nk keys per group and pass.
 // Query group g reads K/V group g / kv_div (video_mode -1) or the frame of
 // K1's mode (video_mode >= 0, kv_div 1).
-// lse (nullptr: not written) is [G, N, H] fp32.
+// lse (nullptr: not written) is [G, N, H] fp32; inj (nullptr: none) makes
+// the first inj->nsrc passes masked source passes and adds the target pass.
 cudaError_t run(const View& q, const View& k, const View& v, const View& out, float* lse,
                 int G, int H, int Nq, int Nk, int d, float scale, int npass, int video_mode,
-                int F, int kv_div, cudaStream_t stream) {
+                int F, int kv_div, cudaStream_t stream, const Injection* inj = nullptr) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) || (k.sg == 0) != (v.sg == 0) ||
       kv_div < 1 || G % kv_div != 0)
     return cudaErrorInvalidValue;
@@ -79,6 +108,17 @@ cudaError_t run(const View& q, const View& k, const View& v, const View& out, fl
   if (!encode(&p.mk, k, kv_groups, H, Nk, d, me_tc::BK) ||
       !encode(&p.mv, v, kv_groups, H, Nk, d, me_tc::BK))
     return cudaErrorInvalidValue;
+  if (inj != nullptr) {
+    if (!aligned(inj->k) || !aligned(inj->v) || inj->mask == nullptr || kv_div != 1 ||
+        inj->Nt < 1 || npass != inj->nsrc + 1 ||
+        !encode(&p.mk2, inj->k, G, H, inj->Nt, d, me_tc::BK) ||
+        !encode(&p.mv2, inj->v, G, H, inj->Nt, d, me_tc::BK))
+      return cudaErrorInvalidValue;
+    p.mask = inj->mask;
+    p.mrs = inj->mask_row;
+    p.nsrc = inj->nsrc;
+    p.Nt = inj->Nt;
+  }
   p.out = const_cast<bf16*>(out.ptr);
   p.osg = out.sg;
   p.osh = out.sh;
@@ -97,7 +137,8 @@ cudaError_t run(const View& q, const View& k, const View& v, const View& out, fl
   p.kv_div = kv_div;
   return me_tc::with_padded_dim(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
-    if (!encode(&p.mq, q, G, H, Nq, d, me_tc::Shape<DP>::BQ)) return cudaErrorInvalidValue;
+    const int bq = inj != nullptr ? me_tc::Shape<DP, true>::BQ : me_tc::Shape<DP>::BQ;
+    if (!encode(&p.mq, q, G, H, Nq, d, bq)) return cudaErrorInvalidValue;
     return me_tc::launch<DP>(p, H, G, stream);
   });
 }
@@ -153,6 +194,44 @@ extern "C" int me_video_attention_kv_tc(const void* q, const void* k, const void
   };
   return (int)run(view(q, N), view(k, M), view(v, M), view(out, N), nullptr, B * F, H, N, M, d,
                   scale, 1, -1, F, Fk == 1 ? F : 1, static_cast<cudaStream_t>(stream));
+}
+
+// K2, bf16: q_tgt, k_src, v_src, k_tgt, v_tgt, out [B, F, N, C], mask [F, N]
+// fp32 (the fg mask of the key's frame). Returns a cudaError_t code.
+extern "C" int me_video_injection_tc(const void* q, const void* k_src, const void* v_src,
+                                     const void* k_tgt, const void* v_tgt, const float* mask,
+                                     void* out, int B, int F, int N, int H, int d, float scale,
+                                     void* stream) {
+  if (!head_dim_ok(d) || mask == nullptr || B < 1 || F < 1 || N < 1 || H < 1 ||
+      B * F > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long C = (long long)H * d;
+  auto view = [&](const void* ptr) {
+    return View{static_cast<const bf16*>(ptr), (long long)N * C, d, C};
+  };
+  const Injection inj{view(k_tgt), view(v_tgt), mask, N, 2, N};
+  return (int)run(view(q), view(k_src), view(v_src), view(out), nullptr, B * F, H, N, N, d,
+                  scale, me::num_passes(me::INJECTION, F), me::INJECTION, F, 1,
+                  static_cast<cudaStream_t>(stream), &inj);
+}
+
+// K13, bf16: q_tgt, k_tgt, v_tgt, out [B, F, N, C] against the explicit
+// source K/V [B, Fk, M, C], Fk == F, whose fg mask [F, M] fp32 is the row of
+// the query's frame. Returns a cudaError_t code.
+extern "C" int me_video_injection_kv_tc(const void* q, const void* k_src, const void* v_src,
+                                        const void* k_tgt, const void* v_tgt, const float* mask,
+                                        void* out, int B, int F, int N, int Fk, int M, int H,
+                                        int d, float scale, void* stream) {
+  if (!head_dim_ok(d) || mask == nullptr || B < 1 || F < 1 || N < 1 || M < 1 || H < 1 ||
+      Fk != F || B * F > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long C = (long long)H * d;
+  auto view = [&](const void* ptr, int rows) {
+    return View{static_cast<const bf16*>(ptr), (long long)rows * C, d, C};
+  };
+  const Injection inj{view(k_tgt, N), view(v_tgt, N), mask, M, 1, N};
+  return (int)run(view(q, N), view(k_src, M), view(v_src, M), view(out, N), nullptr, B * F, H,
+                  N, M, d, scale, 2, -1, F, 1, static_cast<cudaStream_t>(stream), &inj);
 }
 
 // K8, bf16. strides: 12 element strides, (G, H, N) of q, k, v, out in turn;

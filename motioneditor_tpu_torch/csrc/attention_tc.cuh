@@ -1,9 +1,11 @@
 // The bf16 tensor-core flash-attention mainloop shared by the packed video
 // attention (K1), its residual-saving forward (K4, which also writes the
-// log-sum-exp), the split-head flash attention (K8) and the explicit-K/V
-// video attention (K12): attention_tc.cu. Its building blocks (mbarriers,
-// TMA loads, wgmma, the tensor maps) also serve the flash backward's dK/dV
-// (K6, attention_bwd_tc.cu) and dQ (K5, attention_dq_tc.cu).
+// log-sum-exp), the split-head flash attention (K8), the explicit-K/V
+// video attention (K12) and the fg/bg injection attention with its
+// explicit-K/V twin (K2, K13: the injection variant, below):
+// attention_tc.cu. Its building blocks (mbarriers, TMA loads, wgmma, the
+// tensor maps) also serve the flash backward's dK/dV (K6,
+// attention_bwd_tc.cu) and dQ (K5, attention_dq_tc.cu).
 //
 // Every operand is a [G, H, N, D] view given by element strides, D
 // contiguous (K1's packed [B, F, N, C] is the view G = B*F, strides
@@ -28,6 +30,26 @@
 // chunks past d are zeroed once and never loaded, so no byte of another
 // head is read; TMA zero-fills rows past a view's N (the next frame's
 // tokens are never read), and those keys are masked before the max.
+//
+// The injection variant (INJ; K2, K13) runs nsrc masked source passes of
+// Nk keys (K2: frames f-1 and f; K13: the explicit source) and then one
+// target pass of Nt keys from the second pair of maps. A source key scored
+// s' (log2 units) with fg mask m has the two logits m s' and (1 - m) s',
+// both against its one V row: P = ex2(m s' - M) + ex2((1 - m) s' - M),
+// summed in fp32 and rounded to bf16 once for the single P.V product; a
+// key with m = 0 keeps its logit 0 (not -inf). The mask reaches the
+// consumers through a slot of each ring stage: the producer warp loads the
+// tile's 64 values from global memory (zero past the pass's end) and votes
+// whether all are 0 or 1, then every lane arrives on the stage's "full"
+// barrier (count 32), so the slot is ordered with the TMA bytes by the same
+// barrier. Why a slot and not loads by the consumers: the 16 values a
+// consumer needs per tile would sit in registers the d = 40 instantiation
+// does not have, and 128 * WGS threads would issue the same loads. A binary
+// tile (the pipeline's nearest-resized masks) has the logit pair {s', 0}
+// for every key, whatever m is: P = ex2(s' - M) + ex2(-M), one MUFU op per
+// score as in K1, the row max covering 0. Any fractional value sends the
+// whole tile down the general path (two MUFU ops per score). Target tiles
+// take K1's softmax.
 #pragma once
 
 #include <cuda.h>
@@ -67,15 +89,22 @@ struct Params {
   int F;
   int kv_div;        // query groups per K/V group: 1; K8's broadcast K/V: G (their
                      // maps have G = 1); K12 with one K/V frame per clip: F
+  // the injection variant (K2, K13); unused elsewhere
+  CUtensorMap mk2, mv2;  // the target rows' K/V, Nt keys per group
+  const float* mask;     // fp32 fg mask rows, mrs floats apart: K2's row is the
+  long long mrs;         // key's frame, K13's the query's frame
+  int nsrc;              // masked source passes before the target pass: K2 2, K13 1
+  int Nt;                // keys of the target pass
 };
 
-template <int DP>
+template <int DP, bool INJ = false>
 struct Shape {
   // consumer warpgroups of 64 query rows: more of them share each K/V tile
   // (fewer L2 -> shared bytes per query) while their registers fit one
   // block per SM (ptxas allots a thread 65536 / (128 * (WGS + 1)) registers,
   // the producer warp counting as a warpgroup); the fastest of 2, 3 and 4
-  // on the H100 at d = 40 and d = 80 (PERF.md)
+  // on the H100 at d = 40 and d = 80 (PERF.md), the injection variant's too
+  // (one warpgroup fewer, without its spills, was slower at both)
   static constexpr int WGS = DP <= 48 ? 4 : DP <= 80 ? 3 : 2;
   static constexpr int BQ = 64 * WGS;             // queries per block
   static constexpr int CONSUMERS = 128 * WGS;
@@ -85,7 +114,10 @@ struct Shape {
   static constexpr int KV_BYTES = CH * BK * 16;   // one K or V tile
   static constexpr int PVN = DP <= 80 ? DP : DP / 2;  // N of one P.V wgmma
   static constexpr int NH = DP / PVN;
-  static constexpr size_t bytes = Q_BYTES + 2 * NS * KV_BYTES + (2 * NS + 1) * 8;
+  // INJ: after the barriers, NS mask slots of BK floats, then NS binary flags
+  static constexpr int MASK_OFF = Q_BYTES + 2 * NS * KV_BYTES + 80;
+  static constexpr size_t bytes =
+      INJ ? MASK_OFF + NS * (BK + 1) * 4 : Q_BYTES + 2 * NS * KV_BYTES + (2 * NS + 1) * 8;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -275,27 +307,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // --- the kernel ---------------------------------------------------------------
 
 // The kernel's body; LSE also writes the log-sum-exp of every valid row
-// (K4), which K1's, K8's and K12's instantiations do not compile.
-template <int DP, bool LSE>
+// (K4), INJ runs the injection variant (K2, K13); K1's, K8's and K12's
+// instantiations compile neither.
+template <int DP, bool LSE, bool INJ>
 __device__ __forceinline__ void attention_body(const Params& p) {
-  using S = Shape<DP>;
+  using S = Shape<DP, INJ>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* Qs = smem;
   unsigned char* KVs = smem + S::Q_BYTES;  // stage s: K at 2s, V at 2s + 1 (KV_BYTES each)
   uint64_t* full = reinterpret_cast<uint64_t*>(KVs + 2 * NS * S::KV_BYTES);
   uint64_t* empty = full + NS;
   uint64_t* qbar = empty + NS;
+  float* mslot = reinterpret_cast<float*>(smem + S::MASK_OFF);  // INJ: stage s at s * BK
+  int* binary = reinterpret_cast<int*>(mslot + NS * BK);         // INJ: stage s's vote
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   constexpr int BQ = S::BQ;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, g = blockIdx.z;
   const int dc = p.d / 8;
   const int tiles_per_pass = (p.Nk + BK - 1) / BK;
-  const int ntiles = tiles_per_pass * p.npass;
+  // INJ: nsrc source passes of Nk keys, then the target pass of Nt keys
+  const int src_tiles = INJ ? p.nsrc * tiles_per_pass : 0;
+  const int ntiles = INJ ? src_tiles + (p.Nt + BK - 1) / BK : tiles_per_pass * p.npass;
 
   if (tid == 0) {
     for (int s = 0; s < NS; ++s) {
-      mbar_init(full + s, 1);
+      mbar_init(full + s, INJ ? 32 : 1);  // INJ: every producer lane stages mask values
       mbar_init(empty + s, S::CONSUMERS);
     }
     mbar_init(qbar, 1);
@@ -314,26 +351,49 @@ __device__ __forceinline__ void attention_body(const Params& p) {
   __syncthreads();
 
   if (tid >= S::CONSUMERS) {
-    // ---- producer: one thread keeps the ring of K/V stages full ----
-    if (lane == 0) {
+    // ---- producer: one thread keeps the ring of K/V stages full (INJ: the
+    // whole warp, which also stages each source tile's mask) ----
+    if (INJ || lane == 0) {
       int b = 0, f = 0;
-      if (p.video_mode >= 0) {
+      if (INJ || p.video_mode >= 0) {
         b = g / p.F;
         f = g - b * p.F;
       }
-      mbar_expect_tx(qbar, dc * BQ * 16);
-      for (int c = 0; c < dc; ++c) tma_load(Qs + c * BQ * 16, &p.mq, c * 8, q0, h, g, qbar);
+      if (lane == 0) {
+        mbar_expect_tx(qbar, dc * BQ * 16);
+        for (int c = 0; c < dc; ++c) tma_load(Qs + c * BQ * 16, &p.mq, c * 8, q0, h, g, qbar);
+      }
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % NS;
         if (t >= NS) mbar_wait(empty + s, ((t / NS) - 1) & 1);
-        const int pass = t / tiles_per_pass, k0 = (t - pass * tiles_per_pass) * BK;
-        const int grp = p.video_mode >= 0 ? b * p.F + me::pass_frame(p.video_mode, pass, f)
-                                          : g / p.kv_div;
+        const bool target = INJ && t >= src_tiles;
+        const int pass = target ? p.nsrc : t / tiles_per_pass;
+        const int k0 = (target ? t - src_tiles : t - pass * tiles_per_pass) * BK;
+        const int frame = p.video_mode >= 0 ? me::pass_frame(p.video_mode, pass, f) : f;
+        const int grp = p.video_mode >= 0 ? b * p.F + frame : g / p.kv_div;
+        if constexpr (INJ) {
+          if (!target) {  // lane i stages keys k0 + 2i, k0 + 2i + 1 of the mask row
+            const float* mrow = p.mask + (long long)(p.video_mode >= 0 ? frame : f) * p.mrs;
+            const int c = k0 + 2 * lane;
+            const float m0 = c < p.Nk ? mrow[c] : 0.f;
+            const float m1 = c + 1 < p.Nk ? mrow[c + 1] : 0.f;
+            const bool bin = __all_sync(0xffffffffu, (m0 == 0.f || m0 == 1.f) &&
+                                                         (m1 == 0.f || m1 == 1.f));
+            reinterpret_cast<float2*>(mslot + s * BK)[lane] = make_float2(m0, m1);
+            if (lane == 0) binary[s] = bin;
+          }
+          if (lane != 0) {
+            mbar_arrive(full + s);  // releases this lane's mask values
+            continue;
+          }
+        }
+        const CUtensorMap* mk = target ? &p.mk2 : &p.mk;
+        const CUtensorMap* mv = target ? &p.mv2 : &p.mv;
         unsigned char* ks = KVs + 2 * s * S::KV_BYTES;
         mbar_expect_tx(full + s, 2 * dc * BK * 16);
         for (int c = 0; c < dc; ++c) {
-          tma_load(ks + c * BK * 16, &p.mk, c * 8, k0, h, grp, full + s);
-          tma_load(ks + S::KV_BYTES + c * BK * 16, &p.mv, c * 8, k0, h, grp, full + s);
+          tma_load(ks + c * BK * 16, mk, c * 8, k0, h, grp, full + s);
+          tma_load(ks + S::KV_BYTES + c * BK * 16, mv, c * 8, k0, h, grp, full + s);
         }
       }
     }
@@ -378,12 +438,23 @@ __device__ __forceinline__ void attention_body(const Params& p) {
                                    BK * 16));
     wgmma_commit();
   };
-  // exponentiate S_t in place against the new running max; returns nothing,
-  // leaves the rescale factor of each row in alpha
+  // the running max of each row against this tile's max mx (raw scores; a
+  // tile has a valid key): leaves the rescale factor in alpha, -max in m_sub
   float alpha[2];
-  auto softmax = [&](int t) {
-    const int pass = t / tiles_per_pass;
-    const int nvalid = min(BK, p.Nk - (t - pass * tiles_per_pass) * BK);
+  auto update_max = [&](float (&mx)[2], float (&m_sub)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // a row's 64 scores live in the 4 threads of a quad
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i] * p.scale_log2);  // finite: a tile has a key
+      alpha[i] = ex2(m_run[i] - m_new);
+      m_run[i] = m_new;
+      m_sub[i] = -m_new;
+    }
+  };
+  // exponentiate S_t, whose first nvalid keys are valid, in place against
+  // the new running max
+  auto softmax = [&](int nvalid) {
     if (nvalid < BK) {  // keys past the pass's end (zero-filled rows) at -inf
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
@@ -398,15 +469,7 @@ __device__ __forceinline__ void attention_body(const Params& p) {
       mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
     float m_sub[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // a row's 64 scores live in the 4 threads of a quad
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i] * p.scale_log2);  // finite: a tile has a key
-      alpha[i] = ex2(m_run[i] - m_new);
-      m_run[i] = m_new;
-      m_sub[i] = -m_new;
-    }
+    update_max(mx, m_sub);
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -415,6 +478,78 @@ __device__ __forceinline__ void attention_body(const Params& p) {
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
+  };
+  // INJ: a source tile's softmax over the logit pairs (m s', (1 - m) s').
+  // Keys past the pass's end score 0 (zero-filled rows, mask 0): they join
+  // the max (harmless: a max only stabilises) and their P is dropped after
+  // the exponentials, so full tiles pay no per-key test
+  auto softmax_masked = [&](int t) {
+    const int s = t % NS;
+    float mx[2], m_sub[2], rs[2] = {0.f, 0.f};
+    if (binary[s]) {  // every pair is {s', 0}: the max covers 0, P = ex2(s' - M) + ex2(-M)
+      mx[0] = mx[1] = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      update_max(mx, m_sub);
+      const float zero[2] = {ex2(m_sub[0]), ex2(m_sub[1])};  // the 0 logit's term
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = ex2(fmaf(sc[i], p.scale_log2, m_sub[(i >> 1) & 1])) + zero[(i >> 1) & 1];
+        rs[(i >> 1) & 1] += sc[i];
+      }
+    } else {  // the general path: each key's two logits m s' and (1 - m) s'
+      const float2* ms = reinterpret_cast<const float2*>(mslot + s * BK) + quad;  // + 4j
+      mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float2 m2 = ms[4 * j];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float fg = sc[4 * j + e] * ((e & 1) ? m2.y : m2.x);
+          mx[e >> 1] = fmaxf(mx[e >> 1], fmaxf(fg, sc[4 * j + e] - fg));
+        }
+      }
+      update_max(mx, m_sub);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float2 m2 = ms[4 * j];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const float fg = sc[i] * ((e & 1) ? m2.y : m2.x);
+          sc[i] = ex2(fmaf(fg, p.scale_log2, m_sub[e >> 1])) +
+                  ex2(fmaf(sc[i] - fg, p.scale_log2, m_sub[e >> 1]));
+          rs[e >> 1] += sc[i];
+        }
+      }
+    }
+    const int nvalid = min(BK, p.Nk - (t % tiles_per_pass) * BK);
+    if (nvalid < BK) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * 8 + quad * 2 + (e & 1) >= nvalid) {
+            rs[e >> 1] -= sc[4 * j + e];
+            sc[4 * j + e] = 0.f;
+          }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
+  };
+  auto tile_softmax = [&](int t) {
+    if constexpr (INJ) {  // the target tiles take K1's softmax over Nt keys
+      if (t < src_tiles)
+        softmax_masked(t);
+      else
+        softmax(min(BK, p.Nt - (t - src_tiles) * BK));
+    } else {
+      const int pass = t / tiles_per_pass;
+      softmax(min(BK, p.Nk - (t - pass * tiles_per_pass) * BK));
+    }
   };
   auto pack_p = [&]() {  // P's A fragment of keys 16kk.. is S n-tiles 2kk and 2kk + 1
 #pragma unroll
@@ -429,7 +564,7 @@ __device__ __forceinline__ void attention_body(const Params& p) {
   issue_s(0);
   wgmma_wait<0>();
   fence_regs(sc);
-  softmax(0);
+  tile_softmax(0);
   pack_p();
   for (int t = 1; t < ntiles; ++t) {
     mbar_wait(full + t % NS, (t / NS) & 1);
@@ -438,7 +573,7 @@ __device__ __forceinline__ void attention_body(const Params& p) {
     issue_pv(t - 1);
     wgmma_wait<1>();  // S_t has landed; P_{t-1} V_{t-1} may still run
     fence_regs(sc);
-    softmax(t);
+    tile_softmax(t);
     wgmma_wait<0>();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
@@ -492,26 +627,42 @@ __device__ __forceinline__ void attention_body(const Params& p) {
 template <int DP>
 __global__ void __launch_bounds__(Shape<DP>::NTHREADS, 1)
     attention_tc_kernel(const __grid_constant__ Params p) {
-  attention_body<DP, false>(p);
+  attention_body<DP, false, false>(p);
 }
 
 // K4: K1 that also writes the log-sum-exp (its own name in a profile)
 template <int DP>
 __global__ void __launch_bounds__(Shape<DP>::NTHREADS, 1)
     attention_tc_lse_kernel(const __grid_constant__ Params p) {
-  attention_body<DP, true>(p);
+  attention_body<DP, true, false>(p);
 }
 
+// K2, K13: the injection variant (its own name in a profile)
 template <int DP>
-cudaError_t launch(const Params& p, int H, int G, cudaStream_t stream) {
-  using S = Shape<DP>;
-  auto* kernel = p.lse != nullptr ? attention_tc_lse_kernel<DP> : attention_tc_kernel<DP>;
+__global__ void __launch_bounds__(Shape<DP, true>::NTHREADS, 1)
+    attention_tc_inj_kernel(const __grid_constant__ Params p) {
+  attention_body<DP, false, true>(p);
+}
+
+// a launch of kernel, whose body's shape is S
+template <class S>
+cudaError_t launch_as(void (*kernel)(Params), const Params& p, int H, int G,
+                      cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Nq + S::BQ - 1) / S::BQ, H, G);
   kernel<<<grid, S::NTHREADS, S::bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// p.mq's box must hold Shape<DP, p.mask != nullptr>::BQ rows
+template <int DP>
+cudaError_t launch(const Params& p, int H, int G, cudaStream_t stream) {
+  if (p.mask != nullptr)
+    return launch_as<Shape<DP, true>>(attention_tc_inj_kernel<DP>, p, H, G, stream);
+  auto* kernel = p.lse != nullptr ? attention_tc_lse_kernel<DP> : attention_tc_kernel<DP>;
+  return launch_as<Shape<DP>>(kernel, p, H, G, stream);
 }
 
 template <int DP>

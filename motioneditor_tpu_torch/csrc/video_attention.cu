@@ -43,8 +43,9 @@
 // query against ~2*d*2 bytes per key tile shared by 64 queries. This body
 // runs on the fp32 CUDA cores and is bounded by shared-memory bandwidth of
 // the FMA loops, far below the bf16 tensor-core peak. K1 in bf16 (d % 8 ==
-// 0, d <= 160) no longer comes here: it runs the wgmma + TMA body of
-// attention_tc.cu. K1 in fp32, K2, K4, K12 and K13 still run this one.
+// 0, d <= 160) no longer comes here, nor do K2, K4, K12 and K13 under the
+// same rule: they run the wgmma + TMA bodies of attention_tc.cu. Their
+// fp32 launches (and other head dims) still run this one.
 #include <math.h>
 #include <stdint.h>
 

@@ -2,7 +2,7 @@
 (port of motioneditor_tpu/ops/video_flash.py).
 
 Kernels (CUDA C++, ``csrc/video_attention.cu``, one CUDA-core body for all
-four; K1 and K12 in bf16 on ``csrc/attention_tc.cu``):
+four; all four in bf16 on ``csrc/attention_tc.cu``):
 
   video_flash_attention         replaces _video_flash         (video_flash.py:248)
   video_injection_attention     replaces _video_injection     (video_flash.py:591)
@@ -19,13 +19,13 @@ normal [f], sparse_causal [0 | f-1], motion_frame [f-1 | f], dense [all],
 with f-1 clamped to 0 (frame 0 reads frame 0 twice, keeping the doubled
 weight of the reference's concatenated keys).
 
-K1 and K12 have two bodies, chosen by ``tensor_core_body`` from the dtype,
-the head dim and the rows' alignment: bf16 with d % 8 == 0, d <= 160 runs
-the tensor-core body (``csrc/attention_tc.cu``, counted also under
-``video_flash_attention.tc`` / ``video_flash_attention_kv.tc``); fp32 runs
-the CUDA-core body of ``video_attention.cu``. Both bodies load 16-byte
-vectors, so K1, K12 and K13 raise on operands whose rows are off a 16-byte
-boundary. K2 and K13 have the CUDA-core body only.
+Each has two bodies, chosen by ``tensor_core_body`` from the dtype, the head
+dim and the rows' alignment: bf16 with d % 8 == 0, d <= 160 runs the
+tensor-core body (``csrc/attention_tc.cu``; K2 and K13 its injection
+instantiation), counted also under ``<name>.tc``; fp32 runs the CUDA-core
+body of ``video_attention.cu``. Both bodies load 16-byte vectors, so all
+four raise on operands whose rows are off a 16-byte boundary. The fg mask
+is fp32 in any case, read one value at a time.
 
 Softmax: both dtypes use an exact online softmax (running max, fp32). The
 JAX bf16 kernels instead clamp scores at 60 with no running max; the two
@@ -80,9 +80,10 @@ def rows_aligned(*views) -> bool:
 
 
 def tensor_core_body(dtype: torch.dtype, d: int, rows_aligned: bool) -> bool:
-    """Which body a launch of K1 (video_flash_attention), K8
-    (flash_attention) or K12 (video_flash_attention_kv) takes: the bf16
-    tensor-core one (csrc/attention_tc.cu) for bf16 operands with
+    """Which body a launch of K1 (video_flash_attention), K2
+    (video_injection_attention), K8 (flash_attention), K12
+    (video_flash_attention_kv) or K13 (video_injection_attention_kv) takes:
+    the bf16 tensor-core one (csrc/attention_tc.cu) for bf16 operands with
     d % 8 == 0, d <= 160 and every row on a 16-byte boundary
     (``rows_aligned`` of the operands' [G, H, N, D] views), else the
     CUDA-core one (video_attention.cu, split_attention.cu): fp32 (its checks
@@ -258,17 +259,27 @@ def video_injection_attention(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale: fl
 
 
 def _video_injection_kernel(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale, heads):
+    """K2's launch on the body ``tensor_core_body`` picks; a tensor-core
+    launch also counts under ``video_injection_attention.tc``."""
     name = "video_injection_attention"
     b, f, n, c = q_tgt.shape
+    d = c // heads
     out = torch.empty_like(q_tgt)
-    code = _build.kernels().me_video_attention(
-        q_tgt.data_ptr(), k_src.data_ptr(), v_src.data_ptr(), k_tgt.data_ptr(),
-        v_tgt.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, f, n, heads, c // heads, float(scale), _INJECTION_CODE,
-        _build.DTYPE_CODES[q_tgt.dtype], _build.stream_handle(q_tgt.device),
-    )
+    operands = (q_tgt, k_src, v_src, k_tgt, v_tgt, out)
+    if not rows_aligned(*(split_heads(t, heads).flatten(0, 1) for t in operands)):
+        raise ValueError(f"{name}: operands must start on a 16-byte boundary")  # both bodies
+    lib, stream = _build.kernels(), _build.stream_handle(q_tgt.device)
+    ptrs = tuple(t.data_ptr() for t in (q_tgt, k_src, v_src, k_tgt, v_tgt, mask, out))
+    tc = tensor_core_body(q_tgt.dtype, d, rows_aligned=True)
+    if tc:
+        code = lib.me_video_injection_tc(*ptrs, b, f, n, heads, d, float(scale), stream)
+    else:
+        code = lib.me_video_attention(*ptrs, b, f, n, heads, d, float(scale), _INJECTION_CODE,
+                                      _build.DTYPE_CODES[q_tgt.dtype], stream)
     _build.check_status(name, code)
     _build.launch_counts[name] += 1
+    if tc:
+        _build.launch_counts[name + ".tc"] += 1
     return out
 
 
@@ -333,9 +344,8 @@ def video_flash_attention_kv(q, k, v, scale: float, heads: int) -> torch.Tensor:
 
 
 def _video_kv_kernel(q, k, v, k_tgt, v_tgt, mask, scale, heads):
-    """K12's launch (K13's with ``mask``). K12 takes the body
-    ``tensor_core_body`` picks, counted also under
-    ``video_flash_attention_kv.tc``; K13 has the CUDA-core body only."""
+    """K12's launch (K13's with ``mask``) on the body ``tensor_core_body``
+    picks; a tensor-core launch also counts under ``<name>.tc``."""
     injection = mask is not None
     name = "video_injection_attention_kv" if injection else "video_flash_attention_kv"
     b, f, n, c = q.shape
@@ -346,8 +356,12 @@ def _video_kv_kernel(q, k, v, k_tgt, v_tgt, mask, scale, heads):
     if not rows_aligned(*(split_heads(t, heads).flatten(0, 1) for t in operands)):
         raise ValueError(f"{name}: operands must start on a 16-byte boundary")  # both bodies
     lib, stream = _build.kernels(), _build.stream_handle(q.device)
-    tc = not injection and tensor_core_body(q.dtype, d, rows_aligned=True)
-    if tc:
+    tc = tensor_core_body(q.dtype, d, rows_aligned=True)
+    if tc and injection:
+        code = lib.me_video_injection_kv_tc(
+            *(t.data_ptr() for t in (q, k, v, k_tgt, v_tgt, mask, out)), b, f, n, fk, m, heads,
+            d, float(scale), stream)
+    elif tc:
         code = lib.me_video_attention_kv_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                             out.data_ptr(), b, f, n, fk, m, heads, d,
                                             float(scale), stream)

@@ -1,5 +1,6 @@
 """The routing rule between the two bodies of K1 (video_flash_attention),
-K8 (flash_attention), K12 (video_flash_attention_kv), K4
+K2 (video_injection_attention), K8 (flash_attention), K12
+(video_flash_attention_kv), K13 (video_injection_attention_kv), K4
 (video_flash_fwd_res), K5 (video_flash_bwd_dq) and K6
 (video_flash_bwd_dkv): the dtype, the head dim and the rows' alignment
 decide, and nothing else (no fallback after a failed launch).
@@ -223,12 +224,96 @@ def test_video_flash_kv_launch_takes_the_routed_body(lib, dtype, c, heads, entry
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_video_injection_kv_keeps_the_cuda_core_body(lib, dtype):
-    """K13 (the explicit-K/V injection) is not rerouted, even where K12 is."""
+    """K13 (the explicit-K/V injection) keeps the CUDA-core body where the
+    rule declines the tensor cores (fp32), and takes K12's rule otherwise:
+    in bf16 at d = 40 its injection instantiation."""
     q = torch.zeros((2, 3, 50, 320), dtype=dtype)
     ks = torch.zeros((2, 3, 100, 320), dtype=dtype)
     video_mod._video_kv_kernel(q, ks, ks, q, q, torch.zeros((3, 100)), 0.1, 8)
-    assert lib.calls == ["me_video_attention_kv"]
-    assert dict(_build.launch_counts) == {"video_injection_attention_kv": 1}
+    tc = dtype == torch.bfloat16
+    assert lib.calls == ["me_video_injection_kv_tc" if tc else "me_video_attention_kv"]
+    assert dict(_build.launch_counts) == {
+        "video_injection_attention_kv": 1,
+        **({"video_injection_attention_kv.tc": 1} if tc else {})}
+
+
+INJECTION_ROUTES = [  # (dtype, c, heads, the tensor-core body?)
+    (torch.bfloat16, 320, 8, True),    # d = 40: the 64x64 sites of SD-1.5
+    (torch.bfloat16, 640, 8, True),    # d = 80: the 32x32 sites
+    (torch.bfloat16, 1280, 8, True),   # d = 160
+    (torch.bfloat16, 32, 4, True),     # d = 8
+    (torch.float32, 320, 8, False),    # fp32 keeps exact fp32 on CUDA cores
+    (torch.float32, 640, 8, False),
+    (torch.float32, 1280, 8, False),
+]
+
+
+@pytest.mark.parametrize("dtype,c,heads,tc", INJECTION_ROUTES)
+def test_video_injection_launch_takes_the_routed_body(lib, dtype, c, heads, tc):
+    """K2: bf16 at d % 8 == 0, d <= 160 on the injection instantiation of
+    the tensor-core body, fp32 on the CUDA-core body."""
+    q = torch.zeros((2, 3, 50, c), dtype=dtype)
+    out = video_mod._video_injection_kernel(q, q, q, q, q, torch.zeros((3, 50)), 0.1, heads)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lib.calls == ["me_video_injection_tc" if tc else "me_video_attention"]
+    assert dict(_build.launch_counts) == {
+        "video_injection_attention": 1, **({"video_injection_attention.tc": 1} if tc else {})}
+
+
+@pytest.mark.parametrize("dtype,c,heads,tc", INJECTION_ROUTES)
+@pytest.mark.parametrize("m", [100, 77])  # M = 2N (the halo-built [prev | cur]); ragged
+def test_video_injection_kv_launch_takes_the_routed_body(lib, dtype, c, heads, tc, m):
+    q = torch.zeros((2, 3, 50, c), dtype=dtype)
+    ks = torch.zeros((2, 3, m, c), dtype=dtype)
+    out = video_mod._video_kv_kernel(q, ks, ks, q, q, torch.zeros((3, m)), 0.1, heads)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lib.calls == ["me_video_injection_kv_tc" if tc else "me_video_attention_kv"]
+    assert dict(_build.launch_counts) == {
+        "video_injection_attention_kv": 1,
+        **({"video_injection_attention_kv.tc": 1} if tc else {})}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("operand", ["q_tgt", "k_src", "v_src", "k_tgt", "v_tgt"])
+def test_video_injection_rejects_misaligned_rows(lib, dtype, operand):
+    """K2 loads 16-byte vectors on both bodies: an operand off a 16-byte
+    boundary raises before any launch (ROADMAP C2)."""
+    shape = (2, 3, 50, 320)
+    ops = {name: torch.zeros(shape, dtype=dtype)
+           for name in ("q_tgt", "k_src", "v_src", "k_tgt", "v_tgt")}
+    ops[operand] = _off(shape, dtype)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        video_mod._video_injection_kernel(*ops.values(), torch.zeros((3, 50)), 0.1, 8)
+    assert lib.calls == [] and not _build.launch_counts
+
+
+def test_failed_injection_launches_raise_and_are_not_retried(lib):
+    lib.code = 1  # cudaErrorInvalidValue
+    q = torch.zeros((2, 3, 50, 320), dtype=torch.bfloat16)
+    ks = torch.zeros((2, 3, 100, 320), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        video_mod._video_injection_kernel(q, q, q, q, q, torch.zeros((3, 50)), 0.1, 8)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        video_mod._video_kv_kernel(q, ks, ks, q, q, torch.zeros((3, 100)), 0.1, 8)
+    assert lib.calls == ["me_video_injection_tc", "me_video_injection_kv_tc"]
+    assert not _build.launch_counts
+
+
+@pytest.mark.parametrize("kernel", ["injection", "injection_kv"])
+def test_injection_takes_the_plain_version_on_the_cpu(lib, kernel):
+    """K2's and K13's CPU tensors run their plain versions and launch nothing."""
+    gen = torch.Generator().manual_seed(0)
+    m = 20 if kernel == "injection" else 40
+    q, kt, vt = (torch.randn((1, 3, 20, 32), generator=gen) for _ in range(3))
+    ks, vs = (torch.randn((1, 3, m, 32), generator=gen) for _ in range(2))
+    mask = torch.rand((3, m), generator=gen)
+    fn, plain = ((video_mod.video_injection_attention, video_mod.video_injection_attention_plain)
+                 if kernel == "injection" else
+                 (video_mod.video_injection_attention_kv,
+                  video_mod.video_injection_attention_kv_plain))
+    out = fn(q, ks, vs, kt, vt, mask, 0.25, 4)
+    torch.testing.assert_close(out, plain(q, ks, vs, kt, vt, mask, 0.25, 4), atol=0, rtol=0)
+    assert lib.calls == [] and not _build.launch_counts
 
 
 def _dkv_args(dtype, c, heads, mode="motion_frame", b=2, f=3, n=50, q=None):

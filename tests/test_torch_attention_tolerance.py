@@ -30,13 +30,37 @@ chip_smoke.py phase 3b and the kernel tests) at both sites; the dQ made
 from it fails the scaled limits at 2048 keys, but at 8192 keys it is off by
 one tile in 128 (~0.8% in RMS) and reads under them: there the lse check
 is what catches it.
+
+Injection (K2, K13 on the injection instantiation): one target frame at
+the two gated sites, 4096 queries against 8192 source + 4096 target keys
+(d = 40) and 1024 against 2048 + 1024 (d = 80). The kernel's arithmetic
+written out tile by tile in fp32 (each source key scored once, its two
+logits' exponentials summed, P rounded to bf16, binary tiles on the
+{s', 0} fast path) passes against the fp32 plain version for binary,
+fractional and mixed masks; dropping the zero logits of m = 0 keys, the
+target pass or one source tile fails. The output depends on the mask only
+through the pair {m, 1 - m}, so every binary mask gives the same output
+(pinned on the JAX reference and on the plain version): a mask read from
+the wrong frame passes with a binary mask and fails with a fractional one,
+so the fractional-mask checks are what guard the mask addressing.
 """
 
+import math
+
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
-from chip_smoke import scaled_error
-from motioneditor_tpu_torch.ops.video_flash import video_flash_attention_kv_plain
+from chip_smoke import fg_mask, scaled_error
+from motioneditor_tpu.ops.video_flash import (
+    video_injection_attention as jax_video_injection_attention,
+)
+from motioneditor_tpu_torch.ops.video_flash import (
+    video_flash_attention_kv_plain,
+    video_injection_attention_kv_plain,
+    video_injection_attention_plain,
+)
 from motioneditor_tpu_torch.ops.video_flash_bwd import (
     _delta,
     video_flash_bwd_dkv_plain,
@@ -218,3 +242,154 @@ def test_lse_short_of_one_key_tile(dq_case):
             scaled_error(got, ref)
     else:
         scaled_error(got, ref)  # one tile in 128: the lse check is what catches it
+
+
+# ---------------------------------------------------------------------------
+# K2 / K13: the injection variant's arithmetic
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=[(4096, 40), (1024, 80)], ids=["n4096_d40", "n1024_d80"])
+def injection_case(request):
+    """One target frame: q [n, d] against the source keys of frames f-1 and
+    f ([2n, d], one mask row each) and its n target keys, bf16 values in
+    fp32."""
+    n, d = request.param
+    gen = torch.Generator().manual_seed(3)
+    q, kt, vt = (torch.randn((n, d), generator=gen).bfloat16().float() for _ in range(3))
+    ks, vs = (torch.randn((2 * n, d), generator=gen).bfloat16().float() for _ in range(2))
+    return dict(q=q, ks=ks, vs=vs, kt=kt, vt=vt, n=n, scale=d ** -0.5, gen=gen)
+
+
+def _plain(case, m):
+    """The fp32 plain version of the case (K13's, one frame; K2's for a
+    frame f >= 1 is the same softmax)."""
+    q, ks, vs, kt, vt = (case[k][None, None] for k in ("q", "ks", "vs", "kt", "vt"))
+    return video_injection_attention_kv_plain(q, ks, vs, kt, vt, m[None], case["scale"], 1)[0, 0]
+
+
+def _emulate(case, m, round_p=True, drop_zero_logits=False, skip_target=False, skip_tile=None):
+    """The injection kernel's arithmetic, 64 keys at a time in fp32: an
+    online softmax in log2 units; a source key's two logits m s' and
+    (1 - m) s', the pair {s', 0} on a tile whose mask values are all 0 or 1;
+    P rounded to bf16 for P.V (``round_p``). The faults: ``drop_zero_logits`` takes the
+    fg logit of every m = 0 key as -inf; ``skip_target`` leaves the target
+    pass out; ``skip_tile`` leaves that source tile out."""
+    q, sl2 = case["q"], case["scale"] * math.log2(math.e)
+    rows = q.shape[0]
+    m_run = torch.full((rows, 1), -math.inf)
+    l_run = torch.zeros((rows, 1))
+    o = torch.zeros_like(q)
+    tiles = [("src", i) for i in range(0, case["ks"].shape[0], TILE)]
+    if not skip_target:
+        tiles += [("tgt", i) for i in range(0, case["kt"].shape[0], TILE)]
+    for kind, k0 in tiles:
+        if kind == "src" and k0 == skip_tile:
+            continue
+        k, v = ((case["ks"], case["vs"]) if kind == "src" else (case["kt"], case["vt"]))
+        k, v = k[k0:k0 + TILE], v[k0:k0 + TILE]
+        s = q @ k.T
+        if kind == "tgt":
+            logits = [s * sl2]
+        elif bool(((m[k0:k0 + TILE] == 0) | (m[k0:k0 + TILE] == 1)).all()):
+            logits = [s * sl2, torch.zeros_like(s)]  # the fast path's {s', 0}
+            if drop_zero_logits:  # the zero logit is m = 0's fg, m = 1's bg
+                logits = [s * sl2]
+        else:
+            mt = m[k0:k0 + TILE]
+            fg = s * mt * sl2
+            if drop_zero_logits:
+                fg = torch.where(mt == 0, -math.inf, fg)
+            logits = [fg, (s - s * mt) * sl2]
+        m_new = torch.maximum(m_run, torch.stack([x.amax(-1, keepdim=True) for x in logits])
+                              .amax(0))
+        p = sum(torch.exp2(x - m_new) for x in logits)
+        alpha = torch.exp2(m_run - m_new)
+        l_run = l_run * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + (p.bfloat16().float() if round_p else p) @ v
+        m_run = m_new
+    return o / l_run
+
+
+@pytest.mark.parametrize("kind", ["binary", "fractional", "mixed"])
+def test_injection_emulation_passes_the_scaled_limits(injection_case, kind):
+    m = fg_mask(kind, (2 * injection_case["n"],), "cpu", torch.Generator().manual_seed(4))
+    ref = _plain(injection_case, m)
+    got = _emulate(injection_case, m)
+    torch.testing.assert_close(got, ref, **TOL[torch.bfloat16])
+    scaled_error(got, ref)
+
+
+def test_injection_emulation_helper_is_the_plain_version(injection_case):
+    """With P left in fp32 the tile-by-tile emulation is the plain version,
+    on the fast path and on the general one."""
+    m = fg_mask("mixed", (2 * injection_case["n"],), "cpu", torch.Generator().manual_seed(4))
+    torch.testing.assert_close(_emulate(injection_case, m, round_p=False),
+                               _plain(injection_case, m), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind,fault", [
+    ("binary", "drop_zero_logits"), ("mixed", "drop_zero_logits"),
+    ("binary", "skip_target"), ("fractional", "skip_target"), ("mixed", "skip_target"),
+    ("binary", "skip_tile"), ("fractional", "skip_tile"), ("mixed", "skip_tile"),
+])
+def test_injection_faults_fail_the_scaled_limits(injection_case, kind, fault):
+    n = injection_case["n"]
+    m = fg_mask(kind, (2 * n,), "cpu", torch.Generator().manual_seed(4))
+    ref = _plain(injection_case, m)
+    got = _emulate(injection_case, m, **{fault: n - TILE if fault == "skip_tile" else True})
+    with pytest.raises(AssertionError, match="error .* of the reference.s"):
+        scaled_error(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["binary", "fractional"])
+def test_injection_mask_from_the_wrong_frame(injection_case, kind):
+    """Source pass 0 (frame f-1) reading frame f's mask row: the same output
+    for a binary mask, a wrong one for a fractional mask."""
+    n = injection_case["n"]
+    m = fg_mask(kind, (2 * n,), "cpu", torch.Generator().manual_seed(4))
+    wrong = torch.cat([m[n:], m[n:]])
+    ref = _plain(injection_case, m)
+    got = _emulate(injection_case, wrong)
+    if kind == "binary":
+        scaled_error(got, ref)
+    else:
+        with pytest.raises(AssertionError, match="error .* of the reference.s"):
+            scaled_error(got, ref)
+
+
+def _small_injection(seed: int):
+    rng = np.random.default_rng(seed)
+    shape = (1, 3, 256, 32)  # B, F, N, C with 4 heads: d = 8
+    arrays = [rng.standard_normal(shape).astype(np.float32) for _ in range(5)]
+    binary = (rng.random((3, 256)) > 0.5).astype(np.float32)
+    fractional = rng.random((3, 256)).astype(np.float32)
+    return arrays, binary, fractional
+
+
+def test_jax_reference_sees_only_the_pair_m_and_one_minus_m():
+    """JAX's kernel (interpret mode on the CPU) gives one output for a
+    binary m, for 1 - m and for the all-zeros mask."""
+    arrays, binary, _ = _small_injection(5)
+
+    def run(mask):
+        return np.asarray(jax_video_injection_attention(
+            *(jnp.asarray(a) for a in arrays), jnp.asarray(mask), 8 ** -0.5, 4))
+
+    out = run(binary)
+    np.testing.assert_allclose(run(1.0 - binary), out, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(run(np.zeros_like(binary)), out, atol=1e-5, rtol=0)
+
+
+def test_plain_version_sees_only_the_pair_m_and_one_minus_m():
+    """The port's plain version: a binary m and 1 - m give one output; a
+    fractional mask gives another."""
+    arrays, binary, fractional = _small_injection(5)
+    tensors = [torch.from_numpy(a) for a in arrays]
+
+    def run(mask):
+        return video_injection_attention_plain(*tensors, torch.from_numpy(mask), 8 ** -0.5, 4)
+
+    out = run(binary)
+    torch.testing.assert_close(run(1.0 - binary), out, atol=1e-5, rtol=0)
+    assert (run(fractional) - out).abs().max() > 0.05

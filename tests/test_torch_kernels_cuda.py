@@ -8,8 +8,9 @@ a fixture, never at import). Run on a GPU host with
 Shapes cover ragged token counts (not multiples of the 64-query / 32-key
 tiles, nor of the tensor-core body's 128-query / 64-key ones), every
 supported head-dim bucket and F up to 24 (32 for the temporal backward).
-In bf16, K1, K8, K12 and K4 run the tensor-core body (csrc/attention_tc.cu)
-where ops/video_flash.py ``tensor_core_body`` routes them, K5 and K6 their
+In bf16, K1, K2, K8, K12, K13 and K4 run the tensor-core body
+(csrc/attention_tc.cu; K2 and K13 its injection instantiation) where
+ops/video_flash.py ``tensor_core_body`` routes them, K5 and K6 their
 own (csrc/attention_dq_tc.cu, csrc/attention_bwd_tc.cu) where
 ops/video_flash_bwd.py ``dq_tensor_core_body`` and ``dkv_tensor_core_body``
 do, and the tests whose names hold ``tc`` assert that they did. The split-head kernels (K8, K9)
@@ -28,8 +29,10 @@ magnitude 4 is already 0.031), on inputs whose logits stay far below the
 JAX bf16 kernels' clamp of 60; the bf16 K1 and K8 cases are also held to
 errors scaled to the reference (chip_smoke.py ``scaled_error``), since on
 these inputs an output's RMS, about sqrt(e / keys), falls below that atol;
-so are the bf16 K12 and K4 outputs, K5's dQ against the fp32 plain dQ and
-K6's fp32 dK / dV partials against the plain partials.
+so are the bf16 K12 and K4 outputs, K2's and K13's (with binary,
+fractional, all-0, all-1 and mixed masks, since every binary mask gives the
+same output), K5's dQ against the fp32 plain dQ and K6's fp32 dK / dV
+partials against the plain partials.
 Gradients: fp32 rtol 1e-4, atol 1e-3; bf16 max error relative to the max
 |gradient| < 0.06 (the tolerances of tests/test_video_flash_bwd.py).
 """
@@ -37,7 +40,7 @@ Gradients: fp32 rtol 1e-4, atol 1e-3; bf16 max error relative to the max
 import pytest
 import torch
 
-from chip_smoke import scaled_error
+from chip_smoke import LOGIT_CAP, fg_mask, logit_bound, scaled_error
 from motioneditor_tpu_torch import _build
 from motioneditor_tpu_torch.ops.attention import split_heads
 from motioneditor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
@@ -169,6 +172,50 @@ def test_video_injection_kernel(device, dtype, b, f, n, c, heads):
     torch.cuda.synchronize()
     ref = video_injection_attention_plain(q, ks, vs, kt, vt, mask, scale, heads)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+MASKS = ["binary", "fractional", "zeros", "ones", "mixed"]
+
+
+def _check_tc_injection(out, ref, q, keys, heads, scale):
+    """The bf16 injection output against the plain version in fp32 on the
+    same bf16 inputs (the bf16 plain version rounds m and K*m to bf16, which
+    the kernel does not: chip_smoke.py ``INJECTION_MASKS``): tolerance and
+    scaled limits, the first and last head apart and whole; the inputs'
+    logits stay below the JAX bf16 kernels' clamp."""
+    assert max(logit_bound(q, k, heads, scale) for k in keys) < LOGIT_CAP
+    d = q.shape[-1] // heads
+    for h in (0, heads - 1):
+        torch.testing.assert_close(out[..., h * d:(h + 1) * d].float(),
+                                   ref[..., h * d:(h + 1) * d].float(), **TOL[torch.bfloat16])
+        scaled_error(out[..., h * d:(h + 1) * d], ref[..., h * d:(h + 1) * d])
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    scaled_error(out, ref)
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("b,f,n,c,heads", [
+    (2, 3, 200, 320, 8),    # d = 40, ragged N below one query block; frame 0 reads itself twice
+    (2, 3, 1024, 640, 8),   # d = 80 at 32x32 latents
+    (1, 3, 1000, 640, 8),   # d = 80, ragged N
+    (2, 2, 4096, 320, 8),   # d = 40 at 64x64 latents
+    (1, 3, 200, 1280, 8),   # d = 160
+])
+def test_video_injection_tc_kernel(device, mask_kind, b, f, n, c, heads):
+    """K2's injection instantiation of the tensor-core body against the
+    plain version."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    q, ks, vs, kt, vt = (_rand((b, f, n, c), torch.bfloat16, device, gen) for _ in range(5))
+    mask = fg_mask(mask_kind, (f, n), device, gen)
+    scale = (c // heads) ** -0.5
+    _build.reset_launch_counts()
+    out = video_injection_attention(q, ks, vs, kt, vt, mask, scale, heads)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"video_injection_attention": 1,
+                                          "video_injection_attention.tc": 1}
+    ref = video_injection_attention_plain(*(t.float() for t in (q, ks, vs, kt, vt)), mask,
+                                          scale, heads)
+    _check_tc_injection(out, ref, q, (ks, kt), heads, scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -347,7 +394,7 @@ def _grad_case(row, dtype, device, gen):
         mask = (torch.rand((f, n), generator=gen, device=device) > 0.5).float()
         return (lambda *t: video_injection_attention(*t, mask, scale, heads),
                 lambda *t: video_injection_attention_plain(*t, mask, scale, heads), xs,
-                ("video_injection_attention",))
+                ("video_injection_attention",) + (("video_injection_attention.tc",) if tc else ()))
     xs = [_rand((b, f, n, c), dtype, device, gen) for _ in range(3)]
     kernels = ((("video_flash_attention",) + (("video_flash_attention.tc",) if tc else ()))
                if row == "dense" else
@@ -363,8 +410,8 @@ def test_wrapper_gradients_match_plain(device, dtype, row):
     """Gradients flow through every kernel wrapper on a CUDA tensor: those of
     sum(out**2) with respect to every input match the plain version's, and
     the grad path launches its kernels (K4-K7, or the kernel forward with
-    the plain VJP for dense, injection, K8 and K9; in bf16 the dense K1 and
-    the K8 forwards are the tensor-core body's)."""
+    the plain VJP for dense, injection, K8 and K9; in bf16 the dense K1,
+    the K2 and the K8 forwards are the tensor-core body's)."""
     gen = torch.Generator(device=device).manual_seed(5)
     fn, plain, xs, kernels = _grad_case(row, dtype, device, gen)
     xs = [x.requires_grad_() for x in xs]
@@ -798,6 +845,31 @@ def test_video_injection_kv_kernel(device, dtype, b, f, n, c, heads):
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("b,f,n,c,heads,m", [
+    (2, 3, 200, 320, 8, 400),     # d = 40, M = 2N (the halo-built [prev | cur])
+    (1, 3, 200, 640, 8, 333),     # d = 80, ragged M
+    (2, 2, 4096, 320, 8, 8192),   # a 2-frame shard at 64x64 latents
+    (2, 3, 100, 1280, 8, 200),    # d = 160
+])
+def test_video_injection_kv_tc_kernel(device, mask_kind, b, f, n, c, heads, m):
+    """K13's injection instantiation of the tensor-core body against the
+    plain version."""
+    gen = torch.Generator(device=device).manual_seed(27)
+    q, kt, vt = (_rand((b, f, n, c), torch.bfloat16, device, gen) for _ in range(3))
+    ks, vs = (_rand((b, f, m, c), torch.bfloat16, device, gen) for _ in range(2))
+    mask = fg_mask(mask_kind, (f, m), device, gen)
+    scale = (c // heads) ** -0.5
+    _build.reset_launch_counts()
+    out = video_injection_attention_kv(q, ks, vs, kt, vt, mask, scale, heads)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"video_injection_attention_kv": 1,
+                                          "video_injection_attention_kv.tc": 1}
+    ref = video_injection_attention_kv_plain(*(t.float() for t in (q, ks, vs, kt, vt)), mask,
+                                             scale, heads)
+    _check_tc_injection(out, ref, q, (ks, kt), heads, scale)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shard", [0, 1, 2, 3])
 def test_kv_kernels_on_a_4_way_split(device, dtype, shard):
@@ -879,8 +951,8 @@ def _kv_grad_case(row, dtype, device, gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("row", ["kv", "kv_dense", "injection_kv", "temporal_global"])
 def test_kv_wrapper_gradients_match_plain(device, dtype, row):
-    """K12-K14 under autograd: the kernel forward (K12's on the tensor-core
-    body in bf16), the plain version's VJP."""
+    """K12-K14 under autograd: the kernel forward (K12's and K13's on the
+    tensor-core body in bf16), the plain version's VJP."""
     gen = torch.Generator(device=device).manual_seed(24)
     fn, plain, xs, kernel = _kv_grad_case(row, dtype, device, gen)
     xs = [x.requires_grad_() for x in xs]
@@ -888,7 +960,7 @@ def test_kv_wrapper_gradients_match_plain(device, dtype, row):
     out = fn(*xs)
     got = torch.autograd.grad(out.float().pow(2).sum(), xs)
     torch.cuda.synchronize()
-    tc = dtype == torch.bfloat16 and kernel == "video_flash_attention_kv"  # K12's tc body
+    tc = dtype == torch.bfloat16 and kernel != "temporal_flash_attention_global"  # K12, K13
     assert dict(_build.launch_counts) == {kernel: 1, **({kernel + ".tc": 1} if tc else {})}
     ref = torch.autograd.grad(plain(*xs).float().pow(2).sum(), xs)
     assert_grads_close(got, ref, dtype)
