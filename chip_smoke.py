@@ -16,9 +16,12 @@ Phases, each raising on failure:
               path's shapes (q [2, 8, 8, N, d], K/V over 2N keys, (N, d) in
               {(4096, 40), (1024, 80)}); one PyTorch library call where one
               computes the same function (scaled_dot_product_attention for
-              K8, for K1 motion_frame on split-head views of q against the
-              [f-1 | f] K/V built before the timing, and for K3 causal),
-              timed as a yardstick; in bf16, K1, K2 and K8 run their
+              K8, for K9 over split-head q against the 5N keys
+              [K*m | K*(1-m) | K_tgt], and for K1 motion_frame on split-head
+              views of q against the [f-1 | f] K/V built before the timing),
+              timed as a yardstick; K3 and the other short kernels (K7,
+              K10, K11, K14) are timed over KERNEL_REPS launches per event
+              pair; in bf16, K1, K2 and K8 run their
               tensor-core body (csrc/attention_tc.cu), whose TFLOP/s and
               share of its bound are printed at every shape, and whose errors
               are also held to limits scaled to the reference
@@ -27,6 +30,13 @@ Phases, each raising on failure:
               same inputs by a direct call, and SDPA over split-head views
               of q against the 5N keys [K*m | K*(1-m) | K_tgt] as its
               yardstick
+  3a. temporal K3 (the TMA-staged body, csrc/temporal_attention_tma.cu)
+              in bf16 at TEMPORAL_SHAPES against its plain version: its time,
+              byte bound and share, the plain version's, SDPA is_causal's on
+              [B*N, H, F, d] copies, and the old body's (K14's entry at
+              q_off = 0) on the same inputs; then at the 16x16 sites
+              (TEMPORAL_GATE_SHAPE) the attention layer through K3 against
+              the eager path where ops/attention.py's N >= 512 gate keeps it
   3b. bwd     the backward kernels (K4 residual-saving forward, K5 dq, K6
               dk/dv partials, K7 temporal) against their plain versions and
               autograd of the plain forward, at the null-text shapes (B=1,
@@ -259,7 +269,7 @@ KERNEL_INFO = {
                               "motioneditor_tpu/ops/video_flash.py:248"),
     "video_injection_attention": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                                   "motioneditor_tpu/ops/video_flash.py:591"),
-    "temporal_flash_attention": ("motioneditor_tpu_torch/csrc/temporal_attention.cu",
+    "temporal_flash_attention": ("motioneditor_tpu_torch/csrc/temporal_attention_tma.cu",
                                  "motioneditor_tpu/ops/temporal_flash.py:208"),
     "video_flash_fwd_res": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                             "motioneditor_tpu/ops/video_flash_bwd.py:229"),
@@ -267,7 +277,7 @@ KERNEL_INFO = {
                            "motioneditor_tpu/ops/video_flash_bwd.py:403"),
     "video_flash_bwd_dkv": ("motioneditor_tpu_torch/csrc/attention_bwd_tc.cu",
                             "motioneditor_tpu/ops/video_flash_bwd.py:437"),
-    "temporal_flash_attention_bwd": ("motioneditor_tpu_torch/csrc/temporal_attention_bwd.cu",
+    "temporal_flash_attention_bwd": ("motioneditor_tpu_torch/csrc/temporal_attention_bwd_tma.cu",
                                      "motioneditor_tpu/ops/temporal_flash.py:190"),
     "flash_attention": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                         "motioneditor_tpu/ops/flash_attention.py:222"),
@@ -293,6 +303,17 @@ BACKWARD_KERNELS = ("video_flash_fwd_res", "video_flash_bwd_dq", "video_flash_bw
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# launches per event pair for the kernels that take ~0.02-0.3 ms (K3, K7, K10,
+# K11, K14): at 3 a timing of these reads the host's enqueue behind the
+# Python wrapper and its ctypes call, not the kernel
+KERNEL_REPS = 200
+# K3 at the denoise step's sites (B = 2) and at the UNet's 64x64 and 32x32
+# sites at batch 4, bf16, 8 heads
+TEMPORAL_SHAPES = ((2, FRAMES, 4096, 320), (4, FRAMES, 4096, 320), (4, FRAMES, 1024, 640))
+# the 16x16 sites that ops/attention.py _TEMPORAL_MIN_N = 512 keeps on the eager path
+TEMPORAL_GATE_SHAPE = (4, FRAMES, 256, 1280)
 
 
 def time_ms(fn, reps: int = 3) -> float:
@@ -460,10 +481,6 @@ def phase_kernels(device):
         b, f, n, c = x.shape
         return x.view(b * f, n, HEADS, c // HEADS).transpose(1, 2)
 
-    def temporal(x):  # [B, F, N, C] -> [B*N, H, F, d], a view
-        b, f, n, c = x.shape
-        return x.view(b, f, n, HEADS, c // HEADS).permute(0, 2, 3, 1, 4).flatten(0, 1)
-
     for dtype in (torch.bfloat16, torch.float32):
         for n, c in KERNEL_SHAPES:
             shape = (2, FRAMES, n, c)
@@ -518,7 +535,8 @@ def phase_kernels(device):
                         q, k, v, k2, v2, masks[variant.split()[1]], scale, HEADS), ref)
                     lib += (f", bf16 plain version vs fp32 max {got['max']:.3e} "
                             f"rms {got['rms']:.3e}")
-                ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+                reps = KERNEL_REPS if name == "temporal_flash_attention" else 3
+                ms, plain_ms = time_ms(kernel_fn, reps), time_ms(plain_fn)
                 if bf16 and variant == "injection":
                     # the CUDA-core body on the same bf16 inputs, and SDPA on split-head
                     # views of q against the [K*m | K*(1-m) | K_tgt] keys of every frame
@@ -534,17 +552,13 @@ def phase_kernels(device):
                         r.update(cuda_core_ms=cc_ms, library_ms=lib_ms,
                                  library_at=f"bf16 B=2 F={FRAMES} N={n} C={c} injection")
                     lib += f", CUDA-core body {cc_ms:.3f} ms, library {lib_ms:.3f} ms"
-                if bf16 and (variant == "motion_frame" or (main_bf16 and variant == "causal")):
+                if bf16 and variant == "motion_frame":
                     # the library call gets its layout for free: split-head views of
-                    # q against the [f-1 | f] K/V of every frame, or [B*N, H, F, d]
-                    # copies, made before the timing
-                    if variant == "motion_frame":  # the same work: 2N keys per query frame
-                        lq, lk, lv = split(q), split(motion_frame_kv(k)), split(motion_frame_kv(v))
-                        lref = split(ref)
-                    else:
-                        lq, lk, lv, lref = temporal(q), temporal(k), temporal(v), temporal(ref)
-                    lib_fn = lambda: library_sdpa(  # noqa: E731
-                        lq, lk, lv, is_causal=variant == "causal", scale=scale)
+                    # q against the [f-1 | f] K/V of every frame (the same work: 2N
+                    # keys per query frame), made before the timing
+                    lq, lk, lv = split(q), split(motion_frame_kv(k)), split(motion_frame_kv(v))
+                    lref = split(ref)
+                    lib_fn = lambda: library_sdpa(lq, lk, lv, scale=scale)  # noqa: E731
                     lib_ms = library_time(dtype, lref, lib_fn)
                     del lq, lk, lv, lref
                     if main_bf16:
@@ -559,8 +573,8 @@ def phase_kernels(device):
                             f"{100 * b_['bound_ms'] / ms:.1f}% of its bound")
                 del out, ref
                 log(f"[kernels] {name} {variant} {dt} N={n} C={c}: max_abs_err={err:.3e} "
-                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}")
-                if main_bf16 and variant in ("motion_frame", "injection", "causal"):
+                    f"kernel {ms:.4f} ms ({reps} launches), plain {plain_ms:.3f} ms{lib}")
+                if main_bf16 and variant in ("motion_frame", "injection"):
                     r["ms"], r["plain_ms"] = ms, plain_ms
                     r["at"] = f"bf16 B=2 F={FRAMES} N={n} C={c} {variant}"
                     extra = (k2, v2, mask) if variant == "injection" else ()
@@ -569,6 +583,121 @@ def phase_kernels(device):
                 torch.cuda.empty_cache()
     results.update(phase_split_kernels(device, gen))
     return results
+
+
+def old_temporal_body(q, k, v, scale):
+    """A launch of K14's body (csrc/temporal_attention.cu, K3's before the
+    TMA-staged one) at Fq = Fk, q_off = 0 on K3's inputs, called directly
+    for its time beside K3's; its output is first held to K3's plain
+    version."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.ops.temporal_flash import temporal_flash_attention_plain
+
+    lib, stream = _build.kernels(), _build.stream_handle(q.device)
+    out = torch.empty_like(q)
+    b, f, n, c = q.shape
+    ptrs = [t.data_ptr() for t in (q, k, v, out)]
+
+    def launch():
+        code = lib.me_temporal_attention_global(*ptrs, b, f, f, n, HEADS, c // HEADS,
+                                                float(scale), 1, 0,
+                                                _build.DTYPE_CODES[q.dtype], stream)
+        _build.check_status("K14 body at q_off 0", code)
+
+    launch()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               temporal_flash_attention_plain(q, k, v, scale, HEADS).float(),
+                               **tolerance(q.dtype))
+    return launch
+
+
+def phase_temporal(device):
+    """K3 (the TMA-staged body) at TEMPORAL_SHAPES in bf16 against its plain
+    version, with its time, byte bound and share, the plain version's, SDPA's
+    (is_causal on [B*N, H, F, d] copies made before the timing) and the old
+    body's (K14's entry at q_off = 0) on the same inputs; then at the 16x16
+    sites (TEMPORAL_GATE_SHAPE) the attention layer through the kernel
+    against the eager path the gate keeps it on."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as library_sdpa
+
+    from motioneditor_tpu_torch.models.layers import init_params, linear
+    from motioneditor_tpu_torch.ops.attention import Attention, temporal_self_attention_video
+    from motioneditor_tpu_torch.ops.temporal_flash import (
+        temporal_flash_attention,
+        temporal_flash_attention_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    r = {}
+    dtype = torch.bfloat16
+
+    def temporal(x):  # [B, F, N, C] -> [B*N, H, F, d], a copy
+        b, f, n, c = x.shape
+        return x.view(b, f, n, HEADS, c // HEADS).permute(0, 2, 3, 1, 4).flatten(0, 1).contiguous()
+
+    for shape in TEMPORAL_SHAPES:
+        b, f, n, c = shape
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype) for _ in range(3))
+        scale = (c // HEADS) ** -0.5
+        kernel_fn = lambda: temporal_flash_attention(q, k, v, scale, HEADS)  # noqa: E731
+        plain_fn = lambda: temporal_flash_attention_plain(q, k, v, scale, HEADS)  # noqa: E731
+        out = kernel_fn()
+        torch.cuda.synchronize()
+        ref = plain_fn()
+        torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
+        err = (out.float() - ref.float()).abs().max().item()
+        old = old_temporal_body(q, k, v, scale)
+        lq, lk, lv = temporal(q), temporal(k), temporal(v)
+        lib_fn = lambda: library_sdpa(lq, lk, lv, is_causal=True, scale=scale)  # noqa: E731
+        torch.testing.assert_close(lib_fn().float(), temporal(ref).float(), **tolerance(dtype))
+        ms, old_ms = time_ms(kernel_fn, KERNEL_REPS), time_ms(old, KERNEL_REPS)
+        plain_ms, lib_ms = time_ms(plain_fn, 20), time_ms(lib_fn, 20)
+        b_ = bound(video_work("temporal_flash_attention", "causal", q), nbytes(q, k, v, q), dtype)
+        at = f"bf16 B={b} F={f} N={n} C={c} causal"
+        log(f"[temporal] K3 {at}: max_abs_err={err:.3e} kernel {ms:.4f} ms ({KERNEL_REPS} "
+            f"launches), byte bound {b_['bound_ms']:.4f} ms, "
+            f"{100 * b_['bound_ms'] / ms:.1f}% of it; old body {old_ms:.4f} ms "
+            f"({old_ms / ms:.2f}x); plain {plain_ms:.3f} ms; SDPA is_causal {lib_ms:.4f} ms")
+        if shape == TEMPORAL_SHAPES[0]:
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, old_body_ms=old_ms, at=at,
+                     library_at=f"{at}, SDPA is_causal on [B*N, H, F, d]", **b_)
+        else:
+            r[f"ms_{b}x{n}x{c}"], r[f"old_body_ms_{b}x{n}x{c}"] = ms, old_ms
+            r[f"bound_ms_{b}x{n}x{c}"] = b_["bound_ms"]
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        del q, k, v, out, ref, lq, lk, lv
+        torch.cuda.empty_cache()
+
+    # the 16x16 sites: projections + K3 + output projection against the eager
+    # path (temporal_self_attention on [B, N, F, C]) that N < 512 takes
+    b, f, n, c = TEMPORAL_GATE_SHAPE
+    attn = Attention(c, heads=HEADS).to(device)
+    init_params(attn, gen)
+    attn = attn.to(dtype)
+    x = torch.randn(TEMPORAL_GATE_SHAPE, generator=gen, device=device).to(dtype)
+
+    def through_kernel():
+        qkv = [linear(m, x) for m in (attn.to_q, attn.to_k, attn.to_v)]
+        return linear(attn.to_out[0], temporal_flash_attention(*qkv, (c // HEADS) ** -0.5,
+                                                               HEADS))
+
+    def eager():
+        return temporal_self_attention_video(attn, x, HEADS)
+
+    with torch.no_grad():
+        got = through_kernel()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), eager().float(), **tolerance(dtype))
+        kernel_ms, eager_ms = time_ms(through_kernel, 50), time_ms(eager, 50)
+    at = f"bf16 B={b} F={f} N={n} C={c}"
+    log(f"[temporal] the 16x16 sites' layer, {at}: through K3 {kernel_ms:.4f} ms, eager path "
+        f"(the gate's choice at N < 512) {eager_ms:.4f} ms (50 launches each)")
+    r["gate_16x16"] = {"at": at, "through_kernel_ms": kernel_ms, "eager_ms": eager_ms}
+    return r
 
 
 def cuda_core_injection(q, k, v, k2, v2, mask, ref, scale, m=None):
@@ -652,15 +781,26 @@ def phase_split_kernels(device, gen):
                 if name == "flash_attention":
                     lib_fn = lambda: library_sdpa(q.flatten(0, 1), k.flatten(0, 1),  # noqa: E731
                                                   v.flatten(0, 1), scale=scale)
-                    lib_ms = library_time(dtype, ref.flatten(0, 1), lib_fn)
-                    lib += f", library {lib_ms:.3f} ms"
-                    if main:
-                        r["library_ms"], r["library_at"] = lib_ms, at
-                    if dtype == torch.bfloat16:  # the tensor-core body's rate
-                        b_ = bound(flops, moved, dtype)
-                        lib += (f", {flops / ms / 1e9:.1f} TFLOP/s, "
-                                f"{100 * b_['bound_ms'] / ms:.1f}% of its bound")
-                del out, ref
+                else:
+                    # SDPA over the 5N injected keys [K*m | K*(1-m) | K_tgt] against
+                    # [V | V | V_tgt] of each (batch, frame), built before the timing
+                    # (the mask is binary, so K*m is exact in bf16)
+                    m = mask[None, :, None, :, None].to(dtype)
+                    k_inj = torch.cat([k * m, k * (1.0 - m), kt], dim=-2).flatten(0, 1)
+                    v_inj = torch.cat([v, v, vt], dim=-2).flatten(0, 1)
+                    lib_fn = lambda: library_sdpa(q.flatten(0, 1), k_inj, v_inj,  # noqa: E731
+                                                  scale=scale)
+                lib_ms = library_time(dtype, ref.flatten(0, 1), lib_fn)
+                lib += f", library {lib_ms:.3f} ms"
+                if main:
+                    r["library_ms"] = lib_ms
+                    r["library_at"] = at if name == "flash_attention" else (
+                        f"{at}; SDPA over the 5N keys [K*m | K*(1-m) | K_tgt]")
+                if dtype == torch.bfloat16 and name == "flash_attention":  # tensor cores
+                    b_ = bound(flops, moved, dtype)
+                    lib += (f", {flops / ms / 1e9:.1f} TFLOP/s, "
+                            f"{100 * b_['bound_ms'] / ms:.1f}% of its bound")
+                del out, ref, lib_fn
                 log(f"[kernels] {name} {at}: max_abs_err={err:.3e} kernel {ms:.3f} ms, "
                     f"plain {plain_ms:.3f} ms{lib}")
                 if main:
@@ -838,12 +978,14 @@ def phase_bwd_kernels(device):
                 lambda *t: temporal_flash_attention_plain(*t, scale, HEADS), (q, k, v), do),
                 dtype))
             del got
-            ms, plain_ms = time_ms(k7), time_ms(k7_plain)
-            log(f"[bwd] temporal {at}: max_abs_err {err:.3e}; kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms")
-            record("temporal_flash_attention_bwd", err, ms, plain_ms,
-                   dtype == torch.bfloat16 and n == 4096, at,
-                   2.5 * video_work("temporal_flash_attention", "causal", q), 7 * nbytes(q))
+            ms, plain_ms = time_ms(k7, KERNEL_REPS), time_ms(k7_plain, 20)
+            share = record("temporal_flash_attention_bwd", err, ms, plain_ms,
+                           dtype == torch.bfloat16 and n == 4096, at,
+                           2.5 * video_work("temporal_flash_attention", "causal", q),
+                           7 * nbytes(q))
+            log(f"[bwd] temporal {at}: max_abs_err {err:.3e}; kernel {ms:.4f} ms "
+                f"({KERNEL_REPS} launches), plain {plain_ms:.3f} ms, byte bound "
+                f"{7 * nbytes(q) / PEAK_BYTES * 1e3:.4f} ms{share}")
             del q, k, v, do
             torch.cuda.empty_cache()
     return results
@@ -1406,12 +1548,12 @@ def phase_norm_kernels(device):
                 again = fn()
                 if not all(torch.equal(g, h) for g, h in zip(got, again)):
                     raise AssertionError("K10 is not deterministic")
-                ms, plain_ms = time_ms(fn, reps=20), time_ms(plain, reps=20)
+                ms, plain_ms = time_ms(fn, reps=KERNEL_REPS), time_ms(plain, reps=20)
                 r = results["channel_pair_stats"]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 at = f"{dt} {list(shape)} ({pair})"
-                log(f"[norm] channel_pair_stats {at}: max_abs_err={err:.3e} kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms")
+                log(f"[norm] channel_pair_stats {at}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
+                    f"({KERNEL_REPS} launches), plain {plain_ms:.4f} ms")
                 if dtype == torch.bfloat16 and shape == PAIR_STATS_SHAPES[0] and pair == "x,x":
                     moved = nbytes(a) + 2 * got[0].numel() * 4
                     r.update(ms=ms, plain_ms=plain_ms, at=at,
@@ -1443,12 +1585,12 @@ def phase_norm_kernels(device):
                 for g, h in zip(got, ref):
                     torch.testing.assert_close(g.float(), h.float(), **tol)
                 err = max((g.float() - h.float()).abs().max().item() for g, h in zip(got, ref))
-                ms, plain_ms = time_ms(fn, reps=20), time_ms(plain, reps=20)
+                ms, plain_ms = time_ms(fn, reps=KERNEL_REPS), time_ms(plain, reps=20)
             r = results["add_layer_norm"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             at = f"{dt} {list(shape)}"
-            log(f"[norm] add_layer_norm {at}: max_abs_err={err:.3e} kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms")
+            log(f"[norm] add_layer_norm {at}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
+                f"({KERNEL_REPS} launches), plain {plain_ms:.4f} ms")
             if dtype == torch.bfloat16 and shape == ADD_LN_SHAPES[0]:
                 r.update(ms=ms, plain_ms=plain_ms, at=at,
                          **bound(10.0 * t.numel(), nbytes(t, d, t, d), dtype))
@@ -1758,8 +1900,9 @@ def phase_kv_kernels(device):
                     and variant in ("motion_frame", "injection", "causal"))
             timing = ""
             if whole or dtype == torch.bfloat16:
-                ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
-                timing = f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                reps = KERNEL_REPS if name == "temporal_flash_attention_global" else 3
+                ms, plain_ms = time_ms(kernel_fn, reps), time_ms(plain_fn)
+                timing = f" kernel {ms:.4f} ms ({reps} launches), plain {plain_ms:.3f} ms"
                 if main:
                     r.update(ms=ms, plain_ms=plain_ms, at=at, library_ms=None,
                              **bound(flops, moved, dtype))
@@ -2200,6 +2343,11 @@ def main() -> int:
     results = phase_kernels(device)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    k3, got = results["temporal_flash_attention"], phase_temporal(device)
+    k3["max_abs_err"] = max(k3["max_abs_err"], got.pop("max_abs_err"))
+    k3.update(got)
+    log(f"[temporal] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     results.update(phase_bwd_kernels(device))
     log(f"[bwd] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2265,7 +2413,9 @@ def main() -> int:
             "at": r["at"],
             "library_at": r.get("library_at"), "flops": r["flops"], "bytes": r["bytes"],
             "tflops": r["flops"] / r["ms"] / 1e9,
-            **{k: v for k, v in r.items() if k.startswith("scaled_") or k.endswith("_32x32")},
+            **{k: v for k, v in r.items()
+               if k.startswith(("scaled_", "ms_", "bound_ms_", "old_body_ms", "gate_"))
+               or k.endswith("_32x32")},
         })
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,

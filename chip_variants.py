@@ -1,8 +1,19 @@
 """Times the bf16 injection kernels (K2, K13) against K1 on one GPU, for
 this checkout and for copies of it whose injection instantiation takes
-one consumer warpgroup fewer than K1's at padded d <= 48 or at d <= 80.
+one consumer warpgroup fewer than K1's at padded d <= 48 or at d <= 80;
+with --temporal, times the TMA-staged temporal bodies (K3, K7) at other
+tiles than the one ops/temporal_flash.py ``temporal_tile`` picks.
 
     python3 chip_variants.py
+    python3 chip_variants.py --temporal
+
+--temporal: at the bf16 shapes of PERF.md's K3 and K7 rows, every tile
+of a small grid (head group, sites, rows, split, warps; 2 stages) that
+fits the card's shared memory, launched through the C entries directly,
+each output held to the plain version at chip_smoke.py's bf16 tolerance
+and timed with CUDA events over TEMPORAL_REPS launches; then the tile
+``temporal_tile`` picks, and for K3 the old body (K14's entry at q_off =
+0), in the same process.
 
 Each variant runs in its own process from its own copy under
 build/variants/ (git-ignored), which builds its own kernels. Per variant:
@@ -107,12 +118,120 @@ def time_root(root: str) -> None:
         torch.cuda.empty_cache()
 
 
+TEMPORAL_REPS = 200
+# (name, [B, F, N, C]) at 8 heads, bf16: K3 at the denoise step's sites,
+# the UNet's 64x64 and 32x32 sites at batch 4, K7 at the null-text shape
+TEMPORAL_SHAPES = (("K3", (2, 8, 4096, 320)), ("K3", (4, 8, 4096, 320)),
+                   ("K3", (4, 8, 1024, 640)), ("K7", (1, 8, 4096, 320)))
+
+
+def temporal_sweep() -> None:
+    import itertools
+
+    import torch
+
+    import chip_smoke as cs
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.ops.temporal_flash import (
+        BOX_MAX,
+        SMEM_LIMIT,
+        TemporalTile,
+        seq_threads,
+        temporal_flash_attention_bwd_plain,
+        temporal_flash_attention_plain,
+        temporal_tile,
+        tile_smem_bytes,
+    )
+
+    lib = _build.kernels()
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(cs.SEED)
+    heads = cs.HEADS
+    for name, (b, f, n, c) in TEMPORAL_SHAPES:
+        d = c // heads
+        backward = name == "K7"
+        xs = [torch.randn((b, f, n, c), generator=gen, device=device).bfloat16()
+              for _ in range(4 if backward else 3)]
+        scale = d ** -0.5
+        outs = [torch.empty_like(xs[0]) for _ in range(3 if backward else 1)]
+        stream = _build.stream_handle(device)
+        ptrs = [t.data_ptr() for t in (*xs, *outs)]
+        if backward:
+            ref = temporal_flash_attention_bwd_plain(*xs, scale, heads)
+
+            def launch(t):
+                return lib.me_temporal_attention_bwd_tma(*ptrs, b, f, n, heads, d, scale, 1,
+                                                         *t, 1, stream)
+        else:
+            ref = (temporal_flash_attention_plain(*xs, scale, heads),)
+
+            def launch(t):
+                return lib.me_temporal_attention_tma(*ptrs, b, f, f, n, heads, d, scale, 1, 0,
+                                                     *t, 1, stream)
+        moved = cs.nbytes(*xs) + cs.nbytes(*outs)
+        bound_ms = moved / cs.PEAK_BYTES * 1e3
+
+        def run(label, t):
+            code = launch(t)
+            _build.check_status(label, code)
+            torch.cuda.synchronize()
+            if backward:
+                cs.grad_error(outs, ref, torch.bfloat16)
+            else:
+                torch.testing.assert_close(outs[0].float(), ref[0].float(),
+                                           **cs.tolerance(torch.bfloat16))
+            ms = cs.time_ms(lambda: launch(t), reps=TEMPORAL_REPS)
+            print(f"[temporal] {name} {[b, f, n, c]} {label} {tuple(t)}: {ms:.4f} ms "
+                  f"({TEMPORAL_REPS} launches), {100 * bound_ms / ms:.1f}% of the "
+                  f"{bound_ms:.4f} ms byte bound", flush=True)
+            return ms
+
+        timed = {}
+        groups = [h for h in (8, 4, 2, 1) if heads % h == 0 and h * d <= BOX_MAX][:2]
+        for hg, sites, rows, split, warps in itertools.product(
+                groups, (1, 2, 4, 8, 16), (1, 2), (1, 2, 4), (2, 4, 8)):
+            if seq_threads(f, rows, split) > 32 or (backward and rows == 2):  # K7 takes one row
+                continue
+            warps = min(warps, -(-sites * hg // (32 // seq_threads(f, rows, split))))
+            smem = tile_smem_bytes(f, d, sites, hg, rows, split, 2, warps, 2, backward)
+            t = TemporalTile(sites, hg, rows, split, 2, warps, smem)
+            if smem > SMEM_LIMIT or t in timed:
+                continue
+            timed[t] = run("tile", t)
+        chosen = temporal_tile(f, d, heads, torch.bfloat16, backward)
+        ms = run("temporal_tile", chosen)
+        best = sorted(timed.items(), key=lambda kv: kv[1])[:5]
+        print(f"[temporal] {name} {[b, f, n, c]}: fastest "
+              + "; ".join(f"{v:.4f} ms at {tuple(t)}" for t, v in best)
+              + f"; temporal_tile {ms:.4f} ms at {tuple(chosen)}", flush=True)
+        if not backward:
+            old = torch.empty_like(xs[0])
+
+            def old_body():
+                code = lib.me_temporal_attention_global(
+                    *(t.data_ptr() for t in (*xs, old)), b, f, f, n, heads, d, scale, 1, 0,
+                    1, stream)
+                _build.check_status("K14 entry", code)
+
+            old_body()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(old.float(), ref[0].float(),
+                                       **cs.tolerance(torch.bfloat16))
+            print(f"[temporal] {name} {[b, f, n, c]}: old body (K14's entry, q_off 0) "
+                  f"{cs.time_ms(old_body, reps=TEMPORAL_REPS):.4f} ms", flush=True)
+        del xs, outs, ref
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--temporal"]:
+        temporal_sweep()
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--time":
         time_root(sys.argv[2])
         return 0

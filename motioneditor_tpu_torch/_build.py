@@ -153,12 +153,15 @@ def kernels() -> ctypes.CDLL:
         f32, i32, i32, i32, ptr,            # scale, causal, q_off, dtype, stream
     ]
     lib.me_temporal_attention_global.restype = i32
-    lib.me_temporal_attention.argtypes = [
+    lib.me_temporal_attention_tma.argtypes = [
         ptr, ptr, ptr, ptr,                 # q, k, v, out
-        i32, i32, i32, i32, i32,            # B, F, N, H, d
-        f32, i32, i32, ptr,                 # scale, causal, dtype, stream
+        i32, i32, i32, i32, i32, i32,       # B, Fq, Fk, N, H, d
+        f32, i32, i32,                      # scale, causal, q_off
+        i32, i32, i32, i32, i32, i32, i32,  # the tile: sites, heads, rows, split, stages,
+                                            # warps, smem bytes
+        i32, ptr,                           # dtype, stream
     ]
-    lib.me_temporal_attention.restype = i32
+    lib.me_temporal_attention_tma.restype = i32
     lib.me_video_attention_fwd_res.argtypes = [
         ptr, ptr, ptr, ptr, ptr,            # q, k, v, out, lse
         i32, i32, i32, i32, i32,            # B, F, N, H, d
@@ -199,12 +202,15 @@ def kernels() -> ctypes.CDLL:
         f32, i32, ptr,                      # scale, mode, stream
     ]
     lib.me_video_attention_bwd_dkv_tc.restype = i32
-    lib.me_temporal_attention_bwd.argtypes = [
+    lib.me_temporal_attention_bwd_tma.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, dout, dq, dk, dv
         i32, i32, i32, i32, i32,            # B, F, N, H, d
-        f32, i32, i32, ptr,                 # scale, causal, dtype, stream
+        f32, i32,                           # scale, causal
+        i32, i32, i32, i32, i32, i32, i32,  # the tile: sites, heads, rows, split, stages,
+                                            # warps, smem bytes
+        i32, ptr,                           # dtype, stream
     ]
-    lib.me_temporal_attention_bwd.restype = i32
+    lib.me_temporal_attention_bwd_tma.restype = i32
     lib.me_split_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, k2, v2, mask, out
         ctypes.POINTER(ctypes.c_longlong),  # 18 strides: (G, H, N) of q, k, v, k2, v2, out

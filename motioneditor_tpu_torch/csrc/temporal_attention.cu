@@ -1,33 +1,30 @@
-// Temporal attention over the frame axis at every spatial site (K3), and its
-// frame-sharded variant (K14).
+// Temporal attention over the frame axis for the frame-sharded path (K14):
+// the body K3 ran on until K3 moved to temporal_attention_tma.cu.
 //
-// Replaces (TPU / Pallas):
-//   K3  motioneditor_tpu/ops/temporal_flash.py _temporal_4d
-//       (_kernel, pallas_call at temporal_flash.py:208)
-//   K14 motioneditor_tpu/ops/temporal_flash.py _temporal_4d_bias
-//       (_kernel_bias, pallas_call at temporal_flash.py:361): q holds Fq
-//       local frames of a frame shard, K/V all Fk gathered frames, and the
-//       causal mask holds at global frame indices: pair (f, g) is kept iff
-//       g <= f + q_off. The TPU kernel adds a -1e30 bias per pair; skipping
-//       the pair is exact, as in K3. With Fq = Fk and q_off = 0 it is K3.
+// Replaces (TPU / Pallas): motioneditor_tpu/ops/temporal_flash.py
+// _temporal_4d_bias (_kernel_bias, pallas_call at temporal_flash.py:361):
+// q holds Fq local frames of a frame shard, K/V all Fk gathered frames, and
+// the causal mask holds at global frame indices: pair (f, g) is kept iff
+// g <= f + q_off. The TPU kernel adds a -1e30 bias per pair; skipping the
+// pair is exact. With Fq = Fk and q_off = 0 it computes K3's function.
 //
 // What it computes. Tokens [B, F, N, C] are N*H independent length-F
-// sequences of d = C/H channels; each query frame f attends over frames
-// g <= f (causal) or all g, with an fp32 softmax for any input dtype. Causal
-// pairs g > f are never computed, which equals the reference's additive
-// -1e4 mask to within exp(-1e4) = 0.
+// sequences of d = C/H channels; each query frame attends over its kept
+// key frames with an fp32 softmax for any input dtype.
 //
 // Design. One thread owns one (b, n, head) sequence and works in the native
-// layout: for each query frame it accumulates the F scores in registers
+// layout: for each query frame it accumulates the Fk scores in registers
 // over 8-channel vector loads, normalises them, then streams V once per
 // output chunk. No transpose, no head split, no [.., F, F] score tensor in
 // device memory.
 //
-// What bounds it on the H100. Memory: the work is ~4*F*F*C flops per site
-// against ~4*F*C elements of q, k, v, out; at F = 8 that is a few flops per
-// byte, far under the card's compute/bandwidth ratio. K and V rows are
-// re-read once per query frame; those re-reads hit L1/L2 (a site's F rows of
-// one head are F*d*2 bytes).
+// What bounds it on the H100. Memory: the work is ~4*Fq*Fk*C flops per site
+// against ~2*(Fq + Fk)*C elements of q, k, v, out, a few flops per byte.
+// K and V rows are re-read once per query frame from L1/L2, neighbouring
+// threads (the heads of one site) touch 2*d-byte-apart 16-byte chunks, and
+// a thread per sequence leaves the card short of bytes in flight: the
+// TMA-staged body (temporal_attention_tma.cu) answers all three and takes
+// Fq, Fk and q_off for K14 to move onto.
 #include <math.h>
 #include <stdint.h>
 
@@ -146,13 +143,6 @@ int run(const void* q, const void* k, const void* v, void* out, int B, int Fq, i
 }
 
 }  // namespace
-
-// K3. dtype: 0 float32, 1 bfloat16. Returns a cudaError_t code (0 = launched).
-extern "C" int me_temporal_attention(const void* q, const void* k, const void* v, void* out,
-                                     int B, int F, int N, int H, int d, float scale,
-                                     int causal, int dtype, void* stream) {
-  return run(q, k, v, out, B, F, F, N, H, d, scale, causal, 0, dtype, stream);
-}
 
 // K14: q [B, Fq, N, C] holds global frames [q_off, q_off + Fq); k, v
 // [B, Fk, N, C] hold all frames. Returns a cudaError_t code.

@@ -4,18 +4,20 @@
 Kernels (CUDA C++):
 
   temporal_flash_attention      replaces _temporal_4d      (temporal_flash.py:208)
-                                csrc/temporal_attention.cu
+                                csrc/temporal_attention_tma.cu
   temporal_flash_attention_bwd  replaces _temporal_4d_bwd  (temporal_flash.py:190)
-                                csrc/temporal_attention_bwd.cu
+                                csrc/temporal_attention_bwd_tma.cu
   temporal_flash_attention_global
                                 replaces _temporal_4d_bias (temporal_flash.py:361)
-                                csrc/temporal_attention.cu (K3's body)
+                                csrc/temporal_attention.cu
 
 Every spatial site and head is an independent length-F sequence; the
-kernel keeps the native layout (no transpose, no head split, no [.., F, F]
-score tensor in device memory), computes the softmax in fp32 for any input
-dtype, and never computes the causal pairs g > f. Bound on the H100 and
-design notes: see the .cu source.
+kernels keep the native layout (no transpose, no head split, no [.., F, F]
+score tensor in device memory), compute the softmax in fp32 for any input
+dtype, and never compute the causal pairs g > f. K3 and K7 stage each
+tile's frame slabs in shared memory once, by TMA: the tile's geometry is
+chosen here (``temporal_tile``), not in C++. Bound on the H100 and design
+notes: see the .cu sources.
 
 Under autograd a CUDA call goes through ``TemporalFlashAttentionFn``, the
 port of JAX's custom VJP (temporal_flash.py:286-305): the forward kernel
@@ -32,12 +34,26 @@ tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from motioneditor_tpu_torch import _build
 
 MAX_FRAMES = 32
 MAX_HEAD_DIM = 160
+SMEM_LIMIT = 232448  # dynamic shared memory of one block on the H100 (227 KB)
+BOX_MAX = 256  # elements of one TMA box dimension
+# The tile rule's constants, from a sweep of tiles on the H100 (chip_variants.py
+# --temporal, PERF.md): two stages beat three and four (a smaller ring leaves room
+# for more blocks, hence warps, per SM), and a split leaving each thread >= 2
+# chunks beat a wider one.
+TILE_WARPS = 8  # warps of a block when the tile has work for them all
+SMEM_TARGET = {False: 64 * 1024, True: 48 * 1024}  # bytes of a block: forward, backward
+MAX_STAGES = 2  # the ring's depth
+MAX_SPLIT = 4  # threads per (sequence, query frame), each on every split-th 8-channel chunk
+PAIR_FRAMES = 8  # K3 at F <= this (its only two-row instantiation): frames f and F - 1 - f
 
 
 def temporal_flash_supported(f: int, c: int, heads: int) -> bool:
@@ -45,6 +61,90 @@ def temporal_flash_supported(f: int, c: int, heads: int) -> bool:
         return False
     d = c // heads
     return d % 8 == 0 and d <= MAX_HEAD_DIM and 1 <= f <= MAX_FRAMES
+
+
+class TemporalTile(NamedTuple):
+    """A tile of the TMA-staged K3 / K7 bodies: ``sites`` consecutive sites
+    x ``heads`` heads x all frames of one batch row; ``rows`` query frames
+    per thread (1, or 2: f and F - 1 - f), ``split`` threads per (sequence,
+    frame); a ring of ``stages`` tiles per block of ``warps`` warps,
+    ``smem_bytes`` of shared memory."""
+    sites: int
+    heads: int
+    rows: int
+    split: int
+    stages: int
+    warps: int
+    smem_bytes: int
+
+
+def _align(x: int, a: int) -> int:
+    return (x + a - 1) // a * a
+
+
+def seq_threads(f: int, rows: int, split: int) -> int:
+    """Threads of one (site, head) sequence, all in one warp."""
+    return -(-f // rows) * split
+
+
+def tile_smem_bytes(f: int, d: int, sites: int, hg: int, rows: int, split: int, stages: int,
+                    warps: int, itemsize: int, backward: bool) -> int:
+    """Shared bytes of a tile (the layout csrc/temporal_tma.cuh ``plan``
+    checks): per stage one 128-aligned [F, sites, hg * d] slab of q, k, v
+    (and dO), an mbarrier per stage, and for the backward the fp32 P and dS
+    rows, F x (F + 1) each, of the sequences its warps hold at once."""
+    slab = _align(f * sites * hg * d * itemsize, 128)
+    total = stages * slab * (4 if backward else 3) + 8 * stages
+    if backward:
+        spw = 32 // seq_threads(f, rows, split)
+        total = _align(total, 16) + warps * spw * 2 * f * (f + 1) * 4
+    return total
+
+
+@functools.cache  # called at every launch with a handful of distinct shapes
+def temporal_tile(f: int, d: int, heads: int, dtype: torch.dtype,
+                  backward: bool) -> TemporalTile:
+    """The tile K3 (``backward`` False) or K7 launches with at F frames, head
+    dim d and ``heads`` heads:
+    - rows: for K3 two query frames per thread at F <= ``PAIR_FRAMES`` (one
+      load and conversion of each staged k or v chunk serves both), else
+      one; K7 takes one (two measured slower);
+    - split: threads per frame, the largest power of two up to
+      ``MAX_SPLIT`` whose sequence still fits a warp and leaves two 8-channel
+      chunks to each thread (one where d has fewer than four);
+    - heads: the widest head group whose box row fits ``BOX_MAX`` elements
+      and whose block (one site, ``MAX_STAGES`` stages) stays under
+      ``SMEM_TARGET`` bytes;
+    - sites: enough for one pass of ``TILE_WARPS`` warps (each holds
+      32 // ``seq_threads`` sequences) as far as the block stays under that
+      target;
+    - stages: ``MAX_STAGES``, the whole block within ``SMEM_LIMIT``."""
+    if not (1 <= f <= MAX_FRAMES and d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM):
+        raise ValueError(f"temporal_tile: unsupported F={f}, d={d}")
+    itemsize = torch.finfo(dtype).bits // 8
+    rows = 2 if f <= PAIR_FRAMES and not backward else 1
+    split = 1
+    while (split < MAX_SPLIT and seq_threads(f, rows, split * 2) <= 32
+           and 2 * (split * 2) <= d // 8):
+        split *= 2
+    spw = 32 // seq_threads(f, rows, split)
+
+    def fit(sites, hg, stages):
+        warps = min(TILE_WARPS, -(-sites * hg // spw))
+        return warps, tile_smem_bytes(f, d, sites, hg, rows, split, stages, warps, itemsize,
+                                      backward)
+
+    for hg in sorted((h for h in range(1, heads + 1) if heads % h == 0 and h * d <= BOX_MAX),
+                     reverse=True):
+        sites = min(BOX_MAX, -(-TILE_WARPS * spw // hg))
+        while sites > 1 and fit(sites, hg, MAX_STAGES)[1] > SMEM_TARGET[backward]:
+            sites -= 1
+        if fit(sites, hg, MAX_STAGES)[1] <= SMEM_TARGET[backward]:
+            break
+    warps, smem = fit(sites, hg, MAX_STAGES)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"temporal_tile: no tile fits at F={f}, d={d}")
+    return TemporalTile(sites, hg, rows, split, MAX_STAGES, warps, smem)
 
 
 def temporal_flash_attention_plain(q, k, v, scale: float, heads: int, causal: bool = True):
@@ -109,10 +209,11 @@ def temporal_flash_attention(q, k, v, scale: float, heads: int,
 def _temporal_kernel(q, k, v, scale, heads, causal):
     name = "temporal_flash_attention"
     b, f, n, c = q.shape
+    tile = temporal_tile(f, c // heads, heads, q.dtype, backward=False)
     out = torch.empty_like(q)
-    code = _build.kernels().me_temporal_attention(
+    code = _build.kernels().me_temporal_attention_tma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, f, n, heads, c // heads, float(scale), int(causal),
+        b, f, f, n, heads, c // heads, float(scale), int(causal), 0, *tile,
         _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
     )
     _build.check_status(name, code)
@@ -128,11 +229,12 @@ def temporal_flash_attention_bwd(q, k, v, do, scale: float, heads: int, causal: 
     name = "temporal_flash_attention_bwd"
     _check(name, q, heads, k, v, do)
     b, f, n, c = q.shape
+    tile = temporal_tile(f, c // heads, heads, q.dtype, backward=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    code = _build.kernels().me_temporal_attention_bwd(
+    code = _build.kernels().me_temporal_attention_bwd_tma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, f, n, heads, c // heads, float(scale), int(causal),
+        b, f, n, heads, c // heads, float(scale), int(causal), *tile,
         _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
     )
     _build.check_status(name, code)

@@ -8,6 +8,11 @@ a fixture, never at import). Run on a GPU host with
 Shapes cover ragged token counts (not multiples of the 64-query / 32-key
 tiles, nor of the tensor-core body's 128-query / 64-key ones), every
 supported head-dim bucket and F up to 24 (32 for the temporal backward).
+The TMA-staged temporal bodies (K3, K7) also run at the edges of their
+tiles (ops/temporal_flash.py ``temporal_tile``): N one past a multiple of
+the tile's sites, N under one tile, F = 1, d = 8 and d = 160, and K7 at
+F = 32 with d = 160; K14's body at Fq = Fk, q_off = 0 is held to K3's
+plain version.
 In bf16, K1, K2, K8, K12, K13 and K4 run the tensor-core body
 (csrc/attention_tc.cu; K2 and K13 its injection instantiation) where
 ops/video_flash.py ``tensor_core_body`` routes them, K5 and K6 their
@@ -55,6 +60,7 @@ from motioneditor_tpu_torch.ops.temporal_flash import (
     temporal_flash_attention_bwd,
     temporal_flash_attention_bwd_plain,
     temporal_flash_attention_plain,
+    temporal_tile,
 )
 from motioneditor_tpu_torch.ops.video_flash import (
     video_flash_attention,
@@ -218,18 +224,54 @@ def test_video_injection_tc_kernel(device, mask_kind, b, f, n, c, heads):
     _check_tc_injection(out, ref, q, (ks, kt), heads, scale)
 
 
+def _tile_n(n, f, c, heads, dtype, backward):
+    """N of a case: an int, or a rule on the sites S of the tile K3 / K7
+    takes at this shape (ops/temporal_flash.py temporal_tile): "S+1" one past
+    a multiple of S, "3S+1", or "S//2" under one tile."""
+    if isinstance(n, int):
+        return n
+    s = temporal_tile(f, c // heads, heads, dtype, backward).sites
+    return {"S+1": s + 1, "3S+1": 3 * s + 1, "S//2": max(1, s // 2)}[n]
+
+
+# the TMA-staged bodies' tile edges: a ragged last tile, N under one tile,
+# F = 1, d = 8 and d = 160
+TEMPORAL_EDGES = [
+    (2, 8, "3S+1", 320, 8), (1, 8, "S//2", 640, 8), (2, 1, "S+1", 32, 4),
+    (1, 4, "S+1", 8, 1), (1, 8, "S+1", 1280, 8), (1, 3, "S//2", 1280, 8),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,f,n,c,heads", [
     (2, 3, 200, 32, 4), (2, 8, 1024, 320, 8), (1, 24, 77, 640, 8), (1, 17, 64, 1280, 8),
+    *TEMPORAL_EDGES,
 ])
 def test_temporal_flash_kernel(device, dtype, causal, b, f, n, c, heads):
+    n = _tile_n(n, f, c, heads, dtype, backward=False)
     gen = torch.Generator(device=device).manual_seed(2)
     q, k, v = (_rand((b, f, n, c), dtype, device, gen) for _ in range(3))
     scale = (c // heads) ** -0.5
+    before = _build.launch_counts["temporal_flash_attention"]
     out = temporal_flash_attention(q, k, v, scale, heads, causal=causal)
     torch.cuda.synchronize()
+    assert _build.launch_counts["temporal_flash_attention"] == before + 1
     ref = temporal_flash_attention_plain(q, k, v, scale, heads, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_temporal_old_body_matches_k3(device, dtype):
+    """K14's body (csrc/temporal_attention.cu, K3's until the TMA-staged one
+    took K3) at Fq = Fk and q_off = 0 against K3's plain version."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    b, f, n, c, heads = 2, 8, 333, 320, 8
+    q, k, v = (_rand((b, f, n, c), dtype, device, gen) for _ in range(3))
+    scale = (c // heads) ** -0.5
+    out = temporal_flash_attention_global(q, k, v, scale, heads, True, 0)
+    torch.cuda.synchronize()
+    ref = temporal_flash_attention_plain(q, k, v, scale, heads, causal=True)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
@@ -600,14 +642,17 @@ def test_video_flash_tc_gradients_match_plain_autograd(device, mode, b, f, n, c,
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,f,n,c,heads", [
     (2, 3, 200, 32, 4), (2, 8, 1024, 320, 8), (1, 24, 77, 640, 8), (1, 17, 64, 1280, 8),
-    (1, 32, 40, 64, 8),
+    (1, 32, 40, 64, 8), *TEMPORAL_EDGES, (1, 32, "S+1", 160, 1),
 ])
 def test_temporal_flash_bwd_kernel(device, dtype, causal, b, f, n, c, heads):
+    n = _tile_n(n, f, c, heads, dtype, backward=True)
     gen = torch.Generator(device=device).manual_seed(4)
     q, k, v, do = (_rand((b, f, n, c), dtype, device, gen) for _ in range(4))
     scale = (c // heads) ** -0.5
+    before = _build.launch_counts["temporal_flash_attention_bwd"]
     got = temporal_flash_attention_bwd(q, k, v, do, scale, heads, causal=causal)
     torch.cuda.synchronize()
+    assert _build.launch_counts["temporal_flash_attention_bwd"] == before + 1
     ref = temporal_flash_attention_bwd_plain(q, k, v, do, scale, heads, causal=causal)
     assert_grads_close(got, ref, dtype)
 
