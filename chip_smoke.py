@@ -21,20 +21,20 @@ Phases, each raising on failure:
               views of q against the [f-1 | f] K/V built before the timing),
               timed as a yardstick; K3 and the other short kernels (K7,
               K10, K11, K14) are timed over KERNEL_REPS launches per event
-              pair; in bf16, K1, K2 and K8 run their
-              tensor-core body (csrc/attention_tc.cu), whose TFLOP/s and
+              pair; in bf16, K1, K2, K8 and K9 run their
+              tensor-core body (csrc/attention_tc.cu; K2 and K9 its injection
+              instantiation), whose TFLOP/s and
               share of its bound are printed at every shape, and whose errors
               are also held to limits scaled to the reference
-              (TC_ERR_LIMITS); K2 in bf16 also with a fractional and a mixed
-              fg mask (INJECTION_MASKS), its CUDA-core body timed on the
-              same inputs by a direct call, and SDPA over split-head views
-              of q against the 5N keys [K*m | K*(1-m) | K_tgt] as its
+              (TC_ERR_LIMITS); K2 and K9 in bf16 also with a fractional and a
+              mixed fg mask (INJECTION_MASKS), their CUDA-core bodies timed on
+              the same inputs by a direct call, and SDPA over split-head views
+              of q against the 5N keys [K*m | K*(1-m) | K_tgt] as their
               yardstick
   3a. temporal K3 (the TMA-staged body, csrc/temporal_attention_tma.cu)
               in bf16 at TEMPORAL_SHAPES against its plain version: its time,
-              byte bound and share, the plain version's, SDPA is_causal's on
-              [B*N, H, F, d] copies, and the old body's (K14's entry at
-              q_off = 0) on the same inputs; then at the 16x16 sites
+              byte bound and share, the plain version's and SDPA
+              is_causal's on [B*N, H, F, d] copies; then at the 16x16 sites
               (TEMPORAL_GATE_SHAPE) the attention layer through K3 against
               the eager path where ops/attention.py's N >= 512 gate keeps it
   3b. bwd     the backward kernels (K4 residual-saving forward, K5 dq, K6
@@ -82,7 +82,8 @@ Phases, each raising on failure:
   8b. check   tiny fp32 checks, kernel path against plain path: an auto
               segment (K8 at its real call site) and the split-head branch
               of the mask injection at a head dim the packed kernels
-              decline (d = 9), where K8 and K9 launch
+              decline (d = 9), where K8 and K9 launch on their CUDA-core
+              body (no ".tc" count)
   3c. norm    (run after phase 3b) the GroupNorm pair statistics (K10) at
               [1, 32768, 320] (x, x) and (dy, x), [8, 4096, 320] and
               [1, 512, 2560], and the fused add + LayerNorm (K11) at
@@ -110,12 +111,14 @@ Phases, each raising on failure:
               [2, 8, 8192, 320] and dense K/V [2, 1, 32768, 320], and at
               q [2, 8, 1024, 640] (d = 80) over [2, 8, 2048, 640] and
               [2, 1, 8192, 640], K13 (explicit-K/V injection) at the same
-              q, K14 (global-offset temporal attention) at Fq = Fk = 8;
+              q, K14 (global-offset temporal attention, on K3's TMA-staged
+              body) at Fq = Fk = 8;
               then, at both sizes, each 2-frame shard of
               a 4-way frame split (K14 at offsets 0, 2, 4, 6; K12 / K13 on
               K/V sliced from the global tensors), also held to its slice of
               the one-rank output; SDPA timed as the yardstick of K12 and,
-              with a boolean mask, of K14; in bf16 K12 runs the tensor-core
+              with a boolean mask, of K14 at every case, whose byte bound
+              and share are printed there too; in bf16 K12 runs the tensor-core
               body (csrc/attention_tc.cu), held also to TC_ERR_LIMITS, with
               its TFLOP/s and share of its bound, and its time is printed
               beside K1's on the same work; so does K13 (the injection
@@ -156,14 +159,15 @@ MODES = ("normal", "sparse_causal", "motion_frame", "dense")
 BWD_MODES = ("normal", "sparse_causal", "motion_frame")
 NULL_STEPS = 5  # phase 6's schedule
 LOGIT_CAP = 60.0  # the JAX bf16 kernels' score clamp (ops/video_flash.py _CAP)
-# K1, K2, K8, K12, K13 and K4 launches in bf16 take the tensor-core body
-# (csrc/attention_tc.cu; K2 and K13 its injection instantiation), K5's and
+# K1, K2, K8, K9, K12, K13 and K4 launches in bf16 take the tensor-core body
+# (csrc/attention_tc.cu; K2, K9 and K13 its injection instantiation), K5's and
 # K6's at d <= 80 their own (csrc/attention_dq_tc.cu,
 # csrc/attention_bwd_tc.cu), and count again as "<name>.tc"; every
 # full-width path below runs in bf16 at d = 40 and 80, so every launch of
 # these kernels there takes the tensor-core body
 TC_KERNELS = ("video_flash_attention", "video_injection_attention", "flash_attention",
-              "video_flash_attention_kv", "video_injection_attention_kv",
+              "fused_injection_attention", "video_flash_attention_kv",
+              "video_injection_attention_kv",
               "video_flash_fwd_res", "video_flash_bwd_dq", "video_flash_bwd_dkv")
 # K2's and K13's bf16 checks: the fg masks besides the pipeline's binary one
 # (every binary mask gives the same output, so only masks whose min(m, 1 - m)
@@ -281,7 +285,7 @@ KERNEL_INFO = {
                                      "motioneditor_tpu/ops/temporal_flash.py:190"),
     "flash_attention": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                         "motioneditor_tpu/ops/flash_attention.py:222"),
-    "fused_injection_attention": ("motioneditor_tpu_torch/csrc/split_attention.cu",
+    "fused_injection_attention": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                                   "motioneditor_tpu/ops/injection_flash.py:268"),
     "channel_pair_stats": ("motioneditor_tpu_torch/csrc/norm_stats.cu",
                            "motioneditor_tpu/ops/gn_stats.py:78"),
@@ -291,10 +295,15 @@ KERNEL_INFO = {
                                  "motioneditor_tpu/ops/video_flash.py:726"),
     "video_injection_attention_kv": ("motioneditor_tpu_torch/csrc/attention_tc.cu",
                                      "motioneditor_tpu/ops/video_flash.py:859"),
-    "temporal_flash_attention_global": ("motioneditor_tpu_torch/csrc/temporal_attention.cu",
+    "temporal_flash_attention_global": ("motioneditor_tpu_torch/csrc/temporal_attention_tma.cu",
                                         "motioneditor_tpu/ops/temporal_flash.py:361"),
 }
 SPLIT_KERNELS = ("flash_attention", "fused_injection_attention")
+# K8's and K9's other body: fp32, head dims the tensor-core body declines
+# (d = 9 at phase 8b's call site), misaligned views, and for K9 K/V
+# broadcast over the lead dims
+CUDA_CORE_SOURCE = {name: "motioneditor_tpu_torch/csrc/split_attention.cu"
+                    for name in SPLIT_KERNELS}
 FORWARD_KERNELS = ("video_flash_attention", "video_injection_attention",
                    "temporal_flash_attention")
 BACKWARD_KERNELS = ("video_flash_fwd_res", "video_flash_bwd_dq", "video_flash_bwd_dkv",
@@ -585,42 +594,12 @@ def phase_kernels(device):
     return results
 
 
-def old_temporal_body(q, k, v, scale):
-    """A launch of K14's body (csrc/temporal_attention.cu, K3's before the
-    TMA-staged one) at Fq = Fk, q_off = 0 on K3's inputs, called directly
-    for its time beside K3's; its output is first held to K3's plain
-    version."""
-    import torch
-
-    from motioneditor_tpu_torch import _build
-    from motioneditor_tpu_torch.ops.temporal_flash import temporal_flash_attention_plain
-
-    lib, stream = _build.kernels(), _build.stream_handle(q.device)
-    out = torch.empty_like(q)
-    b, f, n, c = q.shape
-    ptrs = [t.data_ptr() for t in (q, k, v, out)]
-
-    def launch():
-        code = lib.me_temporal_attention_global(*ptrs, b, f, f, n, HEADS, c // HEADS,
-                                                float(scale), 1, 0,
-                                                _build.DTYPE_CODES[q.dtype], stream)
-        _build.check_status("K14 body at q_off 0", code)
-
-    launch()
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(),
-                               temporal_flash_attention_plain(q, k, v, scale, HEADS).float(),
-                               **tolerance(q.dtype))
-    return launch
-
-
 def phase_temporal(device):
     """K3 (the TMA-staged body) at TEMPORAL_SHAPES in bf16 against its plain
-    version, with its time, byte bound and share, the plain version's, SDPA's
-    (is_causal on [B*N, H, F, d] copies made before the timing) and the old
-    body's (K14's entry at q_off = 0) on the same inputs; then at the 16x16
-    sites (TEMPORAL_GATE_SHAPE) the attention layer through the kernel
-    against the eager path the gate keeps it on."""
+    version, with its time, byte bound and share, the plain version's and
+    SDPA's (is_causal on [B*N, H, F, d] copies made before the timing) on the
+    same inputs; then at the 16x16 sites (TEMPORAL_GATE_SHAPE) the attention
+    layer through the kernel against the eager path the gate keeps it on."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as library_sdpa
 
@@ -650,23 +629,22 @@ def phase_temporal(device):
         ref = plain_fn()
         torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
         err = (out.float() - ref.float()).abs().max().item()
-        old = old_temporal_body(q, k, v, scale)
         lq, lk, lv = temporal(q), temporal(k), temporal(v)
         lib_fn = lambda: library_sdpa(lq, lk, lv, is_causal=True, scale=scale)  # noqa: E731
         torch.testing.assert_close(lib_fn().float(), temporal(ref).float(), **tolerance(dtype))
-        ms, old_ms = time_ms(kernel_fn, KERNEL_REPS), time_ms(old, KERNEL_REPS)
+        ms = time_ms(kernel_fn, KERNEL_REPS)
         plain_ms, lib_ms = time_ms(plain_fn, 20), time_ms(lib_fn, 20)
         b_ = bound(video_work("temporal_flash_attention", "causal", q), nbytes(q, k, v, q), dtype)
         at = f"bf16 B={b} F={f} N={n} C={c} causal"
         log(f"[temporal] K3 {at}: max_abs_err={err:.3e} kernel {ms:.4f} ms ({KERNEL_REPS} "
             f"launches), byte bound {b_['bound_ms']:.4f} ms, "
-            f"{100 * b_['bound_ms'] / ms:.1f}% of it; old body {old_ms:.4f} ms "
-            f"({old_ms / ms:.2f}x); plain {plain_ms:.3f} ms; SDPA is_causal {lib_ms:.4f} ms")
+            f"{100 * b_['bound_ms'] / ms:.1f}% of it; plain {plain_ms:.3f} ms; "
+            f"SDPA is_causal {lib_ms:.4f} ms")
         if shape == TEMPORAL_SHAPES[0]:
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, old_body_ms=old_ms, at=at,
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, at=at,
                      library_at=f"{at}, SDPA is_causal on [B*N, H, F, d]", **b_)
         else:
-            r[f"ms_{b}x{n}x{c}"], r[f"old_body_ms_{b}x{n}x{c}"] = ms, old_ms
+            r[f"ms_{b}x{n}x{c}"] = ms
             r[f"bound_ms_{b}x{n}x{c}"] = b_["bound_ms"]
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
         del q, k, v, out, ref, lq, lk, lv
@@ -729,20 +707,56 @@ def cuda_core_injection(q, k, v, k2, v2, mask, ref, scale, m=None):
     return launch
 
 
+def cuda_core_split_injection(q, k, v, mask, kt, vt, ref, scale):
+    """A launch of K9's CUDA-core body (csrc/split_attention.cu, mode 1) on
+    the given [B, F, H, N, d] inputs, called directly for its time beside the
+    tensor-core body's; its output is first held to ``ref``."""
+    import ctypes
+
+    import torch
+
+    from motioneditor_tpu_torch import _build
+
+    lib, stream = _build.kernels(), _build.stream_handle(q.device)
+    views = [t.flatten(0, 1) for t in (q, k, v, kt, vt)]
+    out = torch.empty_like(views[0])
+    strides = (ctypes.c_longlong * 18)(*(s for x in (*views, out) for s in x.stride()[:3]))
+    g, h, nq, d = views[0].shape
+    ptrs = [*(t.data_ptr() for t in views), mask.data_ptr(), out.data_ptr()]
+
+    def launch():
+        code = lib.me_split_attention(*ptrs, strides, g, h, nq, k.shape[-2], kt.shape[-2],
+                                      q.shape[1], d, float(scale), 1,
+                                      _build.DTYPE_CODES[q.dtype], stream)
+        _build.check_status("CUDA-core split-head injection", code)
+
+    launch()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.flatten(0, 1).float(), **tolerance(q.dtype))
+    return launch
+
+
 def phase_split_kernels(device, gen):
-    """K8 and K9 against their plain versions at the auto path's shapes."""
+    """K8 and K9 against their plain versions at the auto path's shapes; in
+    bf16 both take the tensor-core body (K9 its injection instantiation,
+    also with the fractional and mixed fg masks of INJECTION_MASKS, held to
+    the plain version in fp32), and K9's CUDA-core body is timed on the
+    same inputs by a direct call."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as library_sdpa
 
+    from motioneditor_tpu_torch import _build
     from motioneditor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     from motioneditor_tpu_torch.ops.injection_flash import (
         fused_injection_attention,
         fused_injection_attention_plain,
     )
 
+    mask_gen = torch.Generator(device=device).manual_seed(SEED + 9)
     results = {name: {"max_abs_err": 0.0} for name in SPLIT_KERNELS}
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).replace("torch.", "")
+        bf16 = dtype == torch.bfloat16
         for n, d in AUTO_SHAPES:
             lead = (2, FRAMES, HEADS)
             q, kt, vt = (torch.randn((*lead, n, d), generator=gen, device=device).to(dtype)
@@ -751,62 +765,89 @@ def phase_split_kernels(device, gen):
                     for _ in range(2))
             mask = (torch.rand((FRAMES, 2 * n), generator=gen, device=device) > 0.5).float()
             scale = d ** -0.5
-            if dtype == torch.bfloat16:
+            if bf16:
                 b_ = max(split_logit_bound(q, k, scale), split_logit_bound(q, kt, scale))
                 if b_ >= LOGIT_CAP:
                     raise AssertionError(f"bf16 inputs reach logit {b_} >= {LOGIT_CAP}")
-            main = dtype == torch.bfloat16 and n == 4096
+            main = bf16 and n == 4096
             at = f"{dt} q [2, {FRAMES}, {HEADS}, {n}, {d}], 2N source keys"
-            cases = (
-                ("flash_attention", lambda: flash_attention(q, k, v, scale),
-                 lambda: flash_attention_plain(q, k, v, scale),
-                 4.0 * q.numel() * 2 * n, nbytes(q, k, v, q)),
-                ("fused_injection_attention",
-                 lambda: fused_injection_attention(q, k, v, mask, kt, vt, scale),
-                 lambda: fused_injection_attention_plain(q, k, v, mask, kt, vt, scale),
-                 4.0 * q.numel() * 3 * n, nbytes(q, k, v, mask, kt, vt, q)),
-            )
-            for name, kernel_fn, plain_fn, flops, moved in cases:
+            masks = {"binary": mask}
+            if bf16:
+                masks.update({kind: fg_mask(kind, (FRAMES, 2 * n), device, mask_gen)
+                              for kind in INJECTION_MASKS if kind != "binary"})
+            cases = [("flash_attention", "", lambda: flash_attention(q, k, v, scale),
+                      lambda: flash_attention_plain(q, k, v, scale),
+                      4.0 * q.numel() * 2 * n, nbytes(q, k, v, q))]
+            for kind, m in masks.items():
+                # see INJECTION_MASKS: the fractional and mixed masks against fp32
+                x = (q, k, v, kt, vt) if kind == "binary" else tuple(
+                    t.float() for t in (q, k, v, kt, vt))
+                cases.append((
+                    "fused_injection_attention", kind,
+                    lambda m=m: fused_injection_attention(q, k, v, m, kt, vt, scale),
+                    lambda m=m, x=x: fused_injection_attention_plain(*x[:3], m, *x[3:], scale),
+                    4.0 * q.numel() * 3 * n, nbytes(q, k, v, m, kt, vt, q)))
+            for name, kind, kernel_fn, plain_fn, flops, moved in cases:
+                tc_before = _build.launch_counts[f"{name}.tc"]
                 out = kernel_fn()
                 torch.cuda.synchronize()
+                if _build.launch_counts[f"{name}.tc"] != tc_before + int(bf16):
+                    raise AssertionError(f"{name} in {dt}: tensor-core launches "
+                                         f"{_build.launch_counts[f'{name}.tc'] - tc_before}, "
+                                         f"expected {int(bf16)}")
                 ref = plain_fn()
                 err = (out.float() - ref.float()).abs().max().item()
                 torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
                 r = results[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
-                lib = ""
-                if dtype == torch.bfloat16 and name == "flash_attention":  # tensor cores
-                    lib = scaled_line(r, scaled_error(out, ref))
+                lib = scaled_line(r, scaled_error(out, ref)) if bf16 else ""  # tensor cores
+                if bf16 and ref.dtype == torch.float32:  # the bf16 plain version's own error
+                    got = scaled_of(fused_injection_attention_plain(
+                        q, k, v, masks[kind], kt, vt, scale), ref)
+                    lib += (f", bf16 plain version vs fp32 max {got['max']:.3e} "
+                            f"rms {got['rms']:.3e}")
                 ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
-                if name == "flash_attention":
-                    lib_fn = lambda: library_sdpa(q.flatten(0, 1), k.flatten(0, 1),  # noqa: E731
-                                                  v.flatten(0, 1), scale=scale)
-                else:
-                    # SDPA over the 5N injected keys [K*m | K*(1-m) | K_tgt] against
-                    # [V | V | V_tgt] of each (batch, frame), built before the timing
-                    # (the mask is binary, so K*m is exact in bf16)
-                    m = mask[None, :, None, :, None].to(dtype)
-                    k_inj = torch.cat([k * m, k * (1.0 - m), kt], dim=-2).flatten(0, 1)
-                    v_inj = torch.cat([v, v, vt], dim=-2).flatten(0, 1)
-                    lib_fn = lambda: library_sdpa(q.flatten(0, 1), k_inj, v_inj,  # noqa: E731
-                                                  scale=scale)
-                lib_ms = library_time(dtype, ref.flatten(0, 1), lib_fn)
-                lib += f", library {lib_ms:.3f} ms"
-                if main:
-                    r["library_ms"] = lib_ms
-                    r["library_at"] = at if name == "flash_attention" else (
-                        f"{at}; SDPA over the 5N keys [K*m | K*(1-m) | K_tgt]")
-                if dtype == torch.bfloat16 and name == "flash_attention":  # tensor cores
+                if kind in ("", "binary"):
+                    if name == "flash_attention":
+                        lib_fn = lambda: library_sdpa(  # noqa: E731
+                            q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1), scale=scale)
+                    else:
+                        # SDPA over the 5N injected keys [K*m | K*(1-m) | K_tgt] against
+                        # [V | V | V_tgt] of each (batch, frame), built before the timing
+                        # (the mask is binary, so K*m is exact in bf16)
+                        m5 = mask[None, :, None, :, None].to(dtype)
+                        k_inj = torch.cat([k * m5, k * (1.0 - m5), kt], dim=-2).flatten(0, 1)
+                        v_inj = torch.cat([v, v, vt], dim=-2).flatten(0, 1)
+                        lib_fn = lambda: library_sdpa(  # noqa: E731
+                            q.flatten(0, 1), k_inj, v_inj, scale=scale)
+                    lib_ms = library_time(dtype, ref.flatten(0, 1), lib_fn)
+                    lib += f", library {lib_ms:.3f} ms"
+                    del lib_fn
+                    if main:
+                        r["library_ms"] = lib_ms
+                        r["library_at"] = at if name == "flash_attention" else (
+                            f"{at}; SDPA over the 5N keys [K*m | K*(1-m) | K_tgt]")
+                    elif bf16:
+                        r["library_ms_32x32"] = lib_ms
+                if bf16 and kind == "binary":
+                    cc_ms = time_ms(cuda_core_split_injection(q, k, v, mask, kt, vt, ref, scale))
+                    lib += f", CUDA-core body {cc_ms:.3f} ms"
+                    r["cuda_core_ms" if main else "cuda_core_ms_32x32"] = cc_ms
+                if bf16:  # tensor-core rate
                     b_ = bound(flops, moved, dtype)
                     lib += (f", {flops / ms / 1e9:.1f} TFLOP/s, "
                             f"{100 * b_['bound_ms'] / ms:.1f}% of its bound")
-                del out, ref, lib_fn
-                log(f"[kernels] {name} {at}: max_abs_err={err:.3e} kernel {ms:.3f} ms, "
-                    f"plain {plain_ms:.3f} ms{lib}")
-                if main:
+                del out, ref
+                log(f"[kernels] {name}{' ' + kind if kind else ''} {at}: max_abs_err={err:.3e} "
+                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}")
+                if main and kind in ("", "binary"):
                     r.update(ms=ms, plain_ms=plain_ms, at=at, **bound(flops, moved, dtype))
+                elif main:
+                    r[f"ms_{kind}"] = ms
+                elif bf16 and kind in ("", "binary"):
+                    r["ms_32x32"] = ms
                 torch.cuda.empty_cache()
-            del q, k, v, kt, vt, mask
+            del q, k, v, kt, vt, mask, masks, cases
             torch.cuda.empty_cache()
     return results
 
@@ -1479,6 +1520,7 @@ def phase_split_check(device):
     err = (got - want).abs().max().item()
     log(f"[split-check] split-head mask injection, C={c} heads={heads} N={n}: launches "
         f"{launches}, kernel vs plain path max_abs_err={err:.3e}")
+    # exactly these: fp32 at d = 9, so neither K8 nor K9 took a tensor-core body (no ".tc")
     expect_counts("split_head", launches, {"flash_attention": 1,
                                            "fused_injection_attention": 1}, 1)
     if err > 2e-5:
@@ -1858,10 +1900,12 @@ def phase_kv_kernels(device):
 
         def temporal_case(lo, hi):
             qs = q[:, lo:hi].contiguous()
+            # the bytes it must move: q, out, and the K/V frames its causal queries read (< hi)
             return ((lambda: temporal_flash_attention_global(qs, k, v, scale, HEADS, True, lo)),
                     (lambda: temporal_flash_attention_global_plain(qs, k, v, scale, HEADS, True,
                                                                    lo)),
-                    4.0 * b * n * c * temporal_pairs(hi - lo, f, True, lo), nbytes(qs, k, v, qs))
+                    4.0 * b * n * c * temporal_pairs(hi - lo, f, True, lo),
+                    nbytes(qs, k[:, :hi], v[:, :hi], qs))
 
         one_rank = {}
         cases = [("video_flash_attention_kv", "motion_frame", 0, f, kv_case(0, f, k_mf, v_mf)),
@@ -1899,14 +1943,19 @@ def phase_kv_kernels(device):
             main = (dtype == torch.bfloat16 and whole and n == 4096
                     and variant in ("motion_frame", "injection", "causal"))
             timing = ""
-            if whole or dtype == torch.bfloat16:
-                reps = KERNEL_REPS if name == "temporal_flash_attention_global" else 3
+            temporal_ = name == "temporal_flash_attention_global"
+            if whole or dtype == torch.bfloat16 or temporal_:
+                reps = KERNEL_REPS if temporal_ else 3
                 ms, plain_ms = time_ms(kernel_fn, reps), time_ms(plain_fn)
                 timing = f" kernel {ms:.4f} ms ({reps} launches), plain {plain_ms:.3f} ms"
                 if main:
                     r.update(ms=ms, plain_ms=plain_ms, at=at, library_ms=None,
                              **bound(flops, moved, dtype))
-            if dtype == torch.bfloat16 and name != "temporal_flash_attention_global":  # K12, K13
+            if temporal_:  # K14: its bound (bytes at these shapes) and its share of it
+                b_ = bound(flops, moved, dtype)
+                timing += (f", {b_['bound_by']} bound {b_['bound_ms']:.4f} ms, "
+                           f"{100 * b_['bound_ms'] / ms:.1f}% of it")
+            if dtype == torch.bfloat16 and not temporal_:  # K12, K13
                 b_ = bound(flops, moved, dtype)
                 timing += (scaled_line(r, scaled_error(out, ref))
                            + f", {flops / ms / 1e9:.1f} TFLOP/s, "
@@ -1919,30 +1968,34 @@ def phase_kv_kernels(device):
                 lib += f", CUDA-core body {cc_ms:.3f} ms"
                 if main:
                     r["cuda_core_ms"] = cc_ms
-            if main:
+            if temporal_:
+                # SDPA with a boolean (query frame, key frame) mask, g <= f + lo, on
+                # [B*N, H, F, d] copies made before the timing
+                def temporal(x):
+                    return x.view(b, -1, n, HEADS, d).permute(0, 2, 3, 1, 4).flatten(0, 1)
+
+                lq, lk, lv, lref = temporal(q[:, lo:hi]), temporal(k), temporal(v), temporal(ref)
+                keep = (torch.arange(f, device=device)[None, :]
+                        <= torch.arange(lo, hi, device=device)[:, None])
+                lib_ms = library_time(dtype, lref, lambda: library_sdpa(
+                    lq, lk, lv, attn_mask=keep, scale=scale))
+                lib += f", SDPA with a boolean mask {lib_ms:.4f} ms"
+                if main:
+                    r["library_ms"], r["library_at"] = lib_ms, at
+                del lq, lk, lv, lref
+            elif main:
                 if name == "video_injection_attention_kv":
                     # SDPA on split-head views of q against the 2M + N keys
                     # [K*m | K*(1-m) | K_tgt] of every frame, made before the timing
                     lq, lk, lv, split_ = injection_keys(q, k_mf, v_mf, kt, vt, m_mf)
                     lref = split_(ref)
                     lib_fn = lambda: library_sdpa(lq, lk, lv, scale=scale)  # noqa: E731
-                elif name == "video_flash_attention_kv":
-                    # SDPA on [B*F, H, N, d] against [B*F, H, 2N, d]: split-head views
+                else:  # K12: SDPA on [B*F, H, N, d] against [B*F, H, 2N, d], split-head views
                     def split(x):
                         return x.view(-1, x.shape[2], HEADS, d).transpose(1, 2)
 
                     lq, lk, lv, lref = split(q), split(k_mf), split(v_mf), split(ref)
                     lib_fn = lambda: library_sdpa(lq, lk, lv, scale=scale)  # noqa: E731
-                else:
-                    # SDPA with a boolean (query frame, key frame) mask on
-                    # [B*N, H, F, d] copies made before the timing
-                    def temporal(x):
-                        return x.view(b, -1, n, HEADS, d).permute(0, 2, 3, 1, 4).flatten(0, 1)
-
-                    lq, lk, lv, lref = temporal(q), temporal(k), temporal(v), temporal(ref)
-                    keep = torch.ones((f, f), dtype=torch.bool, device=device).tril()
-                    lib_fn = lambda: library_sdpa(lq, lk, lv, attn_mask=keep,  # noqa: E731
-                                                  scale=scale)
                 r["library_ms"] = library_time(dtype, lref, lib_fn)
                 r["library_at"] = at
                 lib += f", library {r['library_ms']:.3f} ms"
@@ -2011,7 +2064,7 @@ PROFILE_BUCKETS = (
     ("K2/K13 injection (attention_tc_inj)", ("attention_tc_inj",)),
     ("tensor-core attention, K1/K8/K12 (attention_tc)", ("attention_tc",)),
     ("CUDA-core K1/K2/K4/K12/K13, fp32 (video_attention_kernel)", ("video_attention_kernel",)),
-    ("K3 temporal_attention_kernel", ("temporal_attention",)),
+    ("K3/K14 temporal forward (temporal_attention_tma)", ("temporal_attention",)),
     ("K8/K9 CUDA-core body (split_attention_kernel)", ("split_attention",)),
     ("cuBLAS / CUTLASS matmuls", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
     ("cuDNN convs (+ layout kernels)", ("conv", "cudnn", "implicit", "nchw", "nhwc")),
@@ -2361,6 +2414,11 @@ def main() -> int:
     log(f"[kv] the same work, bf16 q [2, {FRAMES}, 4096, 320] against 2N keys per frame, "
         f"both on the tensor-core body: K12 {k12['ms']:.3f} ms, K1 {k1['ms']:.3f} ms, "
         f"SDPA {k12['library_ms']:.3f} (K12's call) and {k1['library_ms']:.3f} ms (K1's)")
+    k14 = results["temporal_flash_attention_global"]
+    log(f"[kv] the temporal attention, bf16 [2, {FRAMES}, 4096, 320] causal, both on "
+        f"csrc/temporal_attention_tma.cu: K14 at Fq = Fk = {FRAMES} {k14['ms']:.4f} ms, K3 "
+        f"{results['temporal_flash_attention']['ms']:.4f} ms; SDPA with a boolean mask "
+        f"{k14['library_ms']:.4f} ms")
     k2, k13 = results["video_injection_attention"], results["video_injection_attention_kv"]
     log(f"[kv] the injection, bf16 q [2, {FRAMES}, 4096, 320] against 2N source keys scored "
         f"once and N target keys per frame: tensor cores K2 {k2['ms']:.3f} ms, K13 "
@@ -2410,11 +2468,12 @@ def main() -> int:
             "launches": launched, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "cuda_core_ms": r.get("cuda_core_ms"),
+            **({"cuda_core_source": CUDA_CORE_SOURCE[name]} if name in CUDA_CORE_SOURCE else {}),
             "at": r["at"],
             "library_at": r.get("library_at"), "flops": r["flops"], "bytes": r["bytes"],
             "tflops": r["flops"] / r["ms"] / 1e9,
             **{k: v for k, v in r.items()
-               if k.startswith(("scaled_", "ms_", "bound_ms_", "old_body_ms", "gate_"))
+               if k.startswith(("scaled_", "ms_", "bound_ms_", "library_ms_", "gate_"))
                or k.endswith("_32x32")},
         })
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,

@@ -1,19 +1,30 @@
 """Times the bf16 injection kernels (K2, K13) against K1 on one GPU, for
 this checkout and for copies of it whose injection instantiation takes
 one consumer warpgroup fewer than K1's at padded d <= 48 or at d <= 80;
-with --temporal, times the TMA-staged temporal bodies (K3, K7) at other
-tiles than the one ops/temporal_flash.py ``temporal_tile`` picks.
+with --temporal, times the TMA-staged temporal bodies (K3, K7, and K14 on
+K3's body) at other tiles than the one ops/temporal_flash.py
+``temporal_tile`` picks.
 
     python3 chip_variants.py
     python3 chip_variants.py --temporal
+    python3 chip_variants.py --k14-device <checkout>
 
---temporal: at the bf16 shapes of PERF.md's K3 and K7 rows, every tile
-of a small grid (head group, sites, rows, split, warps; 2 stages) that
-fits the card's shared memory, launched through the C entries directly,
-each output held to the plain version at chip_smoke.py's bf16 tolerance
-and timed with CUDA events over TEMPORAL_REPS launches; then the tile
-``temporal_tile`` picks, and for K3 the old body (K14's entry at q_off =
-0), in the same process.
+--temporal: at the bf16 shapes of PERF.md's K3 and K7 rows and at K14's
+shard-local shape (2 query frames of 8 at the last shard's offset), every
+tile of a small grid (head group, sites, rows, split, warps; 2 stages)
+that fits the card's shared memory, launched through the C entries
+directly, each output held to the plain version at chip_smoke.py's bf16
+tolerance and timed with CUDA events over TEMPORAL_REPS launches; then the
+tile ``temporal_tile`` picks, in the same process.
+
+--k14-device: K14 (``temporal_flash_attention_global``) of the checkout at
+<checkout>, bf16, at the one-rank shape [2, 8, N, C] and at each 2-frame
+shard of a 4-way split of 8 frames (offsets 0, 2, 4, 6), N, C at both
+latent sizes: the device time per launch from torch.profiler over
+K14_DEVICE_REPS launches. A shard's kernel takes less than the host
+spends on a launch, so CUDA events over many launches read the host.
+Given a copy of another commit (git archive), it times that commit's
+K14 the same way.
 
 Each variant runs in its own process from its own copy under
 build/variants/ (git-ignored), which builds its own kernels. Per variant:
@@ -119,10 +130,12 @@ def time_root(root: str) -> None:
 
 
 TEMPORAL_REPS = 200
-# (name, [B, F, N, C]) at 8 heads, bf16: K3 at the denoise step's sites,
-# the UNet's 64x64 and 32x32 sites at batch 4, K7 at the null-text shape
-TEMPORAL_SHAPES = (("K3", (2, 8, 4096, 320)), ("K3", (4, 8, 4096, 320)),
-                   ("K3", (4, 8, 1024, 640)), ("K7", (1, 8, 4096, 320)))
+# (name, [B, Fq, Fk, N, C]) at 8 heads, bf16: K3 at the denoise step's
+# sites, the UNet's 64x64 and 32x32 sites at batch 4, K7 at the null-text
+# shape, K14 at the last shard of a 4-way split of the denoise step's 8 frames
+TEMPORAL_SHAPES = (("K3", (2, 8, 8, 4096, 320)), ("K3", (4, 8, 8, 4096, 320)),
+                   ("K3", (4, 8, 8, 1024, 640)), ("K7", (1, 8, 8, 4096, 320)),
+                   ("K14", (2, 2, 8, 4096, 320)), ("K14", (2, 2, 8, 1024, 640)))
 
 
 def temporal_sweep() -> None:
@@ -138,7 +151,7 @@ def temporal_sweep() -> None:
         TemporalTile,
         seq_threads,
         temporal_flash_attention_bwd_plain,
-        temporal_flash_attention_plain,
+        temporal_flash_attention_global_plain,
         temporal_tile,
         tile_smem_bytes,
     )
@@ -147,11 +160,12 @@ def temporal_sweep() -> None:
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(cs.SEED)
     heads = cs.HEADS
-    for name, (b, f, n, c) in TEMPORAL_SHAPES:
+    for name, (b, fq, f, n, c) in TEMPORAL_SHAPES:
         d = c // heads
         backward = name == "K7"
-        xs = [torch.randn((b, f, n, c), generator=gen, device=device).bfloat16()
-              for _ in range(4 if backward else 3)]
+        q_off = f - fq
+        xs = [torch.randn((b, fq if i in (0, 3) else f, n, c), generator=gen,
+                          device=device).bfloat16() for i in range(4 if backward else 3)]
         scale = d ** -0.5
         outs = [torch.empty_like(xs[0]) for _ in range(3 if backward else 1)]
         stream = _build.stream_handle(device)
@@ -163,11 +177,11 @@ def temporal_sweep() -> None:
                 return lib.me_temporal_attention_bwd_tma(*ptrs, b, f, n, heads, d, scale, 1,
                                                          *t, 1, stream)
         else:
-            ref = (temporal_flash_attention_plain(*xs, scale, heads),)
+            ref = (temporal_flash_attention_global_plain(*xs, scale, heads, True, q_off),)
 
             def launch(t):
-                return lib.me_temporal_attention_tma(*ptrs, b, f, f, n, heads, d, scale, 1, 0,
-                                                     *t, 1, stream)
+                return lib.me_temporal_attention_tma(*ptrs, b, fq, f, n, heads, d, scale, 1,
+                                                     q_off, *t, 1, stream)
         moved = cs.nbytes(*xs) + cs.nbytes(*outs)
         bound_ms = moved / cs.PEAK_BYTES * 1e3
 
@@ -181,7 +195,7 @@ def temporal_sweep() -> None:
                 torch.testing.assert_close(outs[0].float(), ref[0].float(),
                                            **cs.tolerance(torch.bfloat16))
             ms = cs.time_ms(lambda: launch(t), reps=TEMPORAL_REPS)
-            print(f"[temporal] {name} {[b, f, n, c]} {label} {tuple(t)}: {ms:.4f} ms "
+            print(f"[temporal] {name} {[b, fq, f, n, c]} {label} {tuple(t)}: {ms:.4f} ms "
                   f"({TEMPORAL_REPS} launches), {100 * bound_ms / ms:.1f}% of the "
                   f"{bound_ms:.4f} ms byte bound", flush=True)
             return ms
@@ -190,36 +204,59 @@ def temporal_sweep() -> None:
         groups = [h for h in (8, 4, 2, 1) if heads % h == 0 and h * d <= BOX_MAX][:2]
         for hg, sites, rows, split, warps in itertools.product(
                 groups, (1, 2, 4, 8, 16), (1, 2), (1, 2, 4), (2, 4, 8)):
-            if seq_threads(f, rows, split) > 32 or (backward and rows == 2):  # K7 takes one row
+            if seq_threads(fq, rows, split) > 32 or (backward and rows == 2):  # K7: one row
                 continue
-            warps = min(warps, -(-sites * hg // (32 // seq_threads(f, rows, split))))
-            smem = tile_smem_bytes(f, d, sites, hg, rows, split, 2, warps, 2, backward)
+            warps = min(warps, -(-sites * hg // (32 // seq_threads(fq, rows, split))))
+            smem = tile_smem_bytes(fq, f, d, sites, hg, rows, split, 2, warps, 2, backward)
             t = TemporalTile(sites, hg, rows, split, 2, warps, smem)
             if smem > SMEM_LIMIT or t in timed:
                 continue
             timed[t] = run("tile", t)
-        chosen = temporal_tile(f, d, heads, torch.bfloat16, backward)
+        chosen = temporal_tile(fq, f, d, heads, torch.bfloat16, backward)
         ms = run("temporal_tile", chosen)
         best = sorted(timed.items(), key=lambda kv: kv[1])[:5]
-        print(f"[temporal] {name} {[b, f, n, c]}: fastest "
+        print(f"[temporal] {name} {[b, fq, f, n, c]}: fastest "
               + "; ".join(f"{v:.4f} ms at {tuple(t)}" for t, v in best)
               + f"; temporal_tile {ms:.4f} ms at {tuple(chosen)}", flush=True)
-        if not backward:
-            old = torch.empty_like(xs[0])
-
-            def old_body():
-                code = lib.me_temporal_attention_global(
-                    *(t.data_ptr() for t in (*xs, old)), b, f, f, n, heads, d, scale, 1, 0,
-                    1, stream)
-                _build.check_status("K14 entry", code)
-
-            old_body()
-            torch.cuda.synchronize()
-            torch.testing.assert_close(old.float(), ref[0].float(),
-                                       **cs.tolerance(torch.bfloat16))
-            print(f"[temporal] {name} {[b, f, n, c]}: old body (K14's entry, q_off 0) "
-                  f"{cs.time_ms(old_body, reps=TEMPORAL_REPS):.4f} ms", flush=True)
         del xs, outs, ref
+        torch.cuda.empty_cache()
+
+
+K14_DEVICE_REPS = 50
+
+
+def k14_device(root: str) -> None:
+    """K14's device time per launch in the checkout at ``root``."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from motioneditor_tpu_torch.ops.temporal_flash import temporal_flash_attention_global
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n, c in ((4096, 320), (1024, 640)):
+        q, k, v = (torch.randn((2, 8, n, c), generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        scale = (c // 8) ** -0.5
+        for lo, hi in ((0, 8), (0, 2), (2, 4), (4, 6), (6, 8)):
+            qs = q[:, lo:hi].contiguous()
+            for _ in range(10):
+                temporal_flash_attention_global(qs, k, v, scale, 8, True, lo)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(K14_DEVICE_REPS):
+                    temporal_flash_attention_global(qs, k, v, scale, 8, True, lo)
+                torch.cuda.synchronize()
+            spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and "temporal" in e.name.lower()]
+            if len(spans) != K14_DEVICE_REPS:
+                raise RuntimeError(f"profiled {len(spans)} K14 kernels, expected "
+                                   f"{K14_DEVICE_REPS}")
+            print(f"[k14-device] {root} bf16 q [2, {hi - lo}, {n}, {c}] q_off {lo}: "
+                  f"{sum(spans) / len(spans) / 1e3:.4f} ms device per launch "
+                  f"({K14_DEVICE_REPS} launches)", flush=True)
+        del q, k, v
         torch.cuda.empty_cache()
 
 
@@ -231,6 +268,9 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--temporal"]:
         temporal_sweep()
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--k14-device":
+        k14_device(sys.argv[2])
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--time":
         time_root(sys.argv[2])

@@ -147,12 +147,6 @@ def kernels() -> ctypes.CDLL:
         f32, ptr,                           # scale, stream
     ]
     lib.me_video_injection_kv_tc.restype = i32
-    lib.me_temporal_attention_global.argtypes = [
-        ptr, ptr, ptr, ptr,                 # q, k, v, out
-        i32, i32, i32, i32, i32, i32,       # B, Fq, Fk, N, H, d
-        f32, i32, i32, i32, ptr,            # scale, causal, q_off, dtype, stream
-    ]
-    lib.me_temporal_attention_global.restype = i32
     lib.me_temporal_attention_tma.argtypes = [
         ptr, ptr, ptr, ptr,                 # q, k, v, out
         i32, i32, i32, i32, i32, i32,       # B, Fq, Fk, N, H, d
@@ -225,6 +219,14 @@ def kernels() -> ctypes.CDLL:
         f32, ptr,                           # scale, stream
     ]
     lib.me_split_attention_tc.restype = i32
+    lib.me_split_injection_tc.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_src, v_src, k_tgt, v_tgt, mask, out
+        ctypes.POINTER(ctypes.c_longlong),  # 18 strides: (G, H, N) of q, k_src, v_src, k_tgt,
+                                            # v_tgt, out
+        i32, i32, i32, i32, i32, i32, i32,  # G, H, Nq, Ns, Nt, frames, d
+        f32, ptr,                           # scale, stream
+    ]
+    lib.me_split_injection_tc.restype = i32
     lib.me_pair_stats_chunks.argtypes = [i32]  # S
     lib.me_pair_stats_chunks.restype = i32
     lib.me_pair_stats.argtypes = [

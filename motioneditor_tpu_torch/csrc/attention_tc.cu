@@ -1,7 +1,8 @@
 // bf16 tensor-core bodies of the packed video attention (K1), its
 // residual-saving forward (K4), the split-head flash attention (K8), the
-// explicit-K/V video attention (K12), the fg/bg injection attention (K2)
-// and its explicit-K/V twin (K13); the mainloop is attention_tc.cuh.
+// explicit-K/V video attention (K12), the fg/bg injection attention (K2),
+// its explicit-K/V twin (K13) and its split-head twin (K9); the mainloop is
+// attention_tc.cuh.
 //
 // Replaces (TPU / Pallas):
 //   K1  motioneditor_tpu/ops/video_flash.py  _video_flash
@@ -26,6 +27,11 @@
 //       (pallas_call at :859) here in bf16 with K1's rule: the injection
 //       instantiation (attention_tc_inj_kernel); fp32 stays on
 //       video_attention.cu
+//   K9  motioneditor_tpu/ops/injection_flash.py  _fused_3d
+//       (pallas_call at injection_flash.py:268) here in bf16 with K8's rule
+//       and K/V not broadcast over G: K13's launch of the injection
+//       instantiation on split-head views; the rest stays on
+//       split_attention.cu
 // The routing rule lives in Python (ops/video_flash.py tensor_core_body,
 // ops/video_flash_bwd.py fwd_res_tensor_core_body), so the wrappers decide
 // which body a launch takes; these entry points refuse what they cannot take
@@ -56,6 +62,9 @@
 //   K13 the same over an explicit source K/V [B, F, M, C] (one masked pass
 //       of M keys, mask row [F, M] of the query's frame), then the N target
 //       keys of frame f.
+//   K9  K13's function on [G, H, N, D] views given by element strides (as
+//       K8's), G = B * F: Ns source keys under the mask row [F, Ns] of the
+//       query group's frame g % F, then Nt target keys.
 //
 // What bounds it on the H100. At the main path's shapes (N = 1024-4096
 // queries against 2N keys, d = 40-80) attention is compute-bound: 4 * d
@@ -247,4 +256,27 @@ extern "C" int me_split_attention_tc(const void* q, const void* k, const void* v
   return (int)run(view(q, strides), view(k, strides + 3), view(v, strides + 6),
                   view(out, strides + 9), nullptr, G, H, Nq, Nk, d, scale, 1, -1, 1,
                   strides[3] == 0 ? G : 1, static_cast<cudaStream_t>(stream));
+}
+
+// K9, bf16: q [G, H, Nq, D], k_src / v_src [G, H, Ns, D], k_tgt / v_tgt
+// [G, H, Nt, D] and out as views given by element strides (18: (G, H, N) of
+// q, k_src, v_src, k_tgt, v_tgt, out in turn; no K/V broadcast over G);
+// G = B * frames, mask [frames, Ns] fp32, query group g reading row g % frames.
+// Returns a cudaError_t code (0 = launched).
+extern "C" int me_split_injection_tc(const void* q, const void* k_src, const void* v_src,
+                                     const void* k_tgt, const void* v_tgt, const float* mask,
+                                     void* out, const long long* strides, int G, int H, int Nq,
+                                     int Ns, int Nt, int frames, int d, float scale,
+                                     void* stream) {
+  if (!head_dim_ok(d) || mask == nullptr || G < 1 || G > 65535 || H < 1 || H > 65535 ||
+      Nq < 1 || Ns < 1 || Nt < 1 || frames < 1 || G % frames != 0 || strides[3] == 0 ||
+      strides[6] == 0 || strides[9] == 0 || strides[12] == 0)
+    return (int)cudaErrorInvalidValue;
+  auto view = [&](const void* ptr, const long long* s) {
+    return View{static_cast<const bf16*>(ptr), s[0], s[1], s[2]};
+  };
+  const Injection inj{view(k_tgt, strides + 9), view(v_tgt, strides + 12), mask, Ns, 1, Nt};
+  return (int)run(view(q, strides), view(k_src, strides + 3), view(v_src, strides + 6),
+                  view(out, strides + 15), nullptr, G, H, Nq, Ns, d, scale, 2, -1, frames, 1,
+                  static_cast<cudaStream_t>(stream), &inj);
 }

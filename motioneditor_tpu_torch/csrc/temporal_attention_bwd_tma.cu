@@ -215,7 +215,8 @@ extern "C" int me_temporal_attention_bwd_tma(const void* q, const void* k, const
                                              int split, int stages, int warps, int smem_bytes,
                                              int dtype, void* stream) {
   Params p{};
-  p.B = B, p.Fq = F, p.Fk = F, p.N = N, p.H = H, p.d = d, p.causal = causal, p.q_off = 0;
+  p.B = B, p.Fq = F, p.Fk = F, p.kv_frames = F, p.N = N, p.H = H, p.d = d, p.causal = causal;
+  p.q_off = 0;
   p.sites = sites, p.hg = hg, p.rows = rows, p.split = split, p.stages = stages;
   p.warps = warps;
   p.scale = scale, p.scale_log2 = scale * me::kLog2e;

@@ -1,18 +1,24 @@
-// Temporal attention over the frame axis at every spatial site (K3), with
-// each tile's frame slabs staged once in shared memory by TMA.
+// Temporal attention over the frame axis at every spatial site (K3) and its
+// frame-sharded variant (K14), with each tile's frame slabs staged once in
+// shared memory by TMA.
 //
 // Replaces (TPU / Pallas): motioneditor_tpu/ops/temporal_flash.py
-// _temporal_4d (_kernel, pallas_call at temporal_flash.py:208), whose
-// BlockSpec holds the whole [F, bn, C] slab of a block of sites in VMEM.
+//   K3  _temporal_4d (_kernel, pallas_call at temporal_flash.py:208), whose
+//       BlockSpec holds the whole [F, bn, C] slab of a block of sites in VMEM;
+//   K14 _temporal_4d_bias (_kernel_bias, pallas_call at temporal_flash.py:361),
+//       the same over Fq local query frames and Fk gathered K/V frames, its
+//       causal mask an additive bias at global frame indices.
 //
 // What it computes. Tokens [B, F, N, C] are N*H independent length-F
 // sequences of d = C/H channels; query frame f attends over key frames
 // g <= f + q_off (causal) or all g, with an fp32 softmax for any input
 // dtype, and P.V is stored in the input dtype. Pairs above the diagonal are
-// never formed, which equals the reference's additive -1e4 mask to within
-// exp(-1e4) = 0. K3 is Fq = Fk, q_off = 0; the parameters (Fq, Fk, q_off)
-// are those of the frame-sharded variant K14 (q holds Fq local frames at
-// global offset q_off, K/V all Fk frames).
+// never formed, which equals the reference's additive -1e4 mask (K14's
+// -1e30 bias) to within exp(-1e4) = 0. K3 is Fq = Fk, q_off = 0; K14 has q
+// hold the Fq local frames of a shard at global offset q_off and K/V all Fk
+// frames, so a tile stages an Fq-frame q slab and K/V slabs of the frames its
+// queries read: causal, only the first min(Fk, q_off + Fq) (a shard at offset
+// 0 of a 4-way split of 8 frames reads 2 of them).
 //
 // What bounds it on the H100: bytes. At F = 8 a site's work is
 // ~4 F(F+1)/2 C flops against 4 F C elements of q, k, v and out, a few
@@ -175,17 +181,21 @@ cudaError_t dispatch(Params& p, int smem_bytes, cudaStream_t st) {
 
 }  // namespace
 
-// K3 (and, with Fq != Fk or q_off > 0, K14's function): q, out [B, Fq, N, C];
+// K3 (Fq = Fk, q_off = 0) and K14: q, out [B, Fq, N, C];
 // k, v [B, Fk, N, C]; the tile (sites, hg, rows, split, stages, warps, smem_bytes) from
-// ops/temporal_flash.py temporal_tile. dtype: 0 float32, 1 bfloat16.
+// ops/temporal_flash.py temporal_tile at Fq and the staged K/V frames
+// (causal ? min(Fk, q_off + Fq) : Fk). dtype: 0 float32, 1 bfloat16.
 // Returns a cudaError_t code (0 = launched).
 extern "C" int me_temporal_attention_tma(const void* q, const void* k, const void* v, void* out,
                                          int B, int Fq, int Fk, int N, int H, int d,
                                          float scale, int causal, int q_off, int sites, int hg,
                                          int rows, int split, int stages, int warps,
                                          int smem_bytes, int dtype, void* stream) {
+  // query frame f < Fq reads key frames g <= f + q_off < q_off + Fq when causal
+  const int staged = causal && q_off < Fk - Fq ? q_off + Fq : Fk;
   Params p{};
-  p.B = B, p.Fq = Fq, p.Fk = Fk, p.N = N, p.H = H, p.d = d, p.causal = causal, p.q_off = q_off;
+  p.B = B, p.Fq = Fq, p.Fk = staged, p.kv_frames = Fk, p.N = N, p.H = H, p.d = d;
+  p.causal = causal, p.q_off = q_off;
   p.sites = sites, p.hg = hg, p.rows = rows, p.split = split, p.stages = stages;
   p.warps = warps;
   p.scale = scale, p.scale_log2 = scale * me::kLog2e;
@@ -196,8 +206,8 @@ extern "C" int me_temporal_attention_tma(const void* q, const void* k, const voi
     return (int)cudaErrorInvalidValue;
   const int C = H * d, w = hg * d;
   if (!me_tt::encode3(&p.mq, q, bf16, C, N, B * Fq, w, sites, Fq) ||
-      !me_tt::encode3(&p.mk, k, bf16, C, N, B * Fk, w, sites, Fk) ||
-      !me_tt::encode3(&p.mv, v, bf16, C, N, B * Fk, w, sites, Fk))
+      !me_tt::encode3(&p.mk, k, bf16, C, N, B * Fk, w, sites, staged) ||
+      !me_tt::encode3(&p.mv, v, bf16, C, N, B * Fk, w, sites, staged))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(bf16 ? dispatch<__nv_bfloat16>(p, smem_bytes, st)

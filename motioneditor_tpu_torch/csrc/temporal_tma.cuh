@@ -1,4 +1,4 @@
-// What the TMA-staged temporal attention bodies (K3 forward,
+// What the TMA-staged temporal attention bodies (K3 and K14 forward,
 // temporal_attention_tma.cu; K7 backward, temporal_attention_bwd_tma.cu)
 // share: the tile walk, the shared-memory layout, the 3-D tensor maps and
 // the launch of a persistent grid.
@@ -6,7 +6,9 @@
 // A tile is `sites` consecutive spatial sites x a group of `hg` heads x all
 // frames of one batch row. Each operand's slab of the tile is one TMA box
 // {hg*d channels, sites, F frames} of a 3-D tensor map over (C, N, B*F),
-// started at (h0*d, n0, b*F) and stored densely as [F][sites][hg*d]; the box
+// started at (h0*d, n0, b*F) and stored densely as [F][sites][hg*d]: F = Fq
+// for q and dO; for k and v the map spans the kv_frames of a batch row and
+// the box its first Fk, the frames the queries read. The box
 // zero-fills rows past N of a ragged last tile, whose outputs are never
 // stored. The geometry (sites, hg, rows, split, stages, warps, shared bytes) is
 // chosen in Python (ops/temporal_flash.py `temporal_tile`); the host side
@@ -29,6 +31,7 @@ struct Params {
   void* o1;                     // backward: dk
   void* o2;                     // backward: dv
   int B, Fq, Fk, N, H, d, causal, q_off;
+  int kv_frames;  // K/V frames of a batch row in memory; a tile stages the first Fk
   int sites, hg, rows, split, stages, warps;  // rows: query frames per thread (1 or 2);
                                               // split: threads per (sequence, frame)
   int site_tiles, groups, ntiles;  // tiles: B x site_tiles x groups, groups fastest
@@ -126,8 +129,8 @@ __device__ __forceinline__ void issue_tile(const Params& p, int t, unsigned char
   me_tc::mbar_expect_tx(bar, p.tx_bytes);
   const int c0 = x.h0 * p.d;
   tma_load3(stage, &p.mq, c0, x.n0, x.b * p.Fq, bar);
-  tma_load3(stage + p.slab_q, &p.mk, c0, x.n0, x.b * p.Fk, bar);
-  tma_load3(stage + p.slab_q + p.slab_kv, &p.mv, c0, x.n0, x.b * p.Fk, bar);
+  tma_load3(stage + p.slab_q, &p.mk, c0, x.n0, x.b * p.kv_frames, bar);
+  tma_load3(stage + p.slab_q + p.slab_kv, &p.mv, c0, x.n0, x.b * p.kv_frames, bar);
   if (with_do) tma_load3(stage + p.slab_q + 2 * p.slab_kv, &p.mdo, c0, x.n0, x.b * p.Fq, bar);
 }
 

@@ -7,8 +7,14 @@ dtype, the head dim and the operands' alignment:
   flash_attention   replaces _flash_3d (flash_attention.py:222)
     bf16, d % 8 == 0, d <= 160, every row 16-byte aligned: the tensor-core
     body ``csrc/attention_tc.cu`` (also counted as ``flash_attention.tc``);
-    else ``csrc/split_attention.cu``, shared with the split-head injection
-    kernel of ops/injection_flash.py (fp32, d = 9, d up to 256).
+    else ``csrc/split_attention.cu`` (fp32, d = 9, d up to 256).
+
+``launch_split_attention`` also launches the split-head injection kernel of
+ops/injection_flash.py (K9) by the same rule, where no K/V view is
+broadcast over the lead dims: its tensor-core body is the injection
+instantiation of ``csrc/attention_tc.cu`` (``me_split_injection_tc``, also
+counted as ``fused_injection_attention.tc``), its other body
+``csrc/split_attention.cu``.
 
 It is reached through ``sdpa(..., use_flash=True)`` at ``q.shape[-2] >=
 _FLASH_MIN_Q`` with no bias (ops/attention.py), as in JAX: on the main path
@@ -70,9 +76,12 @@ def _strides(*views) -> ctypes.Array:
 def launch_split_attention(name: str, mode: int, q, k, v, scale: float, k2=None, v2=None,
                            mask: Optional[torch.Tensor] = None, frames: int = 1):
     """Launch K8 or K9 on [..., H, N, D] operands (K/V may broadcast over q's
-    lead dims) and count the launch under ``name``: K8 on the tensor-core
-    body where ``tensor_core_body`` says so (and under ``name + ".tc"``),
-    else csrc/split_attention.cu. Returns q's shape and dtype."""
+    lead dims) and count the launch under ``name``: on the tensor-core body
+    where ``tensor_core_body`` says so and, for K9, no K/V view has a lead
+    stride of 0 (its injection instantiation reads K/V group g for query
+    group g), counted again under ``name + ".tc"``; else
+    csrc/split_attention.cu. The whole rule: a failed launch raises and is
+    never retried on the other body. Returns q's shape and dtype."""
     *lead, h, nq, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM}")
@@ -89,8 +98,14 @@ def launch_split_attention(name: str, mode: int, q, k, v, scale: float, k2=None,
     out = torch.empty((*lead, nq, h, d), dtype=q.dtype, device=q.device)
     out4 = out.view(-1, nq, h, d).transpose(1, 2)  # [G, H, N, D] over the packed order
     lib, stream = _build.kernels(), _build.stream_handle(q.device)
-    tc = mode == _FLASH_CODE and tensor_core_body(q.dtype, d, rows_aligned(q4, *kv4, out4))
-    if tc:
+    tc = (tensor_core_body(q.dtype, d, rows_aligned(q4, *kv4, out4))
+          and (mode == _FLASH_CODE or all(t.stride(0) != 0 for t in kv4)))
+    if tc and mode == _INJECTION_CODE:
+        code = lib.me_split_injection_tc(
+            q4.data_ptr(), *(t.data_ptr() for t in kv4), mask.data_ptr(), out.data_ptr(),
+            _strides(q4, *kv4, out4), q4.shape[0], h, nq, kv4[0].shape[-2], kv4[2].shape[-2],
+            frames, d, float(scale), stream)
+    elif tc:
         code = lib.me_split_attention_tc(
             q4.data_ptr(), kv4[0].data_ptr(), kv4[1].data_ptr(), out.data_ptr(),
             _strides(q4, kv4[0], kv4[1], out4), q4.shape[0], h, nq, kv4[0].shape[-2], d,

@@ -1,14 +1,20 @@
 """Split-head fg/bg injection attention
 (port of motioneditor_tpu/ops/injection_flash.py).
 
-Kernel (CUDA C++, ``csrc/split_attention.cu``, shared with
-ops/flash_attention.py):
+Kernel (CUDA C++), two bodies chosen by ops/flash_attention.py
+``launch_split_attention``:
 
   fused_injection_attention   replaces _fused_3d (injection_flash.py:268)
+    bf16, d % 8 == 0, d <= 160, every row 16-byte aligned and no K/V view
+    broadcast over the lead dims: the injection instantiation of the
+    tensor-core body ``csrc/attention_tc.cu`` (K13's, on split-head views;
+    also counted as ``fused_injection_attention.tc``); else
+    ``csrc/split_attention.cu`` (fp32, d = 9, d up to 256), shared with
+    ops/flash_attention.py.
 
 The edit rows' softmax over K = [K_src*m, K_src*(1-m), K_tgt] with
-V = [V_src, V_src, V_tgt]: since q.(k*m) = m*(q.k), the kernel scores each
-source key once and uses the score twice, and never builds the concatenation.
+V = [V_src, V_src, V_tgt]: since q.(k*m) = m*(q.k), both bodies score each
+source key once and use the score twice, and never build the concatenation.
 It runs in the split-head branch of ``injected_spatial_attention``
 (control/injection.py), taken for head dims the packed-head kernel of
 ops/video_flash.py declines. Operands are split-head views, read through

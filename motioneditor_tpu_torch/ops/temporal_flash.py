@@ -9,15 +9,17 @@ Kernels (CUDA C++):
                                 csrc/temporal_attention_bwd_tma.cu
   temporal_flash_attention_global
                                 replaces _temporal_4d_bias (temporal_flash.py:361)
-                                csrc/temporal_attention.cu
+                                csrc/temporal_attention_tma.cu (K3's body)
 
 Every spatial site and head is an independent length-F sequence; the
 kernels keep the native layout (no transpose, no head split, no [.., F, F]
 score tensor in device memory), compute the softmax in fp32 for any input
-dtype, and never compute the causal pairs g > f. K3 and K7 stage each
-tile's frame slabs in shared memory once, by TMA: the tile's geometry is
-chosen here (``temporal_tile``), not in C++. Bound on the H100 and design
-notes: see the .cu sources.
+dtype, and never compute the causal pairs g > f. They stage each tile's
+frame slabs in shared memory once, by TMA: the tile's geometry is chosen
+here (``temporal_tile``), not in C++. Bound on the H100 and design notes:
+see the .cu sources. Their boxes and 16-byte stores need every operand on a
+16-byte boundary; the wrappers raise ``ValueError`` before any launch
+otherwise.
 
 Under autograd a CUDA call goes through ``TemporalFlashAttentionFn``, the
 port of JAX's custom VJP (temporal_flash.py:286-305): the forward kernel
@@ -64,11 +66,11 @@ def temporal_flash_supported(f: int, c: int, heads: int) -> bool:
 
 
 class TemporalTile(NamedTuple):
-    """A tile of the TMA-staged K3 / K7 bodies: ``sites`` consecutive sites
-    x ``heads`` heads x all frames of one batch row; ``rows`` query frames
-    per thread (1, or 2: f and F - 1 - f), ``split`` threads per (sequence,
-    frame); a ring of ``stages`` tiles per block of ``warps`` warps,
-    ``smem_bytes`` of shared memory."""
+    """A tile of the TMA-staged K3 / K7 / K14 bodies: ``sites`` consecutive
+    sites x ``heads`` heads x all frames of one batch row; ``rows`` query
+    frames per thread (1, or 2: f and Fq - 1 - f), ``split`` threads per
+    (sequence, query frame); a ring of ``stages`` tiles per block of
+    ``warps`` warps, ``smem_bytes`` of shared memory."""
     sites: int
     heads: int
     rows: int
@@ -82,36 +84,43 @@ def _align(x: int, a: int) -> int:
     return (x + a - 1) // a * a
 
 
-def seq_threads(f: int, rows: int, split: int) -> int:
-    """Threads of one (site, head) sequence, all in one warp."""
-    return -(-f // rows) * split
+def seq_threads(fq: int, rows: int, split: int) -> int:
+    """Threads of one (site, head) sequence of Fq query frames, all in one
+    warp."""
+    return -(-fq // rows) * split
 
 
-def tile_smem_bytes(f: int, d: int, sites: int, hg: int, rows: int, split: int, stages: int,
-                    warps: int, itemsize: int, backward: bool) -> int:
+def tile_smem_bytes(fq: int, fk: int, d: int, sites: int, hg: int, rows: int, split: int,
+                    stages: int, warps: int, itemsize: int, backward: bool) -> int:
     """Shared bytes of a tile (the layout csrc/temporal_tma.cuh ``plan``
-    checks): per stage one 128-aligned [F, sites, hg * d] slab of q, k, v
-    (and dO), an mbarrier per stage, and for the backward the fp32 P and dS
-    rows, F x (F + 1) each, of the sequences its warps hold at once."""
-    slab = _align(f * sites * hg * d * itemsize, 128)
-    total = stages * slab * (4 if backward else 3) + 8 * stages
+    checks): per stage a 128-aligned [Fq, sites, hg * d] slab of q (and of
+    dO), then one [Fk, sites, hg * d] slab each of k and v, an mbarrier per
+    stage, and for the backward (Fq = Fk) the fp32 P and dS rows, Fq x
+    (Fq + 1) each, of the sequences its warps hold at once."""
+    slab_q = _align(fq * sites * hg * d * itemsize, 128)
+    slab_kv = _align(fk * sites * hg * d * itemsize, 128)
+    total = stages * (slab_q * (2 if backward else 1) + 2 * slab_kv) + 8 * stages
     if backward:
-        spw = 32 // seq_threads(f, rows, split)
-        total = _align(total, 16) + warps * spw * 2 * f * (f + 1) * 4
+        spw = 32 // seq_threads(fq, rows, split)
+        total = _align(total, 16) + warps * spw * 2 * fq * (fq + 1) * 4
     return total
 
 
 @functools.cache  # called at every launch with a handful of distinct shapes
-def temporal_tile(f: int, d: int, heads: int, dtype: torch.dtype,
+def temporal_tile(fq: int, fk: int, d: int, heads: int, dtype: torch.dtype,
                   backward: bool) -> TemporalTile:
-    """The tile K3 (``backward`` False) or K7 launches with at F frames, head
-    dim d and ``heads`` heads:
-    - rows: for K3 two query frames per thread at F <= ``PAIR_FRAMES`` (one
-      load and conversion of each staged k or v chunk serves both), else
-      one; K7 takes one (two measured slower);
+    """The tile K3 (``backward`` False, Fq = Fk), K14 (the forward at Fq
+    local query frames against the Fk frames it stages, ``staged_kv_frames``)
+    or K7 (Fq = Fk) launches with at head dim d and ``heads`` heads:
+    - rows: for K3 two query frames per thread at F <= ``PAIR_FRAMES``
+      (one load and conversion of each staged k or v chunk serves both),
+      else one; K7 takes one (two measured slower), and so does K14 at
+      Fq < Fk, whose short q slab leaves too few threads for its staged
+      K/V bytes (at Fq = 2 of 8 frames two rows measured 1.4x slower);
     - split: threads per frame, the largest power of two up to
       ``MAX_SPLIT`` whose sequence still fits a warp and leaves two 8-channel
-      chunks to each thread (one where d has fewer than four);
+      chunks to each thread (one where d has fewer than four, and at
+      Fq < Fk, where the wider split measured faster);
     - heads: the widest head group whose box row fits ``BOX_MAX`` elements
       and whose block (one site, ``MAX_STAGES`` stages) stays under
       ``SMEM_TARGET`` bytes;
@@ -119,20 +128,22 @@ def temporal_tile(f: int, d: int, heads: int, dtype: torch.dtype,
       32 // ``seq_threads`` sequences) as far as the block stays under that
       target;
     - stages: ``MAX_STAGES``, the whole block within ``SMEM_LIMIT``."""
-    if not (1 <= f <= MAX_FRAMES and d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM):
-        raise ValueError(f"temporal_tile: unsupported F={f}, d={d}")
+    if not (1 <= fq <= MAX_FRAMES and 1 <= fk <= MAX_FRAMES and d % 8 == 0
+            and 8 <= d <= MAX_HEAD_DIM) or (backward and fq != fk):
+        raise ValueError(f"temporal_tile: unsupported Fq={fq}, Fk={fk}, d={d}")
     itemsize = torch.finfo(dtype).bits // 8
-    rows = 2 if f <= PAIR_FRAMES and not backward else 1
+    rows = 2 if fq == fk <= PAIR_FRAMES and not backward else 1
+    chunks = 2 if fq == fk else 1  # 8-channel chunks a split leaves each thread
     split = 1
-    while (split < MAX_SPLIT and seq_threads(f, rows, split * 2) <= 32
-           and 2 * (split * 2) <= d // 8):
+    while (split < MAX_SPLIT and seq_threads(fq, rows, split * 2) <= 32
+           and chunks * (split * 2) <= d // 8):
         split *= 2
-    spw = 32 // seq_threads(f, rows, split)
+    spw = 32 // seq_threads(fq, rows, split)
 
     def fit(sites, hg, stages):
         warps = min(TILE_WARPS, -(-sites * hg // spw))
-        return warps, tile_smem_bytes(f, d, sites, hg, rows, split, stages, warps, itemsize,
-                                      backward)
+        return warps, tile_smem_bytes(fq, fk, d, sites, hg, rows, split, stages, warps,
+                                      itemsize, backward)
 
     for hg in sorted((h for h in range(1, heads + 1) if heads % h == 0 and h * d <= BOX_MAX),
                      reverse=True):
@@ -143,7 +154,7 @@ def temporal_tile(f: int, d: int, heads: int, dtype: torch.dtype,
             break
     warps, smem = fit(sites, hg, MAX_STAGES)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"temporal_tile: no tile fits at F={f}, d={d}")
+        raise ValueError(f"temporal_tile: no tile fits at Fq={fq}, Fk={fk}, d={d}")
     return TemporalTile(sites, hg, rows, split, MAX_STAGES, warps, smem)
 
 
@@ -194,6 +205,13 @@ def _check(name, q, heads, *others):
     _build.check_operands(name, (q, *others))
 
 
+def _check_aligned(name, *tensors):
+    """The TMA boxes and the 16-byte stores of the bodies need every operand
+    on a 16-byte boundary; contiguous with d % 8 == 0, its rows then are."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: operands must start on a 16-byte boundary")
+
+
 def temporal_flash_attention(q, k, v, scale: float, heads: int,
                              causal: bool = True) -> torch.Tensor:
     """Temporal attention over [B, F, N, C] in the native token layout;
@@ -208,8 +226,9 @@ def temporal_flash_attention(q, k, v, scale: float, heads: int,
 
 def _temporal_kernel(q, k, v, scale, heads, causal):
     name = "temporal_flash_attention"
+    _check_aligned(name, q, k, v)
     b, f, n, c = q.shape
-    tile = temporal_tile(f, c // heads, heads, q.dtype, backward=False)
+    tile = temporal_tile(f, f, c // heads, heads, q.dtype, backward=False)
     out = torch.empty_like(q)
     code = _build.kernels().me_temporal_attention_tma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -226,10 +245,15 @@ def temporal_flash_attention_bwd(q, k, v, do, scale: float, heads: int, causal: 
     ``do``, recomputing the scores from (q, k, v)."""
     if q.device.type == "cpu":
         return temporal_flash_attention_bwd_plain(q, k, v, do, scale, heads, causal)
+    _check("temporal_flash_attention_bwd", q, heads, k, v, do)
+    return _temporal_bwd_kernel(q, k, v, do, scale, heads, causal)
+
+
+def _temporal_bwd_kernel(q, k, v, do, scale, heads, causal):
     name = "temporal_flash_attention_bwd"
-    _check(name, q, heads, k, v, do)
+    _check_aligned(name, q, k, v, do)
     b, f, n, c = q.shape
-    tile = temporal_tile(f, c // heads, heads, q.dtype, backward=True)
+    tile = temporal_tile(f, f, c // heads, heads, q.dtype, backward=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     code = _build.kernels().me_temporal_attention_bwd_tma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -298,9 +322,10 @@ def temporal_flash_attention_global(q, k, v, scale: float, heads: int, causal: b
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or k.shape[0] != q.shape[0] \
             or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"{name}: q {tuple(q.shape)} and K/V {tuple(k.shape)} do not fit")
-    if not temporal_flash_supported(k.shape[1], q.shape[3], heads) or q_offset < 0:
-        raise ValueError(f"{name}: unsupported Fk={k.shape[1]}, C={q.shape[3]}, heads={heads}, "
-                         f"q_offset={q_offset}")
+    if (not temporal_flash_supported(k.shape[1], q.shape[3], heads) or q_offset < 0
+            or q.shape[1] > MAX_FRAMES):
+        raise ValueError(f"{name}: unsupported Fq={q.shape[1]}, Fk={k.shape[1]}, C={q.shape[3]}, "
+                         f"heads={heads}, q_offset={q_offset}")
     _build.check_operands(name, (q, k, v))
     if needs_grad(q, k, v):
         return KernelWithPlainVJP.apply(
@@ -310,13 +335,26 @@ def temporal_flash_attention_global(q, k, v, scale: float, heads: int, causal: b
     return _temporal_global_kernel(q, k, v, scale, heads, causal, q_offset)
 
 
+def staged_kv_frames(fq: int, fk: int, causal: bool, q_offset: int) -> int:
+    """The K/V frames K14's tiles stage: a causal query frame f reads key
+    frames g <= f + q_offset, so only the first q_offset + Fq of them."""
+    return min(fk, q_offset + fq) if causal else fk
+
+
 def _temporal_global_kernel(q, k, v, scale, heads, causal, q_offset):
+    """K14 on K3's body: the entry takes Fq query frames at global offset
+    ``q_offset`` against Fk K/V frames and stages ``staged_kv_frames`` of
+    them, with the tile ``temporal_tile`` gives at Fq and that count."""
     name = "temporal_flash_attention_global"
+    _check_aligned(name, q, k, v)
     b, fq, n, c = q.shape
+    fk = k.shape[1]
+    tile = temporal_tile(fq, staged_kv_frames(fq, fk, causal, q_offset), c // heads, heads,
+                         q.dtype, backward=False)
     out = torch.empty_like(q)
-    code = _build.kernels().me_temporal_attention_global(
+    code = _build.kernels().me_temporal_attention_tma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, fq, k.shape[1], n, heads, c // heads, float(scale), int(causal), q_offset,
+        b, fq, fk, n, heads, c // heads, float(scale), int(causal), q_offset, *tile,
         _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
     )
     _build.check_status(name, code)

@@ -1,9 +1,13 @@
 """The routing rule between the two bodies of K1 (video_flash_attention),
-K2 (video_injection_attention), K8 (flash_attention), K12
-(video_flash_attention_kv), K13 (video_injection_attention_kv), K4
-(video_flash_fwd_res), K5 (video_flash_bwd_dq) and K6
-(video_flash_bwd_dkv): the dtype, the head dim and the rows' alignment
-decide, and nothing else (no fallback after a failed launch).
+K2 (video_injection_attention), K8 (flash_attention), K9
+(fused_injection_attention), K12 (video_flash_attention_kv), K13
+(video_injection_attention_kv), K4 (video_flash_fwd_res), K5
+(video_flash_bwd_dq) and K6 (video_flash_bwd_dkv): the dtype, the head
+dim and the rows' alignment decide (for K9 also K/V broadcast over the
+lead dims), and nothing else (no fallback after a failed launch); and the
+launches of the TMA-staged temporal bodies, K3, K7 and K14 (on K3's body):
+the entry, its (Fq, Fk, q_off) and tile, and a refusal of operands off a
+16-byte boundary before any launch.
 
 The rule is Python (ops/video_flash.py ``tensor_core_body`` and
 ``rows_aligned``, ops/video_flash_bwd.py ``fwd_res_tensor_core_body``,
@@ -23,6 +27,7 @@ from motioneditor_tpu_torch import _build
 from motioneditor_tpu_torch.ops import flash_attention as flash_mod
 from motioneditor_tpu_torch.ops import video_flash as video_mod
 from motioneditor_tpu_torch.ops.attention import split_heads
+from motioneditor_tpu_torch.ops import temporal_flash as temporal_mod
 from motioneditor_tpu_torch.ops import video_flash_bwd as bwd_mod
 from motioneditor_tpu_torch.ops.video_flash import rows_aligned, tensor_core_body
 from motioneditor_tpu_torch.ops.video_flash_bwd import (
@@ -34,10 +39,12 @@ from motioneditor_tpu_torch.ops.video_flash_bwd import (
 
 class RecordingLibrary:
     """Stands in for the kernel library: every ``me_*`` entry point records
-    its name and returns ``code`` (0: launched)."""
+    its name (``calls``) and arguments (``args``) and returns ``code`` (0:
+    launched)."""
 
     def __init__(self, code: int = 0):
         self.calls = []
+        self.args = []
         self.code = code
 
     def __getattr__(self, name):
@@ -46,6 +53,7 @@ class RecordingLibrary:
 
         def entry(*args):
             self.calls.append(name)
+            self.args.append(args)
             return self.code
 
         return entry
@@ -172,15 +180,67 @@ def test_flash_attention_launch_takes_the_routed_body(lib, case, tc):
         "flash_attention": 1, **({"flash_attention.tc": 1} if tc else {})}
 
 
-def test_injection_keeps_the_cuda_core_body(lib):
-    """K9 (the split-head injection) is not rerouted, even where K8 would be."""
-    q = torch.zeros((2, 3, 4, 100, 40), dtype=torch.bfloat16)
-    k = torch.zeros((2, 3, 4, 200, 40), dtype=torch.bfloat16)
-    mask = torch.zeros((3, 200))
-    flash_mod.launch_split_attention("fused_injection_attention", flash_mod._INJECTION_CODE,
-                                     q, k, k, 0.1, q, q, mask, 3)
+def _injection_case(case):
+    """(q, k_src, v_src, mask, k_tgt, v_tgt) of one K9 routing case, CPU
+    tensors: [B, F, H, N, d] with 3 frames, Ns = 2Nq source keys."""
+    if case in ("packed_views", "offset_views"):
+        # head-split views of packed [B, F, N, C] tensors, d = 40 (80-byte head
+        # offsets); "offset_views" 8 bytes off a 16-byte boundary
+        skip = 4 if case == "offset_views" else 0
+
+        def packed(n):
+            flat = torch.zeros((2 * 3 * n * 320 + skip,), dtype=torch.bfloat16)
+            return split_heads(flat[skip:].view(2, 3, n, 320), 8)
+
+        return packed(64), packed(128), packed(128), torch.zeros((3, 128)), packed(64), packed(64)
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    d = {"d9": 9, "d200": 200, "d160": 160}.get(case, 40)
+    q, kt = (torch.zeros((2, 3, 4, 100, d), dtype=dtype) for _ in range(2))
+    src_lead = (1, 1) if case == "broadcast" else (2, 3)  # broadcast: G stride 0
+    ks = torch.zeros((*src_lead, 4, 200, d), dtype=dtype)
+    return q, ks, ks, torch.zeros((3, 200)), kt, kt
+
+
+def _launch_injection(case):
+    q, ks, vs, mask, kt, vt = _injection_case(case)
+    out = flash_mod.launch_split_attention("fused_injection_attention",
+                                           flash_mod._INJECTION_CODE, q, ks, vs, 0.1, kt, vt,
+                                           mask, q.shape[1])
+    assert out.shape == q.shape and out.dtype == q.dtype
+
+
+@pytest.mark.parametrize("case", ["fp32", "d9", "d200", "offset_views", "broadcast"])
+def test_injection_keeps_the_cuda_core_body(lib, case):
+    """K9 (the split-head injection) keeps the CUDA-core body where K8's
+    rule declines the tensor cores (fp32, d % 8 != 0, d > 160, a row off a
+    16-byte boundary) and where a K/V view broadcasts over the lead dims (the
+    injection instantiation reads K/V group g for query group g)."""
+    _launch_injection(case)
     assert lib.calls == ["me_split_attention"]
     assert dict(_build.launch_counts) == {"fused_injection_attention": 1}
+
+
+@pytest.mark.parametrize("case", ["plain", "packed_views", "d160"])
+def test_injection_takes_the_tensor_core_body(lib, case):
+    """K9 in bf16 with d % 8 == 0, d <= 160, aligned rows and unbroadcast
+    K/V takes the injection instantiation of the tensor-core body through
+    ``me_split_injection_tc``, with its 18 strides, and counts ``.tc``."""
+    _launch_injection(case)
+    assert lib.calls == ["me_split_injection_tc"]
+    args = lib.args[0]
+    g, h, nq, ns, nt, frames = args[8:14]
+    assert (g, frames) == (6, 3) and ns == 2 * nq and nt == nq
+    assert len(args[7]) == 18 and all(args[7][i] for i in (3, 6, 9, 12))
+    assert dict(_build.launch_counts) == {"fused_injection_attention": 1,
+                                          "fused_injection_attention.tc": 1}
+
+
+def test_failed_split_injection_launch_raises_and_is_not_retried(lib):
+    lib.code = 1  # cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        _launch_injection("plain")
+    assert lib.calls == ["me_split_injection_tc"]
+    assert not _build.launch_counts
 
 
 def test_a_failed_launch_raises_and_is_not_retried(lib):
@@ -490,3 +550,70 @@ def test_fwd_res_takes_the_plain_version_on_the_cpu(lib):
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=0, rtol=0)
     assert lib.calls == [] and not _build.launch_counts
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("fq,fk,q_off,staged", [
+    (8, 8, 0, 8),     # one rank
+    (2, 8, 0, 2),     # the shards of a 4-way split of 8 frames: causal, shard 0
+    (2, 8, 2, 4),     # reads key frames 0-3, shard 3 all 8
+    (2, 8, 6, 8),
+    (3, 24, 9, 12),   # one row per thread (Fk > 8)
+    (1, 32, 31, 32),
+])
+def test_temporal_global_launch_takes_k3_body(lib, dtype, causal, fq, fk, q_off, staged):
+    """K14 launches K3's TMA-staged body with its (Fq, Fk, q_off) and the
+    tile ``temporal_tile`` gives at Fq and the K/V frames its queries read
+    (causal: the first q_off + Fq; else all Fk), and counts under its own
+    name."""
+    c, heads = 320, 8
+    q = torch.zeros((2, fq, 50, c), dtype=dtype)
+    kv = torch.zeros((2, fk, 50, c), dtype=dtype)
+    out = temporal_mod._temporal_global_kernel(q, kv, kv, 0.1, heads, causal, q_off)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lib.calls == ["me_temporal_attention_tma"]
+    args = lib.args[0]
+    assert args[4:10] == (2, fq, fk, 50, heads, c // heads)
+    assert args[11:13] == (int(causal), q_off)
+    fs = staged if causal else fk
+    assert temporal_mod.staged_kv_frames(fq, fk, causal, q_off) == fs
+    tile = temporal_mod.temporal_tile(fq, fs, c // heads, heads, dtype, False)
+    assert args[13:20] == tuple(tile) and args[20] == _build.DTYPE_CODES[dtype]
+    assert dict(_build.launch_counts) == {"temporal_flash_attention_global": 1}
+
+
+def _temporal_launch(kernel, q, k, v):
+    if kernel == "K3":
+        return temporal_mod._temporal_kernel(q, k, v, 0.1, 8, True)
+    if kernel == "K7":
+        return temporal_mod._temporal_bwd_kernel(q, k, v, torch.zeros_like(k), 0.1, 8, True)
+    return temporal_mod._temporal_global_kernel(q, k, v, 0.1, 8, True, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["K3", "K7", "K14"])
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_temporal_rejects_misaligned_rows(lib, dtype, kernel, operand):
+    """The TMA-staged temporal bodies (K3, K7, and K14 on K3's) read their
+    slabs as TMA boxes and store 16-byte vectors: a contiguous operand whose
+    base is 8 bytes off a 16-byte boundary raises before any launch
+    (ROADMAP C3)."""
+    fq = 2 if kernel == "K14" else 8
+    ops = {"q": (1, fq, 64, 320), "k": (1, 8, 64, 320), "v": (1, 8, 64, 320)}
+    xs = {name: _off(shape, dtype) if name == operand else torch.zeros(shape, dtype=dtype)
+          for name, shape in ops.items()}
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        _temporal_launch(kernel, *xs.values())
+    assert lib.calls == [] and not _build.launch_counts
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K7", "K14"])
+def test_temporal_launch_on_aligned_rows(lib, kernel):
+    """The same launches on aligned operands reach their entry once."""
+    fq = 2 if kernel == "K14" else 8
+    q = torch.zeros((1, fq, 64, 320), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 64, 320), dtype=torch.bfloat16)
+    _temporal_launch(kernel, q, k, k)
+    assert lib.calls == ["me_temporal_attention_bwd_tma" if kernel == "K7"
+                         else "me_temporal_attention_tma"]

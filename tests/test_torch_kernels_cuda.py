@@ -11,11 +11,12 @@ supported head-dim bucket and F up to 24 (32 for the temporal backward).
 The TMA-staged temporal bodies (K3, K7) also run at the edges of their
 tiles (ops/temporal_flash.py ``temporal_tile``): N one past a multiple of
 the tile's sites, N under one tile, F = 1, d = 8 and d = 160, and K7 at
-F = 32 with d = 160; K14's body at Fq = Fk, q_off = 0 is held to K3's
-plain version.
-In bf16, K1, K2, K8, K12, K13 and K4 run the tensor-core body
-(csrc/attention_tc.cu; K2 and K13 its injection instantiation) where
-ops/video_flash.py ``tensor_core_body`` routes them, K5 and K6 their
+F = 32 with d = 160; K14, on K3's body, at Fq < Fk and global offsets
+q_off > 0, N ragged against its own tile.
+In bf16, K1, K2, K8, K9, K12, K13 and K4 run the tensor-core body
+(csrc/attention_tc.cu; K2, K9 and K13 its injection instantiation) where
+ops/video_flash.py ``tensor_core_body`` routes them (K9 with K/V not
+broadcast over the lead dims), K5 and K6 their
 own (csrc/attention_dq_tc.cu, csrc/attention_bwd_tc.cu) where
 ops/video_flash_bwd.py ``dq_tensor_core_body`` and ``dkv_tensor_core_body``
 do, and the tests whose names hold ``tc`` assert that they did. The split-head kernels (K8, K9)
@@ -34,7 +35,7 @@ magnitude 4 is already 0.031), on inputs whose logits stay far below the
 JAX bf16 kernels' clamp of 60; the bf16 K1 and K8 cases are also held to
 errors scaled to the reference (chip_smoke.py ``scaled_error``), since on
 these inputs an output's RMS, about sqrt(e / keys), falls below that atol;
-so are the bf16 K12 and K4 outputs, K2's and K13's (with binary,
+so are the bf16 K12 and K4 outputs, K2's, K9's and K13's (with binary,
 fractional, all-0, all-1 and mixed masks, since every binary mask gives the
 same output), K5's dQ against the fp32 plain dQ and K6's fp32 dK / dV
 partials against the plain partials.
@@ -60,6 +61,7 @@ from motioneditor_tpu_torch.ops.temporal_flash import (
     temporal_flash_attention_bwd,
     temporal_flash_attention_bwd_plain,
     temporal_flash_attention_plain,
+    staged_kv_frames,
     temporal_tile,
 )
 from motioneditor_tpu_torch.ops.video_flash import (
@@ -230,7 +232,7 @@ def _tile_n(n, f, c, heads, dtype, backward):
     a multiple of S, "3S+1", or "S//2" under one tile."""
     if isinstance(n, int):
         return n
-    s = temporal_tile(f, c // heads, heads, dtype, backward).sites
+    s = temporal_tile(f, f, c // heads, heads, dtype, backward).sites
     return {"S+1": s + 1, "3S+1": 3 * s + 1, "S//2": max(1, s // 2)}[n]
 
 
@@ -262,17 +264,37 @@ def test_temporal_flash_kernel(device, dtype, causal, b, f, n, c, heads):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_temporal_old_body_matches_k3(device, dtype):
-    """K14's body (csrc/temporal_attention.cu, K3's until the TMA-staged one
-    took K3) at Fq = Fk and q_off = 0 against K3's plain version."""
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,fq,fk,n,c,heads,q_off", [
+    (2, 2, 8, "S+1", 320, 8, 0),      # the first shard of a 4-way split: 2 K/V frames staged
+    (2, 2, 8, "S+1", 320, 8, 6),      # the last shard, d = 40
+    (2, 2, 8, "3S+1", 640, 8, 2),     # d = 80
+    (1, 1, 8, "S//2", 1280, 8, 7),    # one query frame, d = 160, N under one tile
+    (1, 4, 16, "S+1", 320, 8, 12),    # one row per thread (Fk > 8)
+    (2, 3, 24, "S+1", 32, 4, 9),      # d = 8
+    (1, 2, 32, 77, 640, 8, 30),       # the most frames
+])
+def test_temporal_global_tma_kernel(device, dtype, causal, b, fq, fk, n, c, heads, q_off):
+    """K14 on K3's TMA-staged body at Fq < Fk and q_off >= 0, N ragged
+    against its tile (``temporal_tile`` at Fq and the K/V frames it stages),
+    against its plain version and against K3 over all frames, of which it
+    is a slice."""
+    if not isinstance(n, int):
+        fs = staged_kv_frames(fq, fk, causal, q_off)
+        s = temporal_tile(fq, fs, c // heads, heads, dtype, False).sites
+        n = {"S+1": s + 1, "3S+1": 3 * s + 1, "S//2": max(1, s // 2)}[n]
     gen = torch.Generator(device=device).manual_seed(3)
-    b, f, n, c, heads = 2, 8, 333, 320, 8
-    q, k, v = (_rand((b, f, n, c), dtype, device, gen) for _ in range(3))
+    whole_q, k, v = (_rand((b, fk, n, c), dtype, device, gen) for _ in range(3))
+    q = whole_q[:, q_off:q_off + fq].contiguous()
     scale = (c // heads) ** -0.5
-    out = temporal_flash_attention_global(q, k, v, scale, heads, True, 0)
+    _build.reset_launch_counts()
+    out = temporal_flash_attention_global(q, k, v, scale, heads, causal, q_off)
     torch.cuda.synchronize()
-    ref = temporal_flash_attention_plain(q, k, v, scale, heads, causal=True)
+    assert dict(_build.launch_counts) == {"temporal_flash_attention_global": 1}
+    ref = temporal_flash_attention_global_plain(q, k, v, scale, heads, causal, q_off)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    whole = temporal_flash_attention(whole_q, k, v, scale, heads, causal=causal)
+    torch.testing.assert_close(out.float(), whole[:, q_off:q_off + fq].float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -363,17 +385,65 @@ def test_flash_attention_tc_on_split_views(device, b, f, n, c, heads, offset):
 @pytest.mark.parametrize("b,f,h,nq,d", [(2, 4, 8, 1024, 40), (2, 3, 4, 333, 9),
                                         (1, 2, 8, 200, 80), (1, 2, 2, 100, 200)])
 def test_fused_injection_kernel(device, dtype, b, f, h, nq, d):
+    """K9 on either body (bf16 at d = 40 and 80 on the tensor cores) against
+    the plain version."""
     gen = torch.Generator(device=device).manual_seed(9)
     q = _rand((b, f, h, nq, d), dtype, device, gen)
     ks, vs = (_rand((b, f, h, 2 * nq, d), dtype, device, gen) for _ in range(2))
     kt, vt = (_rand((b, f, h, nq, d), dtype, device, gen) for _ in range(2))
     mask = (torch.rand((f, 2 * nq), generator=gen, device=device) > 0.5).float()
-    before = _build.launch_counts["fused_injection_attention"]
+    _build.reset_launch_counts()
     out = fused_injection_attention(q, ks, vs, mask, kt, vt, d ** -0.5)
     torch.cuda.synchronize()
-    assert _build.launch_counts["fused_injection_attention"] == before + 1
+    tc = dtype == torch.bfloat16 and d % 8 == 0 and d <= 160
+    assert dict(_build.launch_counts) == {"fused_injection_attention": 1,
+                                          **({"fused_injection_attention.tc": 1} if tc else {})}
     ref = fused_injection_attention_plain(q, ks, vs, mask, kt, vt, d ** -0.5)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    if tc:
+        scaled_error(out, ref)
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("b,f,nq,ns,c,heads,packed", [
+    (2, 3, 200, 400, 320, 8, True),     # d = 40, head-split views of packed tensors
+    (2, 4, 1024, 2048, 320, 8, False),  # d = 40, the auto path at 32x32 latents' N
+    (1, 3, 333, 555, 640, 8, True),     # d = 80, ragged Nq and Ns
+    (2, 2, 1000, 2000, 640, 8, False),  # d = 80, ragged
+    (1, 3, 130, 77, 1280, 8, False),    # d = 160, fewer source keys than one tile
+])
+def test_fused_injection_tc_kernel(device, mask_kind, b, f, nq, ns, c, heads, packed):
+    """K9's bf16 body, the injection instantiation on split-head views,
+    against the plain version in fp32 on the same bf16 inputs (the bf16
+    plain version rounds m and K*m to bf16, which the kernel does not:
+    chip_smoke.py ``INJECTION_MASKS``), at the tolerance and the scaled
+    limits; packed views are those ``split_heads`` makes of [B, F, N, C]
+    (80-byte head offsets at d = 40), read and written in place."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    d = c // heads
+
+    def operand(n):
+        x = split_heads(_rand((b, f, n, c), torch.bfloat16, device, gen), heads)
+        return x if packed else x.contiguous()
+
+    q, kt, vt = (operand(nq) for _ in range(3))
+    ks, vs = (operand(ns) for _ in range(2))
+    mask = fg_mask(mask_kind, (f, ns), device, gen)
+    scale = d ** -0.5
+    _build.reset_launch_counts()
+    out = fused_injection_attention(q, ks, vs, mask, kt, vt, scale)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"fused_injection_attention": 1,
+                                          "fused_injection_attention.tc": 1}
+    ref = fused_injection_attention_plain(*(t.float() for t in (q, ks, vs)), mask,
+                                          *(t.float() for t in (kt, vt)), scale)
+    top = q.float().norm(dim=-1).amax().item() * scale
+    assert max(x.float().norm(dim=-1).amax().item() for x in (ks, kt)) * top < LOGIT_CAP
+    for h in (0, heads - 1):
+        torch.testing.assert_close(out[:, :, h].float(), ref[:, :, h], **TOL[torch.bfloat16])
+        scaled_error(out[:, :, h], ref[:, :, h])
+    torch.testing.assert_close(out.float(), ref, **TOL[torch.bfloat16])
+    scaled_error(out, ref)
 
 
 def test_wrapper_rejects_bad_operands(device):
@@ -403,7 +473,7 @@ def assert_grads_close(got, ref, dtype):
 
 def _grad_case(row, dtype, device, gen):
     """(wrapper fn, plain fn, inputs, the kernels its grad path launches)."""
-    tc = dtype == torch.bfloat16  # K8 and dense K1 forwards take the tensor-core body
+    tc = dtype == torch.bfloat16  # K8, K9 and dense K1 forwards take the tensor-core body
     if row in ("flash", "flash_broadcast"):
         kv_shape = (2, 3, 4, 200, 40) if row == "flash" else (2, 1, 4, 333, 40)
         xs = [_rand((2, 3, 4, 200, 40), dtype, device, gen),
@@ -420,7 +490,8 @@ def _grad_case(row, dtype, device, gen):
             return lambda q, ks, vs, kt, vt: fn(q, ks, vs, mask, kt, vt, 0.25)
 
         return (with_mask(fused_injection_attention), with_mask(fused_injection_attention_plain),
-                xs, ("fused_injection_attention",))
+                xs, ("fused_injection_attention",)
+                + (("fused_injection_attention.tc",) if tc else ()))
     if row == "temporal":
         b, f, n, c, heads = 2, 8, 200, 320, 8
         xs = [_rand((b, f, n, c), dtype, device, gen) for _ in range(3)]
@@ -453,7 +524,7 @@ def test_wrapper_gradients_match_plain(device, dtype, row):
     sum(out**2) with respect to every input match the plain version's, and
     the grad path launches its kernels (K4-K7, or the kernel forward with
     the plain VJP for dense, injection, K8 and K9; in bf16 the dense K1,
-    the K2 and the K8 forwards are the tensor-core body's)."""
+    the K2, the K8 and the K9 forwards are the tensor-core body's)."""
     gen = torch.Generator(device=device).manual_seed(5)
     fn, plain, xs, kernels = _grad_case(row, dtype, device, gen)
     xs = [x.requires_grad_() for x in xs]
