@@ -85,10 +85,13 @@ Phases, each raising on failure:
               decline (d = 9), where K8 and K9 launch on their CUDA-core
               body (no ".tc" count)
   3c. norm    (run after phase 3b) the GroupNorm pair statistics (K10) at
-              [1, 32768, 320] (x, x) and (dy, x), [8, 4096, 320] and
-              [1, 512, 2560], and the fused add + LayerNorm (K11) at
-              [1, 8, 4096, 320] and [1, 8, 1024, 640], against their plain
-              versions in bf16 and fp32, with times; the GroupNorm Function's
+              [1, 32768, 320] (x, x) and (dy, x), [8, 4096, 320],
+              [1, 512, 2560] and the 24-frame [1, 98304, 320], every launch
+              on its 16-byte body and bit-identical twice, with times, byte
+              bounds and shares and the launch plan, and the fused add +
+              LayerNorm (K11) at [1, 8, 4096, 320] and [1, 8, 1024, 640],
+              against their plain versions in bf16 and fp32; the GroupNorm
+              Function's
               dx, dscale and dbias against autograd of the plain group_norm;
               F.group_norm and add + F.layer_norm timed as yardsticks
   9. train check  a tiny fp32 stage-1 step and stage-2 step with
@@ -102,9 +105,13 @@ Phases, each raising on failure:
               steps each with both knobs on, asserting finite losses, that
               only the trainables moved and the per-step launch counts; then
               the same steps with both knobs off; ms per step and peak memory;
-              one more stage-1 step (knobs on) under torch.profiler: the
-              device's busy share and kernel time per bucket (K4, K5, K6 and
-              K7 each their own)
+              with the knobs on, K10's calls of one more step of each stage
+              by shape (stage 1's forward shapes must be the UNet's
+              GroupNorms, unet_group_norm_shapes), then one more step of
+              each stage under torch.profiler: the device's busy share,
+              kernel time and kernels per bucket (K4, K5, K6, K7, K10 and
+              K11 each their own), one K10 kernel per K10 call, and K10's
+              device ms beside its byte bound summed over the step
   3d. kv      (run after phase 3c) the frame-sharded path's kernels against
               their plain versions in bf16 and fp32: K12 (explicit-K/V
               attention) at q [2, 8, 4096, 320] over motion_frame K/V
@@ -224,29 +231,75 @@ PIPE_STEPS, PIPE_START = 5, 3  # phase 7: 3 vanilla steps, then 2 injected
 EXPECTED_PER_VANILLA_STEP = tc({"video_flash_attention": 26, "temporal_flash_attention": 16})
 AUTO_SHAPES = ((4096, 40), (1024, 80))  # (N, d) of the auto path's K8 / K9 calls
 # K10 [B, S, C] at 512 px and 8 frames: a pooled level-0 resnet GroupNorm, the
-# per-frame transformer one, the widest up-block input; K11 [B, F, N, C] at the
-# two gated levels
-PAIR_STATS_SHAPES = ((1, 32768, 320), (8, 4096, 320), (1, 512, 2560))
+# per-frame transformer one, the widest up-block input; the pooled level-0
+# GroupNorm at 24 frames; K11 [B, F, N, C] at the two gated levels
+PAIR_STATS_SHAPES = ((1, 32768, 320), (8, 4096, 320), (1, 512, 2560), (1, 98304, 320))
 ADD_LN_SHAPES = ((1, 8, 4096, 320), (1, 8, 1024, 640))
 TRAIN_STEPS = 3
+
+
+def unet_group_norm_shapes(channels=(320, 640, 1280, 1280), layers: int = 2, batch: int = 1,
+                           frames: int = FRAMES, latent: int = LATENT) -> list:
+    """The [B, S, C] of every GroupNorm statistics call of one forward of the
+    video UNet (models/unet.py ``unet_apply``; the SD-1.5 widths by
+    default), in order: each resnet's norm1 and norm2 pool over the frames
+    (B = batch, S = frames x H x W), each transformer's norm is per frame
+    (B = batch x frames, S = H x W; none in the last down block and the
+    first up block), then conv_norm_out. The up path's resnets take the
+    skip connections' channels on top of their input's."""
+    shapes = []
+    side, cin, skips = latent, channels[0], [channels[0]]
+    last = len(channels) - 1
+
+    def resnet(c_in, c_out):
+        shapes.extend([(batch, frames * side * side, c_in), (batch, frames * side * side, c_out)])
+
+    for i, c in enumerate(channels):
+        for _ in range(layers):
+            resnet(cin, c)
+            cin = c
+            if i < last:
+                shapes.append((batch * frames, side * side, c))
+            skips.append(c)
+        if i < last:
+            side //= 2
+            skips.append(c)
+    resnet(cin, cin)
+    shapes.append((batch * frames, side * side, cin))
+    resnet(cin, cin)
+    for i, c in enumerate(reversed(channels)):
+        for _ in range(layers + 1):
+            resnet(cin + skips.pop(), c)
+            cin = c
+            if i > 0:
+                shapes.append((batch * frames, side * side, c))
+        if i < last:
+            side *= 2
+    shapes.append((batch, frames * side * side, cin))
+    return shapes
+
+
 # per training step, gradient checkpointing on, both knobs on (derived in
 # PERF.md): stage 1 trains attn1.to_q / attn2.to_q / attn_temp of every block,
 # so the 10 gated attn1 sites take K4 (again in the recompute) and K5 / K6,
 # the 10 gated attn_temp sites K3 (twice) and K7; K10 61 forward + 58
-# recomputed + 58 backward; K11 30 forward + 30 recomputed
+# recomputed + 58 backward, every launch on its 16-byte body (".vec": every
+# SD-1.5 width is a multiple of 8); K11 30 forward + 30 recomputed
 EXPECTED_PER_STAGE1_STEP = tc({
     "video_flash_fwd_res": 20, "video_flash_bwd_dq": 10, "video_flash_bwd_dkv": 10,
     "temporal_flash_attention": 20, "temporal_flash_attention_bwd": 10,
-    "channel_pair_stats": 177, "add_layer_norm": 60,
+    "channel_pair_stats": 177, "channel_pair_stats.vec": 177, "add_layer_norm": 60,
 })
 # stage 2: the ControlNet (no grad) K1 4, K10 27, K11 8; the UNet's down path
 # (no grad) K1 4, K3 4; the adapter (blocks 0-5 gated) K4 12, K3 6; the up
 # path K4 6 + 6 recomputed, K3 6 + 6; backward K5 / K6 12 + 6, K7 6 + 6; K10
-# 61 forward + 33 recomputed + 34 backward; K11 30 forward + 18 recomputed
+# 61 forward + 33 recomputed + 34 backward, all ".vec"; K11 30 forward + 18
+# recomputed
 EXPECTED_PER_STAGE2_STEP = tc({
     "video_flash_attention": 8, "video_flash_fwd_res": 24, "video_flash_bwd_dq": 18,
     "video_flash_bwd_dkv": 18, "temporal_flash_attention": 22,
-    "temporal_flash_attention_bwd": 12, "channel_pair_stats": 155, "add_layer_norm": 56,
+    "temporal_flash_attention_bwd": 12, "channel_pair_stats": 155,
+    "channel_pair_stats.vec": 155, "add_layer_norm": 56,
 })
 NORM_KERNELS = ("channel_pair_stats", "add_layer_norm")
 KV_KERNELS = ("video_flash_attention_kv", "video_injection_attention_kv",
@@ -1562,14 +1615,17 @@ def phase_norm_kernels(device):
     import torch.nn.functional as F
     from torch import nn
 
+    from motioneditor_tpu_torch import _build
     from motioneditor_tpu_torch.models.layers import group_norm
     from motioneditor_tpu_torch.ops.fused_norm import add_layer_norm, add_layer_norm_plain
     from motioneditor_tpu_torch.ops.gn_stats import (
         channel_pair_stats,
         channel_pair_stats_plain,
+        pair_stats_plan,
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
     results = {name: {"max_abs_err": 0.0, "library_ms": None} for name in NORM_KERNELS}
     yardsticks = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1580,8 +1636,11 @@ def phase_norm_kernels(device):
             for pair, (a, b) in (("x,x", (x, x)), ("dy,x", (dy, x))):
                 fn = lambda: channel_pair_stats(a, b)  # noqa: E731
                 plain = lambda: channel_pair_stats_plain(a, b)  # noqa: E731
+                vec = _build.launch_counts["channel_pair_stats.vec"]
                 got = fn()
                 torch.cuda.synchronize()
+                if _build.launch_counts["channel_pair_stats.vec"] != vec + 1:
+                    raise AssertionError(f"K10 {shape} did not take its 16-byte body")
                 ref = plain()
                 af, bf = a.float(), b.float()
                 err = max(sum_tolerance(af.abs().sum(1), got[0], ref[0], f"K10 s1 {shape}"),
@@ -1594,12 +1653,18 @@ def phase_norm_kernels(device):
                 r = results["channel_pair_stats"]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 at = f"{dt} {list(shape)} ({pair})"
+                # each input read once (a once when b is a), both [B, C] fp32 sums written
+                moved = nbytes(a) + (0 if b is a else nbytes(b)) + 2 * got[0].numel() * 4
+                bd = bound(3.0 * a.numel(), moved, dtype)
                 log(f"[norm] channel_pair_stats {at}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
-                    f"({KERNEL_REPS} launches), plain {plain_ms:.4f} ms")
+                    f"({KERNEL_REPS} launches), {100 * bd['bound_ms'] / ms:.1f}% of the "
+                    f"{bd['bound_ms']:.4f} ms byte bound, plain {plain_ms:.4f} ms; plan "
+                    f"{tuple(pair_stats_plan(*shape, dtype, sm_count, True, b is a))}")
+                if dtype == torch.bfloat16:
+                    tag = "x".join(map(str, shape)) + ("" if b is a else "_dyx")
+                    r[f"ms_{tag}"], r[f"bound_ms_{tag}"] = ms, bd["bound_ms"]
                 if dtype == torch.bfloat16 and shape == PAIR_STATS_SHAPES[0] and pair == "x,x":
-                    moved = nbytes(a) + 2 * got[0].numel() * 4
-                    r.update(ms=ms, plain_ms=plain_ms, at=at,
-                             **bound(3.0 * a.numel(), moved, dtype))
+                    r.update(ms=ms, plain_ms=plain_ms, at=at, **bd)
                     # yardstick: one GroupNorm, statistics and normalization, on a
                     # channels-first copy made before the timing
                     xc = a.transpose(1, 2).contiguous()
@@ -1774,7 +1839,7 @@ def phase_train(device):
         cn = ControlNetModel(cn_config)
     init_params(cn, gen)
     cn.to(dtype).requires_grad_(False)
-    metrics, paths = {}, {}
+    metrics, paths, histograms, profiles = {}, {}, {}, {}
     for stage, modules, expected in (
             ("stage1", stage1.TRAINABLE_MODULES, EXPECTED_PER_STAGE1_STEP),
             ("stage2", stage2.TRAINABLE_MODULES, EXPECTED_PER_STAGE2_STEP)):
@@ -1801,16 +1866,46 @@ def phase_train(device):
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
                 launches = dict(_build.launch_counts)
+                if on:  # K10's calls of one more step by [B, S, C], dtype and pair
+                    with recorded_pair_stats() as calls:
+                        step(TRAIN_STEPS + 1)
+                    histograms[stage] = pair_stats_histogram(calls)
+                    log(f"[train] {stage} K10 calls of one step by shape: "
+                        f"{json.dumps(histograms[stage])}")
             losses = [float(x) for x in losses]
             peak = torch.cuda.max_memory_allocated() / 2**30
             metrics[f"{stage}_ms_per_step_knobs_{key}"] = ms
             metrics[f"{stage}_peak_gib_knobs_{key}"] = peak
             log(f"[train] {stage} knobs {key}: {TRAIN_STEPS} steps, {ms:.1f} ms/step, peak "
                 f"{peak:.2f} GiB, losses {losses}, launches {launches}")
-            if stage == "stage1" and on:  # one more step under torch.profiler
-                with norm_knobs(on):
-                    profile = profile_step(lambda: step(TRAIN_STEPS + 1))
-                log(f"[train] profiled stage-1 step: {json.dumps(profile)}")
+            if on:  # one more step under torch.profiler
+                calls = expected["channel_pair_stats"]
+                for attempt in range(3):  # the profiler at times drops kernel records
+                    with norm_knobs(on):
+                        _build.reset_launch_counts()
+                        profiles[stage] = profile_step(lambda: step(TRAIN_STEPS + 2 + attempt))
+                    k10 = k10_in_step(profiles[stage], histograms[stage])
+                    # each K10 call is one device kernel
+                    if (_build.launch_counts["channel_pair_stats"] != calls
+                            or k10["launches"] > calls):
+                        raise AssertionError(f"the profiled {stage} step ran {k10['launches']} "
+                                             f"K10 kernels for {dict(_build.launch_counts)}")
+                    if k10["launches"] == calls:
+                        break
+                    log(f"[train] the profiler returned {k10['launches']} of {calls} K10 "
+                        f"kernels; profiling another {stage} step")
+                else:
+                    raise AssertionError(f"the profiler never returned {calls} K10 kernels")
+                log(f"[train] profiled {stage.replace('stage', 'stage-')} step: "
+                    f"{json.dumps(profiles[stage])}")
+                metrics[f"{stage}_k10"] = k10
+                log(f"[train] K10 in the profiled {stage} step: {json.dumps(k10)}")
+            if stage == "stage1" and on:
+                forward = {(b, s, c) for b, s, c, dt, pair, n in histograms[stage]
+                           if pair == "x,x"}
+                if forward != set(unet_group_norm_shapes()):
+                    raise AssertionError(f"stage-1 K10 shapes {sorted(forward)} are not the "
+                                         "UNet's GroupNorms")
             if not all(math.isfinite(v) for v in losses):
                 raise AssertionError(f"{stage}: losses are not finite: {losses}")
             moved = {n for n, p in unet.named_parameters() if not torch.equal(p, before[n])}
@@ -1818,7 +1913,7 @@ def phase_train(device):
                 raise AssertionError(f"{stage}: frozen parameters moved: "
                                      f"{sorted(moved - set(state.trainable))[:5]}")
             want = expected if on else {k: v for k, v in expected.items()
-                                        if k not in NORM_KERNELS}
+                                        if k.split(".")[0] not in NORM_KERNELS}
             expect_counts(f"{stage} knobs {key}", launches, want, TRAIN_STEPS)
             if on:
                 paths[stage] = launches
@@ -1826,7 +1921,50 @@ def phase_train(device):
             torch.cuda.empty_cache()
     del cn
     torch.cuda.empty_cache()
-    return paths, metrics, profile
+    metrics["k10_calls_per_step"] = histograms
+    metrics["stage2_profile"] = profiles["stage2"]
+    return paths, metrics, profiles["stage1"]
+
+
+def k10_in_step(profile: dict, histogram: list) -> dict:
+    """K10's kernels in a profiled step: launches and device ms, beside the
+    byte bound summed over the step's calls (``histogram``, recorded on
+    another step of the same shapes)."""
+    moved = sum(n * (b * s * c * (2 if dt == "bfloat16" else 4) * (1 if pair == "x,x" else 2)
+                     + 2 * b * c * 4) for b, s, c, dt, pair, n in histogram)
+    ms = profile["buckets_ms"].get(K10_BUCKET, 0.0)
+    bound_ms = moved / PEAK_BYTES * 1e3
+    return {"launches": profile["launches"].get(K10_BUCKET, 0), "calls": sum(
+        row[-1] for row in histogram), "device_ms": ms, "bound_ms": bound_ms,
+        "share": bound_ms / ms if ms else None}
+
+
+@contextlib.contextmanager
+def recorded_pair_stats():
+    """Records (B, S, C, dtype, pair) of every K10 call inside, through the
+    module attribute that the GroupNorm Function calls."""
+    from motioneditor_tpu_torch.ops import gn_stats
+
+    calls, real = [], gn_stats.channel_pair_stats
+
+    def record(a, b):
+        calls.append((*a.shape, str(a.dtype)[6:], "x,x" if b is a else "dy,x"))
+        return real(a, b)
+
+    gn_stats.channel_pair_stats = record
+    try:
+        yield calls
+    finally:
+        gn_stats.channel_pair_stats = real
+
+
+def pair_stats_histogram(calls) -> list:
+    """[B, S, C, dtype, pair, calls] rows, the most bytes first."""
+    counts: dict = {}
+    for call in calls:
+        counts[call] = counts.get(call, 0) + 1
+    return [[*k, n] for k, n in sorted(counts.items(),
+                                       key=lambda kv: (-kv[0][0] * kv[0][1] * kv[0][2], kv[0]))]
 
 
 def motion_frame_kv(x):
@@ -2056,6 +2194,7 @@ def device_busy_share(fn) -> dict:
 
 # device-time buckets of a profiled step: the first whose substrings the
 # kernel's name contains (lower case)
+K10_BUCKET = "K10 GroupNorm pair statistics (pair_stats)"
 PROFILE_BUCKETS = (
     ("K4 forward with lse (attention_tc_lse)", ("attention_tc_lse",)),
     ("K5 dq (attention_tc_dq)", ("attention_tc_dq",)),
@@ -2069,6 +2208,8 @@ PROFILE_BUCKETS = (
     ("cuBLAS / CUTLASS matmuls", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
     ("cuDNN convs (+ layout kernels)", ("conv", "cudnn", "implicit", "nchw", "nhwc")),
     ("copies / cat / index", ("copy", "cat", "index", "gather", "scatter")),
+    (K10_BUCKET, ("pair_stats",)),
+    ("K11 add + LayerNorm (add_layer_norm)", ("add_layer_norm",)),
     ("norm and other reductions", ("norm", "welford", "reduce")),
     ("softmax", ("softmax",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "pointwise")),
@@ -2078,7 +2219,7 @@ PROFILE_BUCKETS = (
 def profile_step(fn) -> dict:
     """One call of ``fn`` (one step, ending in a synchronize) under
     torch.profiler: wall ms, the device's busy share (the union of kernel
-    intervals over the wall time) and kernel time in ms per bucket."""
+    intervals over the wall time), kernel time in ms and kernels per bucket."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2091,14 +2232,17 @@ def profile_step(fn) -> dict:
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     buckets: dict = {}
+    launches: dict = {}
     for e in kernels:
         name = e.name.lower()
         bucket = next((b for b, keys in PROFILE_BUCKETS if any(k in name for k in keys)),
                       "other")
         buckets[bucket] = buckets.get(bucket, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        launches[bucket] = launches.get(bucket, 0) + 1
     busy = union_seconds([(e.time_range.start, e.time_range.end) for e in kernels]) / wall
     return {"wall_ms": wall * 1e3, "busy_share": busy, "kernel_ms": sum(buckets.values()),
-            "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1]))}
+            "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
+            "launches": launches}
 
 
 def sass_mma_counts(library) -> dict:
@@ -2125,9 +2269,10 @@ def sass_mma_counts(library) -> dict:
     return counts
 
 
-def ptxas_usage(build_log: str) -> dict:
-    """Registers and spilled bytes of each tensor-core attention kernel, from
-    the ``-Xptxas -v`` lines of the build log."""
+def ptxas_usage(build_log: str, kernel: str = "attention_tc") -> dict:
+    """Registers and spilled bytes of each kernel whose name holds ``kernel``
+    (by default the tensor-core attention kernels), from the ``-Xptxas -v``
+    lines of the build log."""
     import re
 
     usage: dict = {}
@@ -2135,7 +2280,7 @@ def ptxas_usage(build_log: str) -> dict:
     for line in build_log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?$", line)
         if m:
-            fn = m.group(1) if "attention_tc" in m.group(1) else None
+            fn = m.group(1) if kernel in m.group(1) else None
         elif fn and (m := re.search(r"(\d+) bytes spill stores", line)):
             usage.setdefault(fn, {})["spill_bytes"] = int(m.group(1))
         elif fn and (m := re.search(r"Used (\d+) registers", line)):
@@ -2389,6 +2534,8 @@ def main() -> int:
     log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
     log(f"[build] ptxas registers and spills of attention_tc: "
         f"{json.dumps(ptxas_usage(build_log))}")
+    log(f"[build] ptxas registers and spills of K10's pair_stats_kernel: "
+        f"{json.dumps(ptxas_usage(build_log, 'pair_stats_kernel'))}")
     log(f"[build] tensor-core instructions in the SASS of attention_tc: "
         f"{json.dumps(sass_mma_counts(path)) or 'cuobjdump not on this host'}")
 

@@ -8,6 +8,8 @@ K3's body) at other tiles than the one ops/temporal_flash.py
     python3 chip_variants.py
     python3 chip_variants.py --temporal
     python3 chip_variants.py --k14-device <checkout>
+    python3 chip_variants.py --k10-device <checkout>
+    python3 chip_variants.py --k10-plans
 
 --temporal: at the bf16 shapes of PERF.md's K3 and K7 rows and at K14's
 shard-local shape (2 query frames of 8 at the last shard's offset), every
@@ -25,6 +27,31 @@ K14_DEVICE_REPS launches. A shard's kernel takes less than the host
 spends on a launch, so CUDA events over many launches read the host.
 Given a copy of another commit (git archive), it times that commit's
 K14 the same way.
+
+--k10-device: K10 (``channel_pair_stats``) of the checkout at <checkout>
+at every [B, S, C] of a stage-1 step's GroupNorms (chip_smoke.py
+``unet_group_norm_shapes``: SD-1.5, 512 px, 8 frames) and at
+chip_smoke.PAIR_STATS_SHAPES, (x, x) and (dy, x), bf16 and fp32: the
+device time per call from torch.profiler over K10_DEVICE_REPS calls (from
+a call's first kernel's start to its last one's end: the parent's body
+launched two; and each kernel's mean; the profiler there at times drops
+records, see ``k10_kernels``), back to back
+(an input under the 50 MB L2 stays there) and with a 96 MB buffer read
+before each call (cold: the input comes from device memory), beside the
+host-inclusive time per call from CUDA events over chip_smoke.KERNEL_REPS
+back-to-back calls, the byte bound and its share, and the plain version's
+time; then the sums over the 61 forward GroupNorms of one UNet forward.
+
+--k10-plans: K10 in bf16 at every [B, S, C] of a stage-1 step's
+GroupNorms, (x, x) and (dy, x), at a grid of launch plans (column groups a
+slice, blocks along S) through the C entry directly, each output held to
+the plain version, timed on the device: a sleeping kernel holds the card
+while the host enqueues K10_PLAN_REPS launches between two CUDA events,
+so the time per launch is the card's (with the gap between back-to-back
+launches) and not the host's. The input stays in L2 from launch to launch
+(warm); the four fastest plans and the plan ``pair_stats_plan`` picks are
+also timed cold: each launch after a read of a 96 MB buffer, whose own
+time (timed alone the same way) is taken off.
 
 Each variant runs in its own process from its own copy under
 build/variants/ (git-ignored), which builds its own kernels. Per variant:
@@ -260,17 +287,208 @@ def k14_device(root: str) -> None:
         torch.cuda.empty_cache()
 
 
+K10_DEVICE_REPS = 50
+
+
+def k10_kernels(fn, flush=None):
+    """K10's kernels over K10_DEVICE_REPS calls of ``fn`` under
+    torch.profiler: ({kernel name: [launches, device ms]}, the mean span of
+    a call on the device, from its first kernel's start to its last one's
+    end); ``flush`` runs before each call. The profiler of the card's host
+    at times returns fewer kernels than ran, or none, after many sessions
+    in one process: profiles again (up to 5 times) until it sees every
+    launch, else keeps the fullest session if it saw 80% of them."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best = None
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(K10_DEVICE_REPS):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.time_range.end, m.group(0))
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and (m := re.search(r"pair_stats_\w+", e.name)))
+        kernels: dict = {}
+        for t0, t1, name in events:
+            k = kernels.setdefault(name, [0, 0.0])
+            k[0] += 1
+            k[1] += (t1 - t0) / 1e3
+        seen = min((n for n, _ in kernels.values()), default=0)
+        if best is None or seen > best[0]:
+            best = (seen, kernels, events)
+        if seen == K10_DEVICE_REPS and all(n == seen for n, _ in kernels.values()):
+            break
+    seen, kernels, events = best
+    if seen < 0.8 * K10_DEVICE_REPS:
+        raise RuntimeError(f"the profiler saw K10 kernels {kernels} in {K10_DEVICE_REPS} calls")
+    first, last = events[0][2], max(kernels, key=lambda k: [e[2] for e in events].index(k))
+    spans, begin = [], None
+    for t0, t1, name in events:
+        if name == first:
+            begin = t0
+        if name == last and begin is not None:
+            spans.append((t1 - begin) / 1e3)
+            begin = None
+    return kernels, sum(spans) / len(spans)
+
+
+def k10_device(root: str) -> None:
+    """K10's device time per call in the checkout at ``root``."""
+    import chip_smoke as cs  # this checkout's, before ``root`` goes on the path
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from motioneditor_tpu_torch.ops.gn_stats import channel_pair_stats, channel_pair_stats_plain
+
+    forward = cs.unet_group_norm_shapes()
+    shapes = sorted(set(forward) | set(cs.PAIR_STATS_SHAPES), key=lambda t: -t[0] * t[1] * t[2])
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    # read, not written, so that L2 holds clean lines with no write-back to pay
+    flush_buf = torch.zeros(24 * 2**20, device="cuda")
+    device_ms: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for shape in shapes:
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for pair, (a, b) in (("x,x", (x, x)), ("dy,x", (dy, x))):
+                def fn():
+                    return channel_pair_stats(a, b)
+
+                for _ in range(10):
+                    fn()
+                warm, ms = k10_kernels(fn)
+                _, cold_ms = k10_kernels(fn, flush_buf.sum)
+                device_ms[(shape, dt, pair)] = ms
+                host_ms = cs.time_ms(fn, reps=cs.KERNEL_REPS)
+                plain_ms = cs.time_ms(lambda: channel_pair_stats_plain(a, b), reps=20)
+                moved = cs.nbytes(a) + (0 if b is a else cs.nbytes(b)) + 2 * shape[0] * shape[2] * 4
+                bound_ms = moved / cs.PEAK_BYTES * 1e3
+                per = ", ".join(f"{name} {t / n:.4f} ms over {n} of {K10_DEVICE_REPS} calls"
+                                for name, (n, t) in sorted(warm.items()))
+                print(f"[k10-device] {root} {dt} {list(shape)} ({pair}): {ms:.4f} ms device "
+                      f"per call ({per}), {cold_ms:.4f} ms cold; {host_ms:.4f} ms per call by "
+                      f"CUDA events over {cs.KERNEL_REPS}; byte bound {bound_ms:.4f} ms: "
+                      f"device {100 * bound_ms / ms:.1f}%, cold {100 * bound_ms / cold_ms:.1f}%, "
+                      f"host-inclusive {100 * bound_ms / host_ms:.1f}%; plain {plain_ms:.4f} ms",
+                      flush=True)
+            del x, dy
+            torch.cuda.empty_cache()
+        for pair in ("x,x", "dy,x"):
+            total = sum(device_ms[(s, dt, pair)] for s in forward)
+            print(f"[k10-device] {root} {dt} ({pair}) over the {len(forward)} forward "
+                  f"GroupNorms of one UNet forward: {total:.4f} ms device", flush=True)
+
+
+K10_PLAN_REPS = 20
+
+
+def k10_plans() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.ops import gn_stats as gn
+
+    lib = _build.kernels()
+    device = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    stream = _build.stream_handle(device)
+    gen = torch.Generator(device=device).manual_seed(cs.SEED)
+    tickets = torch.zeros(1 << 16, dtype=torch.int32, device=device)
+    flush_buf = torch.zeros(24 * 2**20, device=device)  # read: L2 keeps clean lines
+
+    def on_device(fn) -> float:
+        """ms per call of ``fn`` on the card, K10_PLAN_REPS calls back to back"""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)  # ~2 ms: the host enqueues the calls meanwhile
+        start.record()
+        for _ in range(K10_PLAN_REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / K10_PLAN_REPS
+
+    flush_ms = min(on_device(flush_buf.sum) for _ in range(3))
+    shapes = sorted(set(cs.unet_group_norm_shapes()), key=lambda t: -t[0] * t[1] * t[2])
+    for shape in shapes:
+        b, s, c = shape
+        x = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5).bfloat16()
+        dy = torch.randn(shape, generator=gen, device=device).bfloat16()
+        cv = c // 8
+        for pair, (a, o) in (("x,x", (x, x)), ("dy,x", (dy, x))):
+            ref = gn.channel_pair_stats_plain(a, o)
+
+            def run(plan, cold=False):
+                buf = torch.empty(2 * b * c + plan.workspace_floats(b, c), device=device)
+
+                def launch():
+                    if cold:
+                        flush_buf.sum()
+                    _build.check_status("k10-plans", lib.me_pair_stats(
+                        a.data_ptr(), o.data_ptr(), buf.data_ptr(), buf.data_ptr() + 8 * b * c,
+                        tickets.data_ptr(), b, s, c, 1, *plan, stream))
+
+                launch()
+                torch.cuda.synchronize()
+                got = buf[: 2 * b * c].view(2, b, c)
+                torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-3)
+                torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=1e-3)
+                return on_device(launch) - (flush_ms if cold else 0.0)
+
+            timed = {}
+            for cols in sorted({min(cv, k) for k in (40, 32, 20, 16, 10, 8)}, reverse=True):
+                slices = -(-cv // cols)
+                for ctas in (1, 2, 4, 8, 16, 32, 66, 132):
+                    if ctas > s or b * slices * ctas > sms:
+                        continue
+                    rows = -(-s // ctas)
+                    plan = gn.PairStatsPlan(8, cols, -(-s // rows), rows,
+                                            max(1, gn.PAIR_THREADS // cols) * cols)
+                    timed.setdefault(plan, run(plan))
+            chosen = gn.pair_stats_plan(b, s, c, torch.bfloat16, sms, True, a is o)
+            ms = run(chosen)
+            bound_ms = (cs.nbytes(a) + (0 if a is o else cs.nbytes(o)) + 8 * b * c) \
+                / cs.PEAK_BYTES * 1e3
+            best = sorted(timed.items(), key=lambda kv: kv[1])[:4]
+            cold = {t: run(t, cold=True) for t in {chosen, *(t for t, _ in best)}}
+            print(f"[k10-plans] bf16 {list(shape)} ({pair}), byte bound {bound_ms:.4f} ms: "
+                  f"pair_stats_plan {ms:.4f} ms, cold {cold[chosen]:.4f}, at {tuple(chosen)} "
+                  f"(slices {chosen.slices(c)}); fastest " + "; ".join(
+                      f"{v:.4f} ms, cold {cold[t]:.4f}, at {tuple(t)} (slices {t.slices(c)})"
+                      for t, v in best), flush=True)
+        del x, dy
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--k10-plans"]:
+        k10_plans()
+        return 0
     if sys.argv[1:] == ["--temporal"]:
         temporal_sweep()
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--k14-device":
         k14_device(sys.argv[2])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--k10-device":
+        k10_device(sys.argv[2])
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--time":
         time_root(sys.argv[2])

@@ -227,12 +227,11 @@ def kernels() -> ctypes.CDLL:
         f32, ptr,                           # scale, stream
     ]
     lib.me_split_injection_tc.restype = i32
-    lib.me_pair_stats_chunks.argtypes = [i32]  # S
-    lib.me_pair_stats_chunks.restype = i32
     lib.me_pair_stats.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,            # a, b, s1, s2, scratch
-        i32, i32, i32,                      # B, S, C
-        i32, ptr,                           # dtype, stream
+        ptr, ptr, ptr, ptr, ptr,            # a, b, out, work, tickets
+        i32, i32, i32, i32,                 # B, S, C, dtype
+        i32, i32, i32, i32, i32,            # the plan: vec, cols, ctas, rows, threads
+        ptr,                                # stream
     ]
     lib.me_pair_stats.restype = i32
     lib.me_add_layer_norm.argtypes = [

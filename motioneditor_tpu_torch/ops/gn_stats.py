@@ -5,7 +5,11 @@ Kernel (CUDA C++, ``csrc/norm_stats.cu``):
 
   channel_pair_stats   replaces _pair_stats   (gn_stats.py:78)
 
-(sum a, sum a*b) over the middle axis of [B, S, C] in fp32: the forward
+One launch per call: the grid comes from ``pair_stats_plan`` (pure Python, pinned by the CPU tests), and
+``vector_body`` routes between the kernel's 16-byte and 1-element loads.
+
+(sum a, sum a*b) over the middle axis of [B, S, C] in fp32 (the kernel adds
+in fp64): the forward
 statistics of GroupNorm with (x, x), the two reductions of its gradient
 with (dy, x). ``GroupNormFn`` is the exact custom-VJP GroupNorm of the JAX
 package (``_gn_fwd`` / ``_gn_bwd``): both directions reduce in the kernel,
@@ -24,6 +28,9 @@ tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from motioneditor_tpu_torch import _build
@@ -41,29 +48,135 @@ def channel_pair_stats_plain(a: torch.Tensor, b: torch.Tensor):
     return af.sum(1), (af * bf).sum(1)
 
 
+class PairStatsPlan(NamedTuple):
+    """K10's launch (csrc/norm_stats.cu): the grid is (ctas, slices, B)."""
+
+    vec: int      # channels per load: 16 bytes (8 bf16, 4 fp32), or 1 on the general body
+    cols: int     # column groups (vec channels each) of a block's channel slice
+    ctas: int     # blocks along S per (batch row, slice)
+    rows: int     # rows per block; the last takes the remainder
+    threads: int  # cols x row lanes
+
+    def slices(self, c: int) -> int:
+        return -(-(c // self.vec) // self.cols)
+
+    def workspace_floats(self, b: int, c: int) -> int:
+        """The fp64 partials, in fp32 words: one per block, 2 sums each."""
+        return 2 * b * self.slices(c) * self.ctas * 2 * self.cols * self.vec
+
+    def tickets(self, b: int, c: int) -> int:
+        """The combine's counters: one per (batch row, slice)."""
+        return b * self.slices(c)
+
+    def combine_chunks(self) -> int:
+        """J, the chunks of consecutive partials a combining block adds
+        apart before it adds their sums in chunk order (csrc/norm_stats.cu
+        sum_partials): threads over the width / V column units of a
+        partial, V = 2 doubles a load on the 16-byte body."""
+        units = 2 * self.cols * self.vec // (2 if self.vec > 1 else 1)
+        return max(1, self.threads // units)
+
+
+PAIR_THREADS = 512  # at most, and csrc/norm_stats.cu MAX_THREADS
+PAIR_SLICE_BYTES = (128, 256, 512, 1024, 2048)  # a slice's bytes of a row, narrowest first
+PAIR_BLOCK_BYTES = 128 << 10  # a block's input below which splitting S costs more (combine)
+PAIR_SPLIT = 16     # blocks along S at most (the combine adds their partials)
+
+
+@functools.lru_cache(maxsize=None)
+def pair_stats_plan(b: int, s: int, c: int, dtype: torch.dtype, sm_count: int,
+                    vector: bool = True, same: bool = True) -> PairStatsPlan:
+    """K10's launch plan for [B, S, C] (``same``: b is a, one input) on a
+    card of ``sm_count`` SMs (chip_variants.py --k10-plans measured the
+    choices; PERF.md).
+    - Slices: the narrowest of PAIR_SLICE_BYTES a row (at least a full
+      128-byte line) that keeps B x slices within the SMs.
+    - Blocks along S: one, so no combine at all, while a (batch row, slice)
+      reads at most PAIR_BLOCK_BYTES; else as many as the SMs take, at
+      most PAIR_SPLIT. Never more blocks than SMs: an SM that ran two
+      blocks of equal rows would double the time."""
+    vec = 16 // dtype.itemsize if vector else 1
+    if c % vec:
+        raise ValueError(f"pair_stats_plan: C = {c} is not a multiple of {vec}")
+    cv = c // vec
+    row = vec * dtype.itemsize  # bytes of a column group
+    for width in PAIR_SLICE_BYTES:
+        cols = min(cv, max(1, width // row), PAIR_THREADS)
+        cols = -(-cv // -(-cv // cols))  # the same slices, evened out
+        units = b * -(-cv // cols)
+        if units <= sm_count:
+            break
+    unit_bytes = s * cols * row * (1 if same else 2)
+    ctas = 1
+    if unit_bytes > PAIR_BLOCK_BYTES:
+        ctas = max(1, min(sm_count // units, PAIR_SPLIT, s))
+    rows = -(-s // ctas)
+    ctas = -(-s // rows)
+    threads = max(1, PAIR_THREADS // cols) * cols
+    return PairStatsPlan(vec, cols, ctas, rows, threads)
+
+
+def vector_body(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether K10 takes its 16-byte body: fp32 or bf16 rows of C * itemsize
+    bytes, a multiple of 16, with both operands on 16-byte boundaries (the
+    rows of a contiguous [B, S, C] then are too). Otherwise the general
+    body, the same kernel on 1-element loads."""
+    size = a.dtype.itemsize
+    return (a.dtype in (torch.float32, torch.bfloat16) and a.shape[-1] * size % 16 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> the combine's counters, all 0 between launches
+# (each launch's last blocks reset theirs); a stream's launches run in order
+_tickets: dict = {}
+
+
+def _ticket_ptr(device: torch.device, stream: int, n: int) -> int:
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+    return t.data_ptr()
+
+
 def channel_pair_stats(a: torch.Tensor, b: torch.Tensor):
-    """(sum a, sum a*b) over the middle axis of [B, S, C], each [B, C] fp32.
-    Pass ``b is a`` for the forward statistics: the kernel then reads the
-    input once."""
+    """(sum a, sum a*b) over the middle axis of [B, S, C], each [B, C] fp32
+    (views of one [2, B, C] buffer). Pass ``b is a`` for the forward
+    statistics: the kernel then reads the input once. One launch; counts
+    ``channel_pair_stats`` and, on the 16-byte body, ``.vec``."""
     if a.device.type == "cpu":
         return channel_pair_stats_plain(a, b)
+    return _pair_stats_kernel(a, b)
+
+
+def _pair_stats_kernel(a: torch.Tensor, b: torch.Tensor):
     name = "channel_pair_stats"
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"{name}: expected two [B, S, C] tensors, got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
     _build.check_operands(name, (a, b))
     bt, s, c = a.shape
-    lib = _build.kernels()
-    s1 = torch.empty((bt, c), dtype=torch.float32, device=a.device)
-    s2 = torch.empty_like(s1)
-    scratch = torch.empty(2 * bt * lib.me_pair_stats_chunks(s) * c, dtype=torch.float32,
-                          device=a.device)
-    code = lib.me_pair_stats(
-        a.data_ptr(), b.data_ptr(), s1.data_ptr(), s2.data_ptr(), scratch.data_ptr(),
-        bt, s, c, _build.DTYPE_CODES[a.dtype], _build.stream_handle(a.device))
+    vector = vector_body(a, b)
+    plan = pair_stats_plan(bt, s, c, a.dtype, _sm_count(a.device.index), vector,
+                           a.data_ptr() == b.data_ptr())
+    buf = torch.empty(2 * bt * c + plan.workspace_floats(bt, c), dtype=torch.float32,
+                      device=a.device)
+    stream = _build.stream_handle(a.device)
+    code = _build.kernels().me_pair_stats(
+        a.data_ptr(), b.data_ptr(), buf.data_ptr(), buf.data_ptr() + 8 * bt * c,
+        _ticket_ptr(a.device, stream, plan.tickets(bt, c)), bt, s, c,
+        _build.DTYPE_CODES[a.dtype], *plan, stream)
     _build.check_status(name, code)
     _build.launch_counts[name] += 1
-    return s1, s2
+    if vector:
+        _build.launch_counts[f"{name}.vec"] += 1
+    out = buf[: 2 * bt * c].view(2, bt, c)
+    return out[0], out[1]
 
 
 def _group_stats(s1, s2, num_groups: int, n: float, eps: float):

@@ -51,7 +51,11 @@ from motioneditor_tpu_torch import _build
 from motioneditor_tpu_torch.ops.attention import split_heads
 from motioneditor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from motioneditor_tpu_torch.ops.fused_norm import add_layer_norm, add_layer_norm_plain
-from motioneditor_tpu_torch.ops.gn_stats import channel_pair_stats, channel_pair_stats_plain
+from motioneditor_tpu_torch.ops.gn_stats import (
+    channel_pair_stats,
+    channel_pair_stats_plain,
+    vector_body,
+)
 from motioneditor_tpu_torch.ops.injection_flash import (
     fused_injection_attention,
     fused_injection_attention_plain,
@@ -729,28 +733,39 @@ def test_temporal_flash_bwd_kernel(device, dtype, causal, b, f, n, c, heads):
 
 
 PAIR_STATS_CASES = [
-    (1, 32768, 320),   # the pooled level-0 resnet GroupNorm at 512 px, 8 frames
-    (8, 4096, 320),    # the per-frame transformer GroupNorm
-    (1, 512, 2560),    # the widest up-block input
-    (3, 333, 100),     # ragged: S not a multiple of the 128-row chunk, C of the 64-channel tile
-    (2, 7, 32),        # a single partial chunk
+    (1, 32768, 320, 0),   # the pooled level-0 resnet GroupNorm at 512 px, 8 frames
+    (8, 4096, 320, 0),    # the per-frame transformer GroupNorm
+    (1, 512, 2560, 0),    # the widest up-block input: C cut into slices
+    (3, 333, 100, 0),     # ragged: bf16 rows of 200 bytes take the general body
+    (2, 7, 32, 0),        # fewer rows than SMs
+    (1, 32768, 320, 8),   # a view 8 bytes off a 16-byte boundary: the general body
+    (2, 20, 320, 0),      # S below one block's step of lanes x U rows
+    (8, 64, 1280, 0),     # B = 8 with S = 64: slices of a short S
+    (1, 98304, 320, 0),   # the pooled level-0 GroupNorm at 24 frames
+    (1, 400000, 8, 0),    # a narrow C over a long S: 16 blocks' partials to combine
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("same", [True, False])
-@pytest.mark.parametrize("b,s,c", PAIR_STATS_CASES)
-def test_channel_pair_stats_kernel(device, dtype, same, b, s, c):
+@pytest.mark.parametrize("b,s,c,offset", PAIR_STATS_CASES)
+def test_channel_pair_stats_kernel(device, dtype, same, b, s, c, offset):
     """K10 against its plain version; both sum in fp32, in two orders: the
     error is held to 1e-4 of the sum of the terms' magnitudes. Two runs are
-    bit-identical (fixed summation order, no atomics)."""
+    bit-identical (fixed summation order, no atomics). One launch, counted
+    as ".vec" exactly when ``vector_body`` routes to the 16-byte body."""
     gen = torch.Generator(device=device).manual_seed(10)
-    a = (2 * torch.randn((b, s, c), generator=gen, device=device) + 0.5).to(dtype)
+    skip = offset // torch.tensor([], dtype=dtype).element_size()
+    a = (2 * torch.randn((b * s * c + skip,), generator=gen, device=device) + 0.5).to(dtype)
+    a = a[skip:].view(b, s, c)
     other = a if same else _rand((b, s, c), dtype, device, gen)
-    before = _build.launch_counts["channel_pair_stats"]
+    vector = vector_body(a, other)
+    assert vector is (offset == 0 and c * a.element_size() % 16 == 0)
+    before = dict(_build.launch_counts)
     got = channel_pair_stats(a, other)
     torch.cuda.synchronize()
-    assert _build.launch_counts["channel_pair_stats"] == before + 1
+    for key, n in (("channel_pair_stats", 1), ("channel_pair_stats.vec", int(vector))):
+        assert _build.launch_counts[key] == before.get(key, 0) + n
     ref = channel_pair_stats_plain(a, other)
     af, bf = a.float(), other.float()
     for g, r, terms in zip(got, ref, (af.abs().sum(1), (af * bf).abs().sum(1))):
