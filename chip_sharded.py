@@ -6,17 +6,21 @@ rank per card.
 Rank r runs on cuda:r; the ranks meet at tcp://localhost:<a free port>.
 The kernels are built once, before the ranks start. Each rank runs
 chip_smoke.py's frame-sharded phases over R ranks instead of one:
-  11b. check  tiny fp32 models: the injected denoise segment over a (1, R)
-              layout and a stage-1 step over (2, R/2), against rank 0's
-              unsharded runs
-  11.  shard  SD-1.5 at full width, bf16, 8 frames, 64x64 latents: the
-              segment over (1, R), 3 steps after a warm-up step, then a
-              stage-1 step over (1, R) after a warm-up step, asserting every
-              rank's launch counts per step; rank 0 then times the same
-              segment and stage-1 step unsharded on its card
+  11b. check  tiny fp32 models: the injected denoise segment, inversion,
+              null-text (its early stop reached) and the pipeline's edited
+              latents over a (1, R) layout, and a stage-1 and a stage-2 step
+              over (2, R/2), against rank 0's unsharded runs
+  11.  shard  SD-1.5 at full width, bf16, 8 frames, 64x64 latents, over
+              (1, R): the segment (3 steps after a warm-up step), inversion
+              and null-text (5 steps each), the pipeline from frames to
+              frames, then a stage-1 and a stage-2 step after a warm-up step,
+              asserting every rank's launch counts per step; rank 0 then
+              times each of them unsharded on its card
 Prints one JSON line of every rank's results, then
 {"ok": true, "device": {...}} last. Needs R CUDA devices, R even. A rank
-still running after --stall-seconds prints every thread's stack and exits.
+still running after --stall-seconds prints every thread's stack and exits;
+a rank that fails prints its error and exits at once, and the spawn stops
+the others (they would wait in a collective for it).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import chip_smoke as cs
 
@@ -73,8 +78,15 @@ def rank_main(rank, ranks, port, out_dir, stall_s):
         if rank == 0:
             with open(os.path.join(out_dir, "result.json"), "w") as fh:
                 json.dump({"ranks": gathered, "seconds": time.perf_counter() - t0}, fh)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # the other ranks wait in a collective for this one, and NCCL's
+        # destroy_process_group would wait for them: print the error and
+        # leave at once, so that the spawn stops the other ranks
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
 
 
 def main() -> int:

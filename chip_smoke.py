@@ -132,15 +132,26 @@ Phases, each raising on failure:
               instantiation), also with the fractional and mixed masks, its
               CUDA-core body timed by a direct call and SDPA over the 2M + N
               injected keys as its yardstick
-  11. shard   the frame-sharded path at full width in a one-rank NCCL
-              process group: the injected denoise segment, bf16, 3 steps
-              after a warm-up step, then one stage-1 step after a warm-up
-              step; asserts the per-step launch counts of K1, K12, K13 and
-              K14, prints ms per step, peak memory and the device's busy
-              share of one more step under torch.profiler
-  11b. check  (run before phase 11) tiny fp32 checks in that group: the
-              sharded segment and a sharded stage-1 step against the
-              unsharded ones
+  11. shard   the frame-sharded paths at full width in a one-rank NCCL
+              process group, bf16: the injected denoise segment, 3 steps
+              after a warm-up step; inversion and null-text on phase 6's
+              schedule after a warm-up step; MotionEditorPipeline with a
+              shard_ctx from frames to frames on phase 7's schedule (VAE
+              encode, null-text inversion, the edit, VAE decode); one stage-1
+              and one stage-2 step, each after a warm-up step; asserts the
+              per-step launch counts (K1, K4-K6, K12, K13, K14; derived on
+              the CPU by tests/test_torch_sharding_phases_counts.py), prints
+              ms per step, peak memory and, for the segment and the training
+              steps, the device's busy share of one more step under
+              torch.profiler
+  11b. check  (run before phase 11) tiny fp32 checks in that group, each
+              sharded path against the unsharded one: the segment,
+              inversion, null-text with its early stop reached (the same
+              inner steps, the same embeddings on every rank), the
+              pipeline's edited latents, and a stage-1 and a stage-2 step
+              (loss, gradients, parameters after one AdamW step; stage 2's
+              gradients and parameters in fp64 on the plain path, its fp32
+              kernel path by the loss: TRAIN_CHECKS)
 Then one JSON line of per-kernel results, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -304,6 +315,7 @@ EXPECTED_PER_STAGE2_STEP = tc({
 NORM_KERNELS = ("channel_pair_stats", "add_layer_norm")
 KV_KERNELS = ("video_flash_attention_kv", "video_injection_attention_kv",
               "temporal_flash_attention_global")
+SHARDED_KERNELS = ("video_flash_attention",) + KV_KERNELS  # a sharded edit's kernels
 SPLIT = 4  # the frame split whose shard-local shapes phase 3d checks
 # per sharded denoise step (one rank, mask mode): UNet blocks 0-3 K12 (4) +
 # blocks 10-15 K12 on the source rows (6) and K13 on the edit rows (6); the
@@ -319,6 +331,31 @@ EXPECTED_PER_SHARDED_STEP = tc({
 # gated attn_temp sites K14 likewise; their gradients are the plain VJPs
 SHARDED_STAGE1_LAUNCHES = {"video_flash_attention_kv": 20, "temporal_flash_attention_global": 20}
 EXPECTED_PER_SHARDED_STAGE1_STEP = tc(SHARDED_STAGE1_LAUNCHES)
+# The sharded phases below are derived on the CPU, on the meta device, by
+# tests/test_torch_sharding_phases_counts.py. Per sharded inversion step
+# (batch 1, motion_frame, no ControlNet or adapter): UNet blocks 0-3 and
+# 10-15 K12 (10) and K14 (10)
+EXPECTED_PER_SHARDED_INVERSION_STEP = tc({"video_flash_attention_kv": 10,
+                                          "temporal_flash_attention_global": 10})
+# per sharded null-text step (inner_steps 1): three forwards (eps_cond, the
+# inner step's, the latent advance) of 10 K12 and 10 K14 each; the inner
+# step's backward takes K12's and K14's plain VJPs, no kernel
+EXPECTED_PER_SHARDED_NULL_STEP = tc({"video_flash_attention_kv": 30,
+                                     "temporal_flash_attention_global": 30})
+# a sharded vanilla edit step launches what an injected one does
+# (EXPECTED_PER_SHARDED_STEP) but for K13: blocks 10-15 run K12 on all rows
+EXPECTED_PER_SHARDED_VANILLA_STEP = tc({"video_flash_attention": 10,
+                                        "video_flash_attention_kv": 16,
+                                        "temporal_flash_attention_global": 16})
+# per sharded stage-2 step, gradient checkpointing on, knobs off: the
+# ControlNet (no grad) K1 4; the UNet's down path (no grad) K12 4, K14 4;
+# the adapter K12 6 (attn_temp), K14 6 and, at its per-frame cross attention
+# under grad, K4 6 with K5 / K6 6 in the backward; the up path K12 and K14
+# 6 + 6 recomputed. K12's and K14's gradients are their plain VJPs
+EXPECTED_PER_SHARDED_STAGE2_STEP = tc({
+    "video_flash_attention": 4, "video_flash_attention_kv": 22,
+    "temporal_flash_attention_global": 22, "video_flash_fwd_res": 6, "video_flash_bwd_dq": 6,
+    "video_flash_bwd_dkv": 6})
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense (no tensor cores in fp32)
 PEAK_BYTES = 3.35e12
 KERNEL_INFO = {
@@ -1377,77 +1414,102 @@ def add_counts(*counts: dict) -> dict:
     return out
 
 
-def phase_pipeline(device):
-    """MotionEditorPipeline from frames to frames at full width, bf16:
-    encode_video -> null_text_inversion -> the edit -> decode."""
+def pipeline_models(device, dtype, gen):
+    """The VAE and the CLIP text encoder at full width, random from ``gen``."""
     import torch
 
-    from motioneditor_tpu_torch import _build
-    from motioneditor_tpu_torch.models.clip_text import CLIPTextModel, StubTokenizer
+    from motioneditor_tpu_torch.models.clip_text import CLIPTextModel
     from motioneditor_tpu_torch.models.layers import init_params
     from motioneditor_tpu_torch.models.vae import AutoencoderKL
-    from motioneditor_tpu_torch.pipelines.editor import MotionEditorPipeline
 
-    dtype = torch.bfloat16
-    t_all = time.perf_counter()
-    unet, cn = build_models(*pipeline_configs(), device, dtype, SEED + 10)
-    gen = torch.Generator(device=device).manual_seed(SEED + 11)
     with torch.device(device):
         vae, text = AutoencoderKL(), CLIPTextModel()
     for m in (vae, text):
         init_params(m, gen)
         m.to(dtype).eval()
-    pipe = MotionEditorPipeline(unet=unet, vae=vae, text_encoder=text, controlnet=cn,
-                                tokenizer=StubTokenizer(), unet_config=pipeline_configs()[0])
+    return vae, text
+
+
+PIPE_PROMPTS = ["a man is dancing", "a man is jumping"]
+
+
+def run_pipeline(pipe, gen, seed: int, tag: str, barrier=lambda: None):
+    """MotionEditorPipeline from frames to frames at full width on a clip
+    drawn from ``gen``: encode_video -> null_text_inversion -> the edit (mask
+    mode) -> decode on PIPE_STEPS steps from PIPE_START, each part timed
+    (every rank starting and ending together) and its launches read. Checks
+    a finite video in [0, 1]; returns (metrics, launches by part)."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+
+    device, dtype = pipe.device, pipe.dtype
     size = 8 * LATENT
     video = (torch.rand((1, FRAMES, size, size, 3), generator=gen, device=device) * 2 - 1)
     skeleton = torch.rand((FRAMES, size, size, 3), generator=gen, device=device)
     masks = torch.zeros((FRAMES, size, size), device=device)
     masks[:, size // 4: 3 * size // 4, size // 3: 2 * size // 3] = 1.0  # the protagonist's box
-    prompts = ["a man is dancing", "a man is jumping"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, paths = {}, {}
 
     def timed(part, fn, path=None):
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[part] = (time.perf_counter() - t0) * 1e3
+        ms, out = timed_steps(fn, 1, barrier)
+        times[part] = ms
         if path is not None:
             paths[path] = dict(_build.launch_counts)
         return out
 
     t_run = time.perf_counter()
-    timed("prompt_encode_ms", lambda: pipe.encode_prompt(prompts))
+    timed("prompt_encode_ms", lambda: pipe.encode_prompt(PIPE_PROMPTS))
     latents = timed("vae_encode_ms", lambda: pipe.encode_video(
-        video.to(dtype), generator=torch.Generator(device=device).manual_seed(SEED + 12)))
+        video.to(dtype), generator=torch.Generator(device=device).manual_seed(seed)))
     x_t, uncond = timed("null_text_inversion_ms", lambda: pipe.null_text_inversion(
-        latents, prompts[0], num_steps=PIPE_STEPS), "pipeline_inversion")
+        latents, PIPE_PROMPTS[0], num_steps=PIPE_STEPS), f"{tag}_inversion")
     lat = timed("edit_ms", lambda: pipe(
-        prompts, torch.cat([x_t, x_t]), skeleton, source_masks=masks, uncond_embeddings=uncond,
-        num_inference_steps=PIPE_STEPS, start_step=PIPE_START, decode=False), "pipeline_edit")
+        PIPE_PROMPTS, torch.cat([x_t, x_t]), skeleton, source_masks=masks,
+        uncond_embeddings=uncond, num_inference_steps=PIPE_STEPS, start_step=PIPE_START,
+        decode=False), f"{tag}_edit")
     out = timed("vae_decode_ms", lambda: pipe.decode_latents(lat))
     metrics = {k: v for k, v in times.items() if k.endswith("ms")}
     metrics.update(
         inversion_null_text_ms_per_step=times["null_text_inversion_ms"] / PIPE_STEPS,
-        edit_ms_per_step=times["edit_ms"] / PIPE_STEPS,
-        run_s=time.perf_counter() - t_run, total_s=time.perf_counter() - t_all,
+        edit_ms_per_step=times["edit_ms"] / PIPE_STEPS, run_s=time.perf_counter() - t_run,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if out.shape != (2, FRAMES, size, size, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"{tag} output {tuple(out.shape)} is not a finite video")
+    if out.min() < 0 or out.max() > 1:
+        raise AssertionError(f"{tag} output leaves [0, 1]")
+    return metrics, paths
+
+
+def phase_pipeline(device):
+    """MotionEditorPipeline from frames to frames at full width, bf16:
+    encode_video -> null_text_inversion -> the edit -> decode."""
+    import torch
+
+    from motioneditor_tpu_torch.models.clip_text import StubTokenizer
+    from motioneditor_tpu_torch.pipelines.editor import MotionEditorPipeline
+
+    dtype = torch.bfloat16
+    t_all = time.perf_counter()
+    unet, cn = build_models(*pipeline_configs(), device, dtype, SEED + 10)
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    vae, text = pipeline_models(device, dtype, gen)
+    pipe = MotionEditorPipeline(unet=unet, vae=vae, text_encoder=text, controlnet=cn,
+                                tokenizer=StubTokenizer(), unet_config=pipeline_configs()[0])
+    metrics, paths = run_pipeline(pipe, gen, SEED + 12, "pipeline")
+    metrics["total_s"] = time.perf_counter() - t_all
     log(f"[pipe] {json.dumps(metrics)}")
     log(f"[pipe] launches {paths}")
-    if out.shape != (2, FRAMES, size, size, 3) or not torch.isfinite(out).all():
-        raise AssertionError(f"pipeline output {tuple(out.shape)} is not a finite video")
-    if out.min() < 0 or out.max() > 1:
-        raise AssertionError("pipeline output leaves [0, 1]")
     expect_counts("pipeline_inversion", paths["pipeline_inversion"], add_counts(
         scaled(EXPECTED_PER_INVERSION_STEP, PIPE_STEPS),
         scaled(EXPECTED_PER_NULL_STEP, PIPE_STEPS)), 1)
     expect_counts("pipeline_edit", paths["pipeline_edit"], add_counts(
         scaled(EXPECTED_PER_VANILLA_STEP, PIPE_START),
         scaled(EXPECTED_PER_STEP, PIPE_STEPS - PIPE_START)), 1)
-    del pipe, vae, text, out
+    del pipe, vae, text
     return unet, cn, paths, metrics
 
 
@@ -2296,10 +2358,37 @@ def shard_or_keep(ctx):
 
 
 def phase_sharded(device, ctx, barrier=lambda: None, reference=False):
-    """The frame-sharded path at full width over ``ctx`` (one rank here,
-    several in chip_sharded.py): the injected denoise segment, then a
-    stage-1 step; with ``reference`` this rank then times the same runs
-    unsharded."""
+    """The frame-sharded paths at full width over ``ctx`` (one rank here,
+    several in chip_sharded.py): the injected denoise segment, inversion and
+    null-text on phase 6's schedule, the pipeline from frames to frames on
+    phase 7's, then a stage-1 and a stage-2 step; with ``reference`` this
+    rank then times the same runs unsharded."""
+    import torch
+
+    dtype = torch.bfloat16
+    config, cn_config = pipeline_configs()
+    unet, cn = build_models(config, cn_config, device, dtype, SEED)
+    paths, metrics = {}, {}
+    for part in (sharded_segment, sharded_null_text, sharded_pipeline):
+        got_paths, got = part(device, ctx, unet, cn, barrier, reference)
+        paths.update(got_paths)
+        metrics.update(got)
+        barrier()
+    del unet
+    torch.cuda.empty_cache()
+    for stage in (1, 2):
+        got_paths, got = sharded_train(device, ctx, cn, stage, barrier, reference)
+        paths.update(got_paths)
+        metrics.update(got)
+        barrier()
+    del cn
+    torch.cuda.empty_cache()
+    return paths, metrics
+
+
+def sharded_segment(device, ctx, unet, cn, barrier, reference):
+    """The injected denoise segment, 3 steps after a warm-up step, and the
+    device's busy share of one more."""
     import torch
 
     from motioneditor_tpu_torch import _build
@@ -2308,17 +2397,12 @@ def phase_sharded(device, ctx, barrier=lambda: None, reference=False):
         prepare_injection_masks,
     )
     from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
-    from motioneditor_tpu_torch.models.layers import init_params
-    from motioneditor_tpu_torch.models.unet import UNet3DConditionModel
     from motioneditor_tpu_torch.parallel.mesh import gather_video
     from motioneditor_tpu_torch.pipelines.editor import denoise_segment
     from motioneditor_tpu_torch.schedulers import DiffusionSchedule
-    from motioneditor_tpu_torch.training import stage1
-    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
 
     dtype = torch.bfloat16
     config, cn_config = pipeline_configs()
-    unet, cn = build_models(config, cn_config, device, dtype, SEED)
     gen = torch.Generator(device=device).manual_seed(SEED + 60)
     lat = torch.randn((2, FRAMES, LATENT, LATENT, 4), generator=gen, device=device).to(dtype)
     cond, uncond = (torch.randn((2, 77, 768), generator=gen, device=device).to(dtype)
@@ -2368,28 +2452,144 @@ def phase_sharded(device, ctx, barrier=lambda: None, reference=False):
         log(f"[shard] the same segment unsharded on one card: {ms1:.1f} ms/step, device busy "
             f"{metrics['unsharded_denoise_device_busy']}; bf16 max |sharded - unsharded| "
             f"{metrics['denoise_bf16_max_abs_diff']:.3e}")
-        del ref
-    barrier()
-    del unet, cn, out
-    torch.cuda.empty_cache()
+    return paths, metrics
 
-    lat1 = 0.18215 * torch.randn((1, FRAMES, LATENT, LATENT, 4), generator=gen, device=device)
+
+def sharded_null_text(device, ctx, unet, cn, barrier, reference):
+    """Inversion then null-text optimization on phase 6's schedule (bf16
+    compute, inner_steps 1), each timed per step after a warm-up step of
+    both, with its launches per step and the peak memory of the two."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.parallel.mesh import gather_video
+    from motioneditor_tpu_torch.pipelines.editor import ddim_invert, null_optimization
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    dtype = torch.bfloat16
+    config = pipeline_configs()[0]
+    gen = torch.Generator(device=device).manual_seed(SEED + 65)
+    lat = torch.randn((1, FRAMES, LATENT, LATENT, 4), generator=gen, device=device).to(dtype)
+    cond = torch.randn((1, 77, 768), generator=gen, device=device)
+    uncond0 = torch.randn((1, 77, 768), generator=gen, device=device)
+    schedule = DiffusionSchedule()
+
+    def run(shard, steps, bar):
+        x = shard_or_keep(shard)(lat)
+        launches = {}
+        _build.reset_launch_counts()
+        ms_inv, (x_t, all_lat) = timed_steps(lambda: ddim_invert(
+            unet, config, schedule, x, cond, steps, normal_infer=False, shard_ctx=shard),
+            steps, bar)
+        launches["inversion"] = dict(_build.launch_counts)
+        _build.reset_launch_counts()
+        ms_null, uncond = timed_steps(lambda: null_optimization(
+            unet, config, schedule, all_lat, cond, uncond0, steps, 1, 1e-2, 7.5,
+            compute_dtype="bfloat16", shard_ctx=shard), steps, bar)
+        launches["null_text"] = dict(_build.launch_counts)
+        return ms_inv, ms_null, x_t, uncond, launches
+
+    run(ctx, 1, barrier)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ms_inv, ms_null, x_t, uncond, launches = run(ctx, NULL_STEPS, barrier)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    x_t = gather_video(x_t, ctx)
+    paths = {f"sharded_{k}": v for k, v in launches.items()}
+    metrics = {"inversion_ms_per_step": ms_inv, "null_text_ms_per_step": ms_null,
+               "null_text_peak_gib": peak}
+    log(f"[shard] inversion and null-text over (1, {ctx.fp}), {NULL_STEPS} steps each: "
+        f"{ms_inv:.1f} and {ms_null:.1f} ms/step, peak {peak:.2f} GiB, launches {paths}")
+    if not (torch.isfinite(x_t).all() and torch.isfinite(uncond).all()):
+        raise AssertionError("the sharded inversion or null-text is not finite")
+    if uncond.shape != (NULL_STEPS, 1, 77, 768) or torch.equal(uncond[0], uncond0[0]):
+        raise AssertionError("the sharded null-text left the embedding unchanged")
+    expect_counts("sharded_inversion", paths["sharded_inversion"],
+                  EXPECTED_PER_SHARDED_INVERSION_STEP, NULL_STEPS)
+    expect_counts("sharded_null_text", paths["sharded_null_text"],
+                  EXPECTED_PER_SHARDED_NULL_STEP, NULL_STEPS)
+    if reference:
+        run(None, 1, lambda: None)
+        ms_inv1, ms_null1, x_t1, _, _ = run(None, NULL_STEPS, lambda: None)
+        metrics.update(unsharded_inversion_ms_per_step=ms_inv1,
+                       unsharded_null_text_ms_per_step=ms_null1,
+                       inversion_bf16_max_abs_diff=(x_t.float() - x_t1.float()).abs().max().item())
+        log(f"[shard] the same inversion and null-text unsharded on one card: {ms_inv1:.1f} and "
+            f"{ms_null1:.1f} ms/step; bf16 max |x_T sharded - unsharded| "
+            f"{metrics['inversion_bf16_max_abs_diff']:.3e}")
+    return paths, metrics
+
+
+def sharded_pipeline(device, ctx, unet, cn, barrier, reference):
+    """MotionEditorPipeline with the ``shard_ctx`` from frames to frames,
+    run_pipeline's parts and schedule (phase 7's)."""
+    import torch
+
+    from motioneditor_tpu_torch.models.clip_text import StubTokenizer
+    from motioneditor_tpu_torch.pipelines.editor import MotionEditorPipeline
+
+    dtype = torch.bfloat16
+    vae, text = pipeline_models(device, dtype, torch.Generator(device=device).manual_seed(SEED + 66))
+
+    def run(shard, bar):
+        pipe = MotionEditorPipeline(unet=unet, vae=vae, text_encoder=text, controlnet=cn,
+                                    tokenizer=StubTokenizer(), unet_config=pipeline_configs()[0],
+                                    shard_ctx=shard)
+        return run_pipeline(pipe, torch.Generator(device=device).manual_seed(SEED + 67),
+                            SEED + 68, "sharded_pipeline" if shard else "pipeline", bar)
+
+    got, paths = run(ctx, barrier)
+    log(f"[shard] the pipeline over (1, {ctx.fp}): {json.dumps(got)}; launches {paths}")
+    expect_counts("sharded_pipeline_inversion", paths["sharded_pipeline_inversion"], add_counts(
+        scaled(EXPECTED_PER_SHARDED_INVERSION_STEP, PIPE_STEPS),
+        scaled(EXPECTED_PER_SHARDED_NULL_STEP, PIPE_STEPS)), 1)
+    expect_counts("sharded_pipeline_edit", paths["sharded_pipeline_edit"], add_counts(
+        scaled(EXPECTED_PER_SHARDED_VANILLA_STEP, PIPE_START),
+        scaled(EXPECTED_PER_SHARDED_STEP, PIPE_STEPS - PIPE_START)), 1)
+    metrics = {"pipeline": got}
+    if reference:
+        metrics["unsharded_pipeline"], _ = run(None, lambda: None)
+        log(f"[shard] the same pipeline unsharded on one card: "
+            f"{json.dumps(metrics['unsharded_pipeline'])}")
+    del vae, text
+    return paths, metrics
+
+
+def sharded_train(device, ctx, cn, stage: int, barrier, reference):
+    """One stage-``stage`` step after a warm-up step, gradient checkpointing
+    on, knobs off, bf16 frozen weights with fp32 masters: ms, peak memory,
+    launches and the device's busy share of one more step."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.models.unet import UNet3DConditionModel
+    from motioneditor_tpu_torch.training import stage1, stage2
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    dtype = torch.bfloat16
+    config, cn_config = pipeline_configs()
+    module = stage1 if stage == 1 else stage2
+    gen = torch.Generator(device=device).manual_seed(SEED + 60 + stage)
+    lat = 0.18215 * torch.randn((1, FRAMES, LATENT, LATENT, 4), generator=gen, device=device)
     enc = torch.randn((1, 77, 768), generator=gen, device=device)
+    skel = torch.rand((1, FRAMES, 8 * LATENT, 8 * LATENT, 3), generator=gen, device=device)
+    cn.requires_grad_(False)
 
     def train(shard):
         with torch.device(device):
             model = UNet3DConditionModel(config)
         init_params(model, torch.Generator(device=device).manual_seed(SEED + 61))
-        state = make_train_state(model, stage1.TRAINABLE_MODULES, make_optimizer(3e-5),
+        state = make_train_state(model, module.TRAINABLE_MODULES, make_optimizer(3e-5),
                                  frozen_dtype=dtype)
         before = {name: p.detach().clone() for name, p in model.named_parameters()}
-        x = shard_or_keep(shard)(lat1)
+        cut = shard_or_keep(shard)
+        x, s = cut(lat), cut(skel)
 
         def step(i):
             g = torch.Generator(device=device).manual_seed(SEED + 62 + i)
-            return float(stage1.train_step_stage1(state, x, enc, g, config, remat=True,
-                                                  compute_dtype=dtype,
-                                                  shard_ctx=shard)[1]["loss"])
+            return float(train_step(f"stage{stage}", state, cn, config, cn_config, x, enc, s, g,
+                                    remat=True, compute_dtype=dtype,
+                                    shard_ctx=shard)[1]["loss"])
 
         step(0)  # warm-up
         torch.cuda.reset_peak_memory_stats()
@@ -2398,34 +2598,52 @@ def phase_sharded(device, ctx, barrier=lambda: None, reference=False):
         launches, peak = dict(_build.launch_counts), torch.cuda.max_memory_allocated() / 2**30
         moved = {name for name, p in model.named_parameters() if not torch.equal(p, before[name])}
         if not math.isfinite(loss) or not moved or not moved <= set(state.trainable):
-            raise AssertionError(f"stage 1: loss {loss}, or frozen parameters moved")
+            raise AssertionError(f"stage {stage}: loss {loss}, or frozen parameters moved")
         return ms, loss, launches, peak, device_busy_share(lambda: step(2))
 
-    ms, loss, paths["sharded_stage1"], peak, busy = train(ctx)
-    metrics.update(stage1_ms_per_step=ms, stage1_peak_gib=peak, stage1_loss=loss,
-                   stage1_device_busy=busy)
-    log(f"[shard] stage 1 over (1, {ctx.fp}): {ms:.1f} ms/step, peak {peak:.2f} GiB, device "
-        f"busy {busy} of a profiled step, loss {loss}, launches {paths['sharded_stage1']}")
-    expect_counts("sharded_stage1", paths["sharded_stage1"], EXPECTED_PER_SHARDED_STAGE1_STEP, 1)
+    name = f"stage{stage}"
+    ms, loss, launches, peak, busy = train(ctx)
+    metrics = {f"{name}_ms_per_step": ms, f"{name}_peak_gib": peak, f"{name}_loss": loss,
+               f"{name}_device_busy": busy}
+    log(f"[shard] stage {stage} over (1, {ctx.fp}): {ms:.1f} ms/step, peak {peak:.2f} GiB, "
+        f"device busy {busy} of a profiled step, loss {loss}, launches {launches}")
+    expected = EXPECTED_PER_SHARDED_STAGE1_STEP if stage == 1 else EXPECTED_PER_SHARDED_STAGE2_STEP
+    expect_counts(f"sharded_{name}", launches, expected, 1)
     if reference:
         ms1, loss1, _, _, busy1 = train(None)
-        metrics.update(unsharded_stage1_ms_per_step=ms1, unsharded_stage1_loss=loss1,
-                       unsharded_stage1_device_busy=busy1)
-        log(f"[shard] the same stage-1 step unsharded on one card: {ms1:.1f} ms, device busy "
-            f"{busy1}, loss {loss1}")
-    barrier()
+        metrics.update({f"unsharded_{name}_ms_per_step": ms1, f"unsharded_{name}_loss": loss1,
+                        f"unsharded_{name}_device_busy": busy1})
+        log(f"[shard] the same stage-{stage} step unsharded on one card: {ms1:.1f} ms, device "
+            f"busy {busy1}, loss {loss1}")
     torch.cuda.empty_cache()
-    return paths, metrics
+    return {f"sharded_{name}": launches}, metrics
 
 
 def phase_sharded_check(device, seg_ctx, train_ctx):
     """Tiny fp32 checks on the card (32x32 latents, so level-0 attention
-    reaches K12-K14): the segment over ``seg_ctx`` against the unsharded
-    one (K1, K2, K3), and a stage-1 step over ``train_ctx`` against the
-    unsharded step (K4-K7): loss, gradients, parameters after one AdamW
-    step with eps 1e-4. Rank 0 compares."""
-    import copy
+    reaches K12-K14), each sharded path against the unsharded one on the
+    same inputs: over ``seg_ctx`` the segment (K1, K2, K3), inversion and
+    null-text with its early stop reached, and the pipeline's latents; over
+    ``train_ctx`` a stage-1 and a stage-2 step (K4-K7): loss, gradients,
+    parameters after one AdamW step with eps 1e-4 (TRAIN_CHECKS). Rank 0
+    compares."""
+    config, cn_config, unet, cn, gen = build_tiny_models(device, SEED + 63)
+    models = (config, cn_config, unet, cn, gen)
+    launched = {}
+    for check, ctx in ((check_segment, seg_ctx), (check_null_text, seg_ctx),
+                       (check_pipeline, seg_ctx), (check_train, train_ctx)):
+        launched.update(check(device, ctx, *models))
+    return {"sharded_check": add_counts(*(v for k, v in launched.items()
+                                          if k.startswith("sharded")))}
 
+
+def runs_of(ctx):
+    """(name, layout) of the sharded run and, on rank 0, the unsharded one."""
+    return [("sharded", ctx)] + ([("unsharded", None)] if ctx.rank == 0 else [])
+
+
+def check_segment(device, ctx, config, cn_config, unet, cn, gen):
+    """The 2-step injected segment in mask mode."""
     import torch
 
     from motioneditor_tpu_torch import _build
@@ -2434,10 +2652,7 @@ def phase_sharded_check(device, seg_ctx, train_ctx):
     from motioneditor_tpu_torch.parallel.mesh import gather_video
     from motioneditor_tpu_torch.pipelines.editor import denoise_segment
     from motioneditor_tpu_torch.schedulers import DiffusionSchedule
-    from motioneditor_tpu_torch.training import stage1
-    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
 
-    config, cn_config, unet, cn, gen = build_tiny_models(device, SEED + 63)
     f, hw = FRAMES, 32
     lat = 0.3 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
     cond, uncond = (0.3 * torch.randn((2, 7, 16), generator=gen, device=device)
@@ -2446,11 +2661,8 @@ def phase_sharded_check(device, seg_ctx, train_ctx):
     masks = {(s, s): (torch.rand((f, s * s, 1), generator=gen, device=device) > 0.5).float()
              for s in (32, 16, 8, 4)}
     schedule = DiffusionSchedule()
-    lead = seg_ctx.rank == 0
     launched, outs = {}, {}
-    for name, shard in (("sharded", seg_ctx), ("unsharded", None)):
-        if shard is None and not lead:
-            continue
+    for name, shard in runs_of(ctx):
         cut = shard_or_keep(shard)
         _build.reset_launch_counts()
         with torch.no_grad():
@@ -2461,50 +2673,235 @@ def phase_sharded_check(device, seg_ctx, train_ctx):
             emb, {k: cut(m, frame_dim=0) for k, m in masks.items()}, shard_ctx=shard)
         launched[name] = dict(_build.launch_counts)
         outs[name] = gather_video(out, shard, branch_axis=True) if shard else out
-    need = {"sharded": ("video_flash_attention",) + KV_KERNELS, "unsharded": FORWARD_KERNELS}
+    need = {"sharded": SHARDED_KERNELS, "unsharded": FORWARD_KERNELS}
     for name in launched:
         if not all(launched[name].get(k) for k in need[name]):
             raise AssertionError(f"the {name} segment skipped a kernel: {launched[name]}")
-    if lead:
+    if ctx.rank == 0:
         err = (outs["sharded"] - outs["unsharded"]).abs().max().item()
-        log(f"[shard-check] 2-step fp32 segment over (1, {seg_ctx.fp}) vs unsharded: "
+        log(f"[shard-check] 2-step fp32 segment over (1, {ctx.fp}) vs unsharded: "
             f"max_abs_err={err:.3e}; launches {launched}")
         if not torch.isfinite(outs["sharded"]).all() or err > 2e-3:
             raise AssertionError(f"the sharded segment disagrees with the unsharded one: {err}")
+    return launched
 
-    lat1 = 0.5 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
-    enc = 0.5 * torch.randn((2, 7, 16), generator=gen, device=device)
-    out = {}
-    for name, shard in (("sharded", train_ctx), ("unsharded", None)):
-        if shard is None and not lead:
-            continue
-        state = make_train_state(copy.deepcopy(unet), stage1.TRAINABLE_MODULES,
-                                 make_optimizer(learning_rate=1e-3, eps=1e-4))
-        x, e = lat1, enc
-        if shard is not None:
-            x, e = shard_or_keep(shard)(lat1), enc.chunk(shard.dp)[shard.data_rank]
+
+@contextlib.contextmanager
+def null_text_objective_calls():
+    """(timestep, loss) of every null-text objective call (one per inner
+    Adam step) made while the block runs; sharded, the loss is the rank's
+    share."""
+    from motioneditor_tpu_torch.pipelines import editor
+
+    calls, loss_fn = [], editor.null_text_loss
+
+    def recording_loss(*args, **kwargs):
+        loss = loss_fn(*args, **kwargs)
+        calls.append((args[8], loss.detach()))
+        return loss
+
+    editor.null_text_loss = recording_loss
+    try:
+        yield calls
+    finally:
+        editor.null_text_loss = loss_fn
+
+
+def check_null_text(device, ctx, config, cn_config, unet, cn, gen):
+    """3 inversion steps with video attention (the trajectory), then 3
+    null-text steps of at most 3 inner steps along each run's own
+    trajectory, the early stop between the first two losses of rank 0's
+    unsharded run at the first timestep: every rank must take the unsharded
+    run's inner steps and end with the same embeddings, bit for bit."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.parallel.mesh import gather_video
+    from motioneditor_tpu_torch.pipelines.editor import ddim_invert, null_optimization
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    f, hw, steps, inner = FRAMES, 32, 3, 3
+    lat = 0.3 * torch.randn((1, f, hw, hw, 4), generator=gen, device=device)
+    cond, uncond0 = (0.3 * torch.randn((1, 7, 16), generator=gen, device=device)
+                     for _ in range(2))
+    schedule = DiffusionSchedule()
+    lead = ctx.rank == 0
+    launched, traj, whole = {}, {}, {}
+    for name, shard in runs_of(ctx):
         _build.reset_launch_counts()
-        state, metrics = stage1.train_step_stage1(
-            state, x, e, torch.Generator(device=device).manual_seed(SEED + 64), config,
-            remat=True, shard_ctx=shard)
-        launched[f"{name}_stage1"] = dict(_build.launch_counts)
-        out[name] = (float(metrics["loss"]),
-                     {n: p.grad.clone() for n, p in state.trainable.items()},
-                     {n: p.detach().clone() for n, p in state.trainable.items()})
-    # fp32 here: no launch takes a tensor-core body, so no ".tc" count
-    if not all(launched["sharded_stage1"].get(k) for k in SHARDED_STAGE1_LAUNCHES):
-        raise AssertionError(f"the sharded stage-1 step skipped a kernel: {launched}")
+        _, traj[name] = ddim_invert(unet, config, schedule, shard_or_keep(shard)(lat), cond,
+                                    steps, normal_infer=False, shard_ctx=shard)
+        launched[f"{name}_inversion"] = dict(_build.launch_counts)
+        whole[name] = (gather_video(traj[name], shard, branch_axis=True, frame_dim=2)
+                       if shard else traj[name])
+    eps = torch.zeros((), device=device)
     if lead:
-        (ls, gs, ps), (lu, gu, pu) = out["sharded"], out["unsharded"]
-        top = max(g.abs().max().item() for g in gu.values())
-        gerr = max((gs[n] - gu[n]).abs().max().item() for n in gu) / top
-        perr = max((ps[n] - pu[n]).abs().max().item() for n in pu)
-        log(f"[shard-check] fp32 stage-1 step over ({train_ctx.dp}, {train_ctx.fp}) vs "
-            f"unsharded: loss {ls:.7f} vs {lu:.7f}, grad max err {gerr:.3e} of max |g|, param "
-            f"max err {perr:.3e}; launches {launched['sharded_stage1']}")
-        if abs(ls - lu) > 1e-5 * abs(lu) or gerr > 1e-4 or perr > 1e-6:
-            raise AssertionError("the sharded stage-1 step disagrees with the unsharded one")
-    return {"sharded_check": add_counts(launched["sharded"], launched["sharded_stage1"])}
+        with null_text_objective_calls() as calls:
+            null_optimization(unet, config, schedule, traj["unsharded"], cond, uncond0, steps,
+                              inner, 1e-2, 7.5, early_stop_epsilon=-1.0)
+        eps.fill_((calls[0][1] + calls[1][1]).item() / 2)
+    dist.broadcast(eps, ctx.frame_ranks[0], group=ctx.frame_group)
+    unconds, taken = {}, {}
+    for name, shard in runs_of(ctx):
+        _build.reset_launch_counts()
+        with null_text_objective_calls() as calls:
+            unconds[name] = null_optimization(
+                unet, config, schedule, traj[name], cond, uncond0, steps, inner, 1e-2, 7.5,
+                early_stop_epsilon=eps.item(), shard_ctx=shard)
+        launched[f"{name}_null_text"] = dict(_build.launch_counts)
+        taken[name] = [t for t, _ in calls]
+    ranks = [torch.empty_like(unconds["sharded"]) for _ in range(ctx.fp)]
+    dist.all_gather(ranks, unconds["sharded"], group=ctx.frame_group)
+    for name in ("sharded_inversion", "sharded_null_text"):
+        if not all(launched[name].get(k) for k in SHARDED_STAGE1_LAUNCHES):
+            raise AssertionError(f"the {name} path skipped K12 or K14: {launched[name]}")
+    if lead:
+        err_x = (whole["sharded"] - whole["unsharded"]).abs().max().item()
+        err_u = (unconds["sharded"] - unconds["unsharded"]).abs().max().item()
+        per_t = collections.Counter(taken["unsharded"])
+        log(f"[shard-check] fp32 inversion and null-text over (1, {ctx.fp}) vs unsharded: "
+            f"trajectory max_abs_err={err_x:.3e}, uncond max_abs_err={err_u:.3e}; early stop "
+            f"at {eps.item():.6f}: inner steps by timestep {dict(per_t)}; launches {launched}")
+        if taken["sharded"] != taken["unsharded"] or min(per_t.values()) >= inner:
+            raise AssertionError(f"inner steps: sharded {taken['sharded']}, unsharded "
+                                 f"{taken['unsharded']}; the early stop must be reached")
+        if not all(torch.equal(r, ranks[0]) for r in ranks):
+            raise AssertionError("the ranks' null-text embeddings differ")
+        if not torch.isfinite(unconds["sharded"]).all() or err_x > 2e-3 or err_u > 2e-3:
+            raise AssertionError(f"sharded inversion / null-text disagree: {err_x}, {err_u}")
+    return launched
+
+
+def check_pipeline(device, ctx, config, cn_config, unet, cn, gen):
+    """MotionEditorPipeline (a tiny VAE and CLIP text encoder, 256 px) from
+    frames to edited latents: a sampled encode, null-text inversion, 3 edit
+    steps from start_step 2 with masks and the per-step embeddings."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.models.clip_text import (
+        CLIPTextConfig,
+        CLIPTextModel,
+        StubTokenizer,
+    )
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from motioneditor_tpu_torch.pipelines.editor import MotionEditorPipeline
+
+    f, size = FRAMES, 256
+    vae_config = VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
+                           norm_num_groups=4)
+    text_config = CLIPTextConfig(hidden_size=16, num_layers=1, num_heads=2,
+                                 intermediate_size=32)
+    with torch.device(device):
+        vae, text = AutoencoderKL(vae_config), CLIPTextModel(text_config)
+    for m in (vae, text):
+        init_params(m, gen)
+        m.eval()
+    video = torch.rand((1, f, size, size, 3), generator=gen, device=device) * 2 - 1
+    skeleton = torch.rand((f, size, size, 3), generator=gen, device=device)
+    masks = torch.zeros((f, size, size), device=device)
+    masks[:, 64:192, 80:176] = 1.0
+    prompts = ["a man is dancing", "a man is jumping"]
+    launched, outs = {}, {}
+    for name, shard in runs_of(ctx):
+        pipe = MotionEditorPipeline(unet=unet, vae=vae, text_encoder=text, controlnet=cn,
+                                    tokenizer=StubTokenizer(), unet_config=config,
+                                    vae_config=vae_config, text_config=text_config,
+                                    shard_ctx=shard)
+        _build.reset_launch_counts()
+        lat = pipe.encode_video(video, generator=torch.Generator(device=device).manual_seed(
+            SEED + 69))
+        x_t, uncond = pipe.null_text_inversion(lat, prompts[0], num_steps=3)
+        outs[name] = pipe(prompts, torch.cat([x_t, x_t]), skeleton, source_masks=masks,
+                          uncond_embeddings=uncond, num_inference_steps=3, start_step=2,
+                          decode=False)
+        launched[f"{name}_pipeline"] = dict(_build.launch_counts)
+    if not all(launched["sharded_pipeline"].get(k) for k in SHARDED_KERNELS):
+        raise AssertionError(f"the sharded pipeline skipped a kernel: {launched}")
+    if ctx.rank == 0:
+        err = (outs["sharded"] - outs["unsharded"]).abs().max().item()
+        log(f"[shard-check] fp32 pipeline from frames to latents over (1, {ctx.fp}) vs "
+            f"unsharded: max_abs_err={err:.3e}; launches {launched}")
+        if not torch.isfinite(outs["sharded"]).all() or err > 2e-3:
+            raise AssertionError(f"the sharded pipeline disagrees with the unsharded one: {err}")
+    return launched
+
+
+# stage 2's fp32 gradients pass the adapter's ReLU (body.*.block1): when the
+# same math runs the ControlNet at other call shapes (a (2, 2) layout's, one
+# rank or not), cuDNN's rounding can flip a pre-activation near 0, which
+# moves a gradient past this check's limits; in fp64 nothing moves
+# (chip_variants.py --stage2-shapes, PERF.md §6). So stage 2's gradients and
+# parameters are compared in fp64 on the plain path, its fp32 kernel path by
+# the loss; stage 1 (no ReLU) in fp32
+TRAIN_CHECKS = (("stage1", "float32", True), ("stage2", "float32", False),
+                ("stage2", "float64", True))
+
+
+def check_train(device, ctx, config, cn_config, unet, cn, gen):
+    """A stage-1 and a stage-2 step, gradient checkpointing on; stage 1 and
+    stage 2 in fp32 on the kernels, stage 2 also in fp64 on the plain path
+    (TRAIN_CHECKS: which runs compare gradients and parameters)."""
+    import copy
+
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.training import stage1, stage2
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    f, hw = FRAMES, 32
+    lat = 0.5 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
+    enc = 0.5 * torch.randn((2, 7, 16), generator=gen, device=device)
+    skel = torch.rand((2, f, 8 * hw, 8 * hw, 3), generator=gen, device=device)
+    cn.requires_grad_(False)
+    launched = {}
+    for stage, dtype_name, compare_grads in TRAIN_CHECKS:
+        module = stage1 if stage == "stage1" else stage2
+        dtype = getattr(torch, dtype_name)
+        kernels = dtype == torch.float32  # the kernels take bf16 and fp32
+        cn_run = cn if kernels else copy.deepcopy(cn).to(dtype)
+        out = {}
+        for name, shard in runs_of(ctx):
+            state = make_train_state(copy.deepcopy(unet).to(dtype), module.TRAINABLE_MODULES,
+                                     make_optimizer(learning_rate=1e-3, eps=1e-4))
+            x, e, s = lat.to(dtype), enc.to(dtype), skel.to(dtype)
+            if shard is not None:
+                cut = shard_or_keep(shard)
+                x, s, e = cut(x), cut(s), e.chunk(shard.dp)[shard.data_rank]
+            _build.reset_launch_counts()
+            state, metrics = train_step(
+                stage, state, cn_run, config, cn_config, x, e, s,
+                torch.Generator(device=device).manual_seed(SEED + 64), remat=True,
+                use_flash=kernels, shard_ctx=shard)
+            if kernels:
+                launched[f"{name}_{stage}"] = dict(_build.launch_counts)
+            out[name] = (float(metrics["loss"]),
+                         {n: p.grad.clone() for n, p in state.trainable.items()},
+                         {n: p.detach().clone() for n, p in state.trainable.items()})
+        # fp32 here: no launch takes a tensor-core body, so no ".tc" count
+        if kernels and not all(launched[f"sharded_{stage}"].get(k)
+                               for k in SHARDED_STAGE1_LAUNCHES):
+            raise AssertionError(f"the sharded {stage} step skipped a kernel: {launched}")
+        if ctx.rank == 0:
+            (ls, gs, ps), (lu, gu, pu) = out["sharded"], out["unsharded"]
+            top = max(g.abs().max().item() for g in gu.values())
+            gerr = max((gs[n] - gu[n]).abs().max().item() for n in gu) / top
+            perr = max((ps[n] - pu[n]).abs().max().item() for n in pu)
+            log(f"[shard-check] {dtype_name} {stage} step over ({ctx.dp}, {ctx.fp}) vs "
+                f"unsharded{'' if kernels else ' (plain path)'}: loss {ls:.9f} vs {lu:.9f}, "
+                f"grad max err {gerr:.3e} of max |g|, param max err {perr:.3e} "
+                f"({'compared' if compare_grads else 'shown'}); launches "
+                f"{launched.get(f'sharded_{stage}') if kernels else {}}")
+            if abs(ls - lu) > 1e-5 * abs(lu):
+                raise AssertionError(f"the sharded {stage} loss disagrees with the unsharded one")
+            if compare_grads and (gerr > 1e-4 or perr > 1e-6):
+                raise AssertionError(f"the sharded {stage} step disagrees with the unsharded one")
+    return launched
 
 
 def main() -> int:
@@ -2603,6 +3000,31 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     log(f"[shard] done in {time.perf_counter() - t0:.1f} s")
+    sharded_pipe = shard_metrics["pipeline"]
+    beside = {  # (sharded in the one-rank group, unsharded phase of this run)
+        "inversion_ms_per_step": (shard_metrics["inversion_ms_per_step"],
+                                  null_metrics["inversion_ms_per_step"]),
+        "null_text_ms_per_step": (shard_metrics["null_text_ms_per_step"],
+                                  null_metrics["null_text_ms_per_step"]),
+        "null_text_peak_gib": (shard_metrics["null_text_peak_gib"],
+                               null_metrics["null_text_peak_gib"]),
+        "pipeline_inversion_null_text_ms_per_step": (
+            sharded_pipe["inversion_null_text_ms_per_step"],
+            pipe_metrics["inversion_null_text_ms_per_step"]),
+        "pipeline_edit_ms_per_step": (sharded_pipe["edit_ms_per_step"],
+                                      pipe_metrics["edit_ms_per_step"]),
+        "pipeline_peak_gib": (sharded_pipe["peak_gib"], pipe_metrics["peak_gib"]),
+        "stage1_ms_per_step": (shard_metrics["stage1_ms_per_step"],
+                               train_metrics["stage1_ms_per_step_knobs_off"]),
+        "stage1_peak_gib": (shard_metrics["stage1_peak_gib"],
+                            train_metrics["stage1_peak_gib_knobs_off"]),
+        "stage2_ms_per_step": (shard_metrics["stage2_ms_per_step"],
+                               train_metrics["stage2_ms_per_step_knobs_off"]),
+        "stage2_peak_gib": (shard_metrics["stage2_peak_gib"],
+                            train_metrics["stage2_peak_gib_knobs_off"]),
+    }
+    log(f"[shard] sharded in a one-rank group beside the unsharded phases of this run "
+        f"(knobs off): {json.dumps(beside)}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2626,7 +3048,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
                       "train": train_metrics, "norm_yardsticks": yardsticks,
-                      "sharded": shard_metrics,
+                      "sharded": shard_metrics, "sharded_vs_unsharded": beside,
                       "profiles": {"denoise": slice_profile, "auto": auto_profile,
                                    "stage1": stage1_profile},
                       "launches_by_path": paths}))

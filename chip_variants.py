@@ -10,6 +10,7 @@ K3's body) at other tiles than the one ops/temporal_flash.py
     python3 chip_variants.py --k14-device <checkout>
     python3 chip_variants.py --k10-device <checkout>
     python3 chip_variants.py --k10-plans
+    python3 chip_variants.py --stage2-shapes
 
 --temporal: at the bf16 shapes of PERF.md's K3 and K7 rows and at K14's
 shard-local shape (2 query frames of 8 at the last shard's offset), every
@@ -52,6 +53,15 @@ launches) and not the host's. The input stays in L2 from launch to launch
 (warm); the four fastest plans and the plan ``pair_stats_plan`` picks are
 also timed cold: each launch after a read of a 96 MB buffer, whose own
 time (timed alone the same way) is taken off.
+
+--stage2-shapes: chip_smoke.py's tiny fp32 and fp64 training steps
+(phase 11b's models and shapes, three data draws), each run twice on the
+same inputs: as one call, and with the ControlNet run on (batch 1, 2
+frames) chunks, the call shapes of a (2, 2) layout's ranks, no rank
+involved. Prints how far the loss, the trainables' gradients (max over
+the max |g|, the worst parameters, relative L2) and the parameters after
+one AdamW step (eps 1e-4) move: the rounding that a comparison of a
+sharded step with an unsharded one cannot tell from a fault.
 
 Each variant runs in its own process from its own copy under
 build/variants/ (git-ignored), which builds its own kernels. Per variant:
@@ -472,6 +482,72 @@ def k10_plans() -> None:
         torch.cuda.empty_cache()
 
 
+def stage2_shapes() -> None:
+    """See --stage2-shapes in the module docstring."""
+    import copy
+
+    import torch
+
+    import chip_smoke as cs
+    from motioneditor_tpu_torch.training import stage1, stage2
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config, cn_config, unet, cn, _ = cs.build_tiny_models(dev, cs.SEED + 63)
+    cn.requires_grad_(False)
+    apply, embed = stage2.controlnet_apply, stage2.precompute_cond_embedding
+
+    def chunked_embed(model, skel):
+        return torch.cat([torch.cat([embed(model, skel[b:b + 1, i:i + 2])
+                                     for i in range(0, skel.shape[1], 2)], 1)
+                          for b in range(skel.shape[0])], 0)
+
+    def chunked_apply(model, config, x, t, enc, emb, **kw):
+        rows = [[apply(model, config, x[b:b + 1, i:i + 2], t[b:b + 1], enc[b:b + 1],
+                       emb[b:b + 1, i:i + 2], **kw) for i in range(0, x.shape[1], 2)]
+                for b in range(x.shape[0])]
+        down = [torch.cat([torch.cat([c[0][k] for c in row], 1) for row in rows], 0)
+                for k in range(len(rows[0][0][0]))]
+        return down, torch.cat([torch.cat([c[1] for c in row], 1) for row in rows], 0)
+
+    for draw in range(3):
+        g = torch.Generator(device=dev).manual_seed(100 + draw)
+        lat = 0.5 * torch.randn((2, cs.FRAMES, 32, 32, 4), generator=g, device=dev)
+        enc = 0.5 * torch.randn((2, 7, 16), generator=g, device=dev)
+        skel = torch.rand((2, cs.FRAMES, 256, 256, 3), generator=g, device=dev)
+        for stage, module in (("stage2", stage2), ("stage1", stage1)):
+            for dtype in (torch.float32, torch.float64):
+                out = []
+                for chunked in (False, True):
+                    stage2.controlnet_apply = chunked_apply if chunked else apply
+                    stage2.precompute_cond_embedding = chunked_embed if chunked else embed
+                    state = make_train_state(copy.deepcopy(unet).to(dtype),
+                                             module.TRAINABLE_MODULES,
+                                             make_optimizer(learning_rate=1e-3, eps=1e-4))
+                    _, metrics = cs.train_step(
+                        stage, state, copy.deepcopy(cn).to(dtype), config, cn_config,
+                        lat.to(dtype), enc.to(dtype), skel.to(dtype),
+                        torch.Generator(device=dev).manual_seed(7), remat=True,
+                        use_flash=dtype == torch.float32)
+                    out.append((float(metrics["loss"]),
+                                {n: p.grad.double() for n, p in state.trainable.items()},
+                                {n: p.detach().double() for n, p in state.trainable.items()}))
+                stage2.controlnet_apply, stage2.precompute_cond_embedding = apply, embed
+                (l0, g0, p0), (l1, g1, p1) = out
+                top = max(x.abs().max().item() for x in g0.values())
+                gerr = {n: (g1[n] - g0[n]).abs().max().item() / top for n in g0}
+                worst = sorted(gerr.items(), key=lambda kv: -kv[1])[:2]
+                l2 = max(((g1[n] - g0[n]).norm() / g0[n].norm().clamp_min(1e-30)).item()
+                         for n in g0)
+                perr = max((p1[n] - p0[n]).abs().max().item() for n in p0)
+                print(f"[stage2-shapes] draw {draw} {stage} {str(dtype)[6:]}: loss {l0:.9f} "
+                      f"vs {l1:.9f}, grad max err {max(gerr.values()):.3e} of max |g| (worst "
+                      f"{worst}), max relative L2 {l2:.3e}, param max err {perr:.3e}",
+                      flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -480,6 +556,9 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--k10-plans"]:
         k10_plans()
+        return 0
+    if sys.argv[1:] == ["--stage2-shapes"]:
+        stage2_shapes()
         return 0
     if sys.argv[1:] == ["--temporal"]:
         temporal_sweep()

@@ -158,16 +158,25 @@ def vae_encode_moments(vae: AutoencoderKL, images: torch.Tensor,
     return mean, logvar.clamp(-30.0, 20.0)
 
 
+def _sample(mean: torch.Tensor, logvar: torch.Tensor,
+            noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """The diagonal Gaussian's sample at ``noise`` (its mean without), times
+    0.18215."""
+    if noise is not None:
+        mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+    return mean * SCALING_FACTOR
+
+
 def vae_encode(vae: AutoencoderKL, images: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                config: VAEConfig = VAEConfig()) -> torch.Tensor:
     """The diagonal Gaussian's sample drawn from ``generator`` (its mean
     without one) times 0.18215."""
     mean, logvar = vae_encode_moments(vae, images, config)
+    noise = None
     if generator is not None:
         noise = torch.randn(mean.shape, generator=generator, device=mean.device)
-        mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
-    return mean * SCALING_FACTOR
+    return _sample(mean, logvar, noise)
 
 
 def vae_decode(vae: AutoencoderKL, latents: torch.Tensor,
@@ -187,12 +196,25 @@ def vae_decode(vae: AutoencoderKL, latents: torch.Tensor,
 
 def vae_encode_video(vae: AutoencoderKL, video: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
-                     config: VAEConfig = VAEConfig()) -> torch.Tensor:
-    """[B, F, H, W, 3] -> [B, F, h, w, 4]; frames fold into the batch."""
+                     config: VAEConfig = VAEConfig(), shard_ctx=None) -> torch.Tensor:
+    """[B, F, H, W, 3] -> [B, F, h, w, 4]; frames fold into the batch.
+    ``shard_ctx``: ``video`` holds this rank's frames of the clip (the
+    batch whole); the posterior noise is drawn at the whole clip's shape
+    and this rank's frames of it taken, so the ranks together sample what
+    one unsharded encode does."""
     b, f = video.shape[:2]
-    lat = vae_encode(vae, video.reshape(b * f, *video.shape[2:]), generator=generator,
-                     config=config)
-    return lat.reshape(b, f, *lat.shape[1:])
+    mean, logvar = (t.reshape(b, f, *t.shape[1:]) for t in vae_encode_moments(
+        vae, video.reshape(b * f, *video.shape[2:]), config))
+    noise = None
+    if generator is not None:
+        fp = 1 if shard_ctx is None else shard_ctx.fp
+        noise = torch.randn((b, f * fp, *mean.shape[2:]), generator=generator,
+                            device=mean.device)
+        if shard_ctx is not None:
+            from motioneditor_tpu_torch.parallel.mesh import shard_video
+
+            noise = shard_video(noise, shard_ctx, branch_axis=True)
+    return _sample(mean, logvar, noise)
 
 
 def vae_decode_video(vae: AutoencoderKL, latents: torch.Tensor,

@@ -15,9 +15,12 @@ the adapter, fg/bg attention injection and temporal K/V injection; applies
 CFG and the DDIM step. The JAX ``lax.scan``/``while_loop`` loops are Python
 loops here. ``MotionEditorPipeline`` chains these phases from prompts and
 frames to frames, with the VAE and the CLIP text encoder. Prompt-to-prompt
-and local blend are not ported yet. ``denoise_segment`` also runs frame
-sharded over a process group (parallel/); inversion, null-text and the
-pipeline do not yet.
+and local blend are not ported yet.
+
+Every phase also runs frame sharded over a process group (``shard_ctx``,
+parallel/mesh.FrameShardingCtx): the functions take this rank's frames and
+return them; ``MotionEditorPipeline`` with a ``shard_ctx`` takes whole
+clips on every rank, works on this rank's frames and gathers the results.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from motioneditor_tpu_torch.control.injection import (
     InjectionSpec,
@@ -52,7 +56,9 @@ from motioneditor_tpu_torch.models.vae import (
     vae_decode_video,
     vae_encode_video,
 )
+from motioneditor_tpu_torch.parallel.mesh import FrameShardingCtx, gather_video, shard_video
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule, ddim_inverse_step, ddim_step
+from motioneditor_tpu_torch.training.common import mse
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -67,12 +73,15 @@ def ddim_invert(
     num_steps: int,
     normal_infer: bool = True,
     use_flash: bool = True,
+    shard_ctx=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain DDIM inversion of ``latents`` [B, F, h, w, 4] under the text
     embedding ``cond`` [1 or B, L, D], run in the latents' dtype;
     ``normal_infer`` turns the video attention variants off. Returns
     (x_T, all_latents [num_steps + 1, ...]) with all_latents[i] the latent
-    after i inversion steps (x_0 first)."""
+    after i inversion steps (x_0 first). ``shard_ctx``: ``latents`` holds
+    this rank's frames, and so do both results; the UNet communicates over
+    the frame group, the inverse DDIM step is per element."""
     ts = schedule.inference_timesteps(num_steps)
     cond_b = cond.to(latents.dtype).expand(latents.shape[0], *cond.shape[1:])
     lat = latents
@@ -80,31 +89,43 @@ def ddim_invert(
     for i in range(num_steps):
         t = int(ts[num_steps - i - 1])
         eps = unet_apply(unet, unet_config, lat, t, cond_b, normal_infer=normal_infer,
-                         use_flash=use_flash)
+                         use_flash=use_flash, shard_ctx=shard_ctx)
         lat = ddim_inverse_step(schedule, eps, t, lat, num_steps)
         all_latents.append(lat)
     return lat, torch.stack(all_latents)
 
 
 def _null_text_eps(unet, unet_config, lat, t: int, emb, compute_dtype: torch.dtype,
-                   use_flash: bool) -> torch.Tensor:
+                   use_flash: bool, shard_ctx=None) -> torch.Tensor:
     """The null-text UNet call: batch 1, motion_frame attention, no
     ControlNet or adapter; runs in ``compute_dtype``, returns fp32. The
     casts sit inside the graph, so a gradient reaches an fp32 ``emb``."""
     return unet_apply(unet, unet_config, lat.to(compute_dtype), t, emb.to(compute_dtype),
-                      normal_infer=False, use_flash=use_flash).float()
+                      normal_infer=False, use_flash=use_flash, shard_ctx=shard_ctx).float()
 
 
 def null_text_loss(unet, unet_config, schedule, num_steps: int, guidance_scale: float,
                    compute_dtype: torch.dtype, latent_cur, latent_prev, t: int, eps_cond,
-                   uncond, use_flash: bool = True) -> torch.Tensor:
+                   uncond, use_flash: bool = True, shard_ctx=None) -> torch.Tensor:
     """The null-text objective of one timestep: mean squared distance between
     the CFG DDIM step from ``latent_cur`` (uncond embedding ``uncond``,
-    precomputed ``eps_cond``) and the inversion latent ``latent_prev``."""
-    eps_u = _null_text_eps(unet, unet_config, latent_cur, t, uncond, compute_dtype, use_flash)
+    precomputed ``eps_cond``) and the inversion latent ``latent_prev``; with
+    ``shard_ctx``, this rank's share of it (the local sum over the global
+    element count), so the frame group's shares sum to it."""
+    eps_u = _null_text_eps(unet, unet_config, latent_cur, t, uncond, compute_dtype, use_flash,
+                           shard_ctx)
     eps = eps_u + guidance_scale * (eps_cond - eps_u)
     prev_rec = ddim_step(schedule, eps, t, latent_cur, num_steps)
-    return ((prev_rec - latent_prev) ** 2).mean()
+    return mse(prev_rec, latent_prev, shard_ctx)
+
+
+def _sum_over_frames(loss: torch.Tensor, grad: torch.Tensor, shard_ctx):
+    """The frame group's sums of a loss share and its gradient, in one
+    all-reduce: every rank gets the same bits, so every rank takes the same
+    early-stop decision and the same Adam update."""
+    buf = torch.cat([loss.reshape(1), grad.reshape(-1)])
+    dist.all_reduce(buf, group=shard_ctx.frame_group)
+    return buf[0], buf[1:].view_as(grad)
 
 
 def null_optimization(
@@ -121,6 +142,7 @@ def null_optimization(
     compute_dtype: str = "float32",
     early_stop_epsilon: float = 1e-5,
     use_flash: bool = True,
+    shard_ctx=None,
 ) -> torch.Tensor:
     """Per-timestep Adam on the uncond embedding pinning the CFG trajectory
     to the inversion trajectory ``all_latents`` (from ``ddim_invert``).
@@ -139,7 +161,15 @@ def null_optimization(
     ``compute_dtype`` is the UNet's parameter dtype, which it must match;
     the embedding, the Adam state, the DDIM step and the loss stay fp32.
     Freezes the UNet's parameters (requires_grad False): the gradient is
-    taken with respect to the embedding only."""
+    taken with respect to the embedding only.
+
+    ``shard_ctx`` (a frame-only layout): ``all_latents`` holds this rank's
+    frames. Each rank's loss is its share of the global mean; the shares
+    and the embedding's gradients are summed over the frame group before
+    the early-stop test and the Adam update, so the embeddings that come
+    out are the same bits on every rank."""
+    if shard_ctx is not None and shard_ctx.dp > 1:
+        raise ValueError("null-text optimization shards frames only, not the data axis")
     cdt = _DTYPES[compute_dtype]
     param_dtype = next(unet.parameters()).dtype
     if param_dtype != cdt:
@@ -154,7 +184,8 @@ def null_optimization(
         t = int(ts[i])
         latent_prev = all_latents[num_steps - 1 - i]
         with torch.no_grad():
-            eps_cond = _null_text_eps(unet, unet_config, latent_cur, t, cond, cdt, use_flash)
+            eps_cond = _null_text_eps(unet, unet_config, latent_cur, t, cond, cdt, use_flash,
+                                      shard_ctx)
         # the schedules in fp32, as the reference computes them
         lr = float(np.float32(base_lr) * (np.float32(1.0) - np.float32(i) / np.float32(100.0)))
         thresh = float(np.float32(early_stop_epsilon) + np.float32(i) * np.float32(2e-5))
@@ -162,14 +193,19 @@ def null_optimization(
         v = torch.zeros_like(uncond)
         j, loss = 0, torch.tensor(float("inf"))
         # `loss >= thresh` syncs with the device; it is read only when
-        # another inner step may follow (never when inner_steps == 1)
+        # another inner step may follow (never when inner_steps == 1).
+        # Sharded, ``loss`` is the world's, the same on every rank: a rank
+        # that left the loop alone would hang the others' collectives
         while j < inner_steps and bool(loss >= thresh):
             u = uncond.detach().requires_grad_(True)
             with torch.enable_grad():
                 loss = null_text_loss(unet, unet_config, schedule, num_steps, guidance_scale,
-                                      cdt, latent_cur, latent_prev, t, eps_cond, u, use_flash)
+                                      cdt, latent_cur, latent_prev, t, eps_cond, u, use_flash,
+                                      shard_ctx)
                 (g,) = torch.autograd.grad(loss, u)
             loss = loss.detach()
+            if shard_ctx is not None:
+                loss, g = _sum_over_frames(loss, g, shard_ctx)
             m = 0.9 * m + 0.1 * g
             v = 0.999 * v + 0.001 * g * g
             jf = np.float32(j + 1)
@@ -178,7 +214,8 @@ def null_optimization(
             uncond = uncond - lr * mhat / (vhat.sqrt() + 1e-8)
             j += 1
         with torch.no_grad():
-            eps_u = _null_text_eps(unet, unet_config, latent_cur, t, uncond, cdt, use_flash)
+            eps_u = _null_text_eps(unet, unet_config, latent_cur, t, uncond, cdt, use_flash,
+                                   shard_ctx)
             latent_cur = ddim_step(schedule, eps_u + guidance_scale * (eps_cond - eps_u), t,
                                    latent_cur, num_steps)
         uncond_list.append(uncond)
@@ -200,17 +237,20 @@ def null_text_inversion(
     early_stop_epsilon: float = 1e-5,
     compute_dtype: str = "float32",
     use_flash: bool = True,
+    shard_ctx=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DDIM inversion under ``cond`` (``null_normal_infer`` applies to this
     pass only), then null-text optimization of ``uncond0`` along its
     trajectory. cond / uncond0: [1, L, D] text embeddings. Returns
-    (x_T, uncond embeddings [num_steps, 1, L, D])."""
+    (x_T, uncond embeddings [num_steps, 1, L, D]). ``shard_ctx``: both
+    phases run frame sharded; ``latents`` and x_T hold this rank's frames."""
     x_t, all_latents = ddim_invert(unet, unet_config, schedule, latents, cond, num_steps,
-                                   normal_infer=null_normal_infer, use_flash=use_flash)
+                                   normal_infer=null_normal_infer, use_flash=use_flash,
+                                   shard_ctx=shard_ctx)
     uncond_list = null_optimization(
         unet, unet_config, schedule, all_latents, cond, uncond0, num_steps, inner_steps,
         base_lr, guidance_scale, compute_dtype=compute_dtype,
-        early_stop_epsilon=early_stop_epsilon, use_flash=use_flash)
+        early_stop_epsilon=early_stop_epsilon, use_flash=use_flash, shard_ctx=shard_ctx)
     return x_t, uncond_list
 
 
@@ -277,7 +317,12 @@ def denoise_segment(
 class MotionEditorPipeline:
     """The models, their configs and the tokenizer. The UNet's parameter
     dtype is the compute dtype of every phase (null-text keeps its embedding,
-    Adam state and DDIM math in fp32); text embeddings are cast to it."""
+    Adam state and DDIM math in fp32); text embeddings are cast to it.
+
+    ``shard_ctx`` (a frame-only layout, parallel/mesh.FrameShardingCtx):
+    every entry takes whole clips on every rank and returns whole results,
+    as JAX's global arrays; inside, each phase works on this rank's frames
+    and the results are gathered at its end (JAX editor.py:68-71)."""
 
     unet: UNet3DConditionModel
     vae: AutoencoderKL
@@ -290,10 +335,25 @@ class MotionEditorPipeline:
     text_config: CLIPTextConfig = CLIPTextConfig()
     schedule: DiffusionSchedule = DiffusionSchedule()
     use_flash: bool = True
+    shard_ctx: Optional[FrameShardingCtx] = None
 
     def __post_init__(self):
         if self.controlnet_config is None:
             self.controlnet_config = controlnet_config(self.unet_config)
+        if self.shard_ctx is not None and self.shard_ctx.dp > 1:
+            raise ValueError("the pipeline shards frames only: its layout needs data = 1, "
+                             f"got {self.shard_ctx.dp}")
+
+    def _frames(self, x: torch.Tensor, frame_dim: int = 1) -> torch.Tensor:
+        """This rank's frames of a whole clip (the clip itself unsharded);
+        raises ValueError when the frames do not split over the layout."""
+        if self.shard_ctx is None:
+            return x
+        return shard_video(x, self.shard_ctx, branch_axis=True, frame_dim=frame_dim)
+
+    def _whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole clip from every rank's frames [B, Fl, ...]."""
+        return x if self.shard_ctx is None else gather_video(x, self.shard_ctx, branch_axis=True)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -307,23 +367,34 @@ class MotionEditorPipeline:
 
     @torch.no_grad()
     def encode_prompt(self, prompts: Sequence[str]) -> torch.Tensor:
-        """[len(prompts), 77, 768] text embeddings in the UNet's dtype."""
+        """[len(prompts), 77, 768] text embeddings in the UNet's dtype.
+        Sharded, frame rank 0's embeddings go to every rank: the ranks must
+        condition on the same text, and a tokenizer need not give every
+        process the same ids (``StubTokenizer``'s are salted per process)."""
         ids = tokenize(self.tokenizer, prompts, self.text_config.max_position_embeddings)
         emb = clip_text_apply(self.text_encoder, ids.to(self.device), self.text_config)
-        return emb.to(self.dtype)
+        emb = emb.to(self.dtype).contiguous()
+        if self.shard_ctx is not None:
+            dist.broadcast(emb, self.shard_ctx.frame_ranks[0], group=self.shard_ctx.frame_group)
+        return emb
 
     @torch.no_grad()
     def encode_video(self, video: torch.Tensor,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, F, H, W, 3] in [-1, 1] -> latents [B, F, h, w, 4] (x0.18215),
-        sampled from ``generator`` (the mean without one)."""
-        return vae_encode_video(self.vae, video, generator=generator, config=self.vae_config)
+        sampled from ``generator`` (the mean without one; sharded, the noise
+        of the whole clip is drawn and this rank's frames taken)."""
+        return self._whole(vae_encode_video(self.vae, self._frames(video), generator=generator,
+                                            config=self.vae_config, shard_ctx=self.shard_ctx))
+
+    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+        img = vae_decode_video(self.vae, latents, config=self.vae_config)
+        return torch.clamp(img / 2 + 0.5, 0.0, 1.0)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """latents [B, F, h, w, 4] -> video [B, F, H, W, 3] in [0, 1]."""
-        img = vae_decode_video(self.vae, latents, config=self.vae_config)
-        return torch.clamp(img / 2 + 0.5, 0.0, 1.0)
+        return self._whole(self._decode(self._frames(latents)))
 
     # -- inversion ------------------------------------------------------------
 
@@ -332,9 +403,10 @@ class MotionEditorPipeline:
         """Plain DDIM inversion under ``prompt``; ``normal_infer`` turns the
         video attention variants off. Returns x_T."""
         final, _ = ddim_invert(
-            self.unet, self.unet_config, self.schedule, latents, self.encode_prompt([prompt]),
-            num_inv_steps, normal_infer=normal_infer, use_flash=self.use_flash)
-        return final
+            self.unet, self.unet_config, self.schedule, self._frames(latents),
+            self.encode_prompt([prompt]), num_inv_steps, normal_infer=normal_infer,
+            use_flash=self.use_flash, shard_ctx=self.shard_ctx)
+        return self._whole(final)
 
     def null_text_inversion(self, latents: torch.Tensor, prompt: str, num_steps: int = 50,
                             null_inner_steps: int = 1, null_base_lr: float = 1e-2,
@@ -342,12 +414,13 @@ class MotionEditorPipeline:
                             early_stop_epsilon: float = 1e-5):
         """Returns (x_T, uncond embeddings [num_steps, 1, 77, 768] in fp32)."""
         compute = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[self.dtype]
-        return null_text_inversion(
-            self.unet, self.unet_config, self.schedule, latents, self.encode_prompt([prompt]),
-            self.encode_prompt([""]), num_steps=num_steps, inner_steps=null_inner_steps,
-            base_lr=null_base_lr, guidance_scale=guidance_scale,
+        x_t, uncond = null_text_inversion(
+            self.unet, self.unet_config, self.schedule, self._frames(latents),
+            self.encode_prompt([prompt]), self.encode_prompt([""]), num_steps=num_steps,
+            inner_steps=null_inner_steps, base_lr=null_base_lr, guidance_scale=guidance_scale,
             null_normal_infer=null_normal_infer, early_stop_epsilon=early_stop_epsilon,
-            compute_dtype=compute, use_flash=self.use_flash)
+            compute_dtype=compute, use_flash=self.use_flash, shard_ctx=self.shard_ctx)
+        return self._whole(x_t), uncond
 
     # -- two-branch edit --------------------------------------------------------
 
@@ -386,27 +459,31 @@ class MotionEditorPipeline:
         if uncond_embeddings is not None and len(uncond_embeddings) < num_inference_steps:
             raise ValueError(f"{len(uncond_embeddings)} uncond embeddings for "
                              f"{num_inference_steps} steps")
-        f = latents.shape[1]
+        # sharded, every per-frame input is cut to this rank's frames
+        lat = self._frames(latents)
+        f = lat.shape[1]
         cond = self.encode_prompt(list(prompts))  # [2, 77, 768]
         uncond = None
         if uncond_embeddings is None:
             uncond = self.encode_prompt([""]).expand(cond.shape)
         masks = None
         if source_masks is not None:
-            h, w = latents.shape[2:4]
+            h, w = lat.shape[2:4]
             masks = prepare_injection_masks(
-                source_masks, f, tuple((h >> i, w >> i) for i in range(4)))
+                self._frames(source_masks, frame_dim=0), f,
+                tuple((h >> i, w >> i) for i in range(4)))
         ts = self.schedule.inference_timesteps(num_inference_steps)
         spec = InjectionSpec.from_start_layer(start_layer)
         # both CFG rows see the target skeleton; its embedding is step-invariant
-        cond_image = target_skeleton.to(self.dtype)[None].expand(2, *target_skeleton.shape)
-        cond_embedding = precompute_cond_embedding(self.controlnet, cond_image)
-        lat = latents
+        skeleton = self._frames(target_skeleton, frame_dim=0).to(self.dtype)
+        cond_embedding = precompute_cond_embedding(self.controlnet,
+                                                   skeleton[None].expand(2, *skeleton.shape))
         for lo, hi, injected in segment_step_ranges(num_inference_steps, start_step=start_step):
             lat = denoise_segment(
                 self.unet, self.unet_config, self.controlnet, self.controlnet_config,
                 self.schedule, num_inference_steps, spec if injected else None, guidance_scale,
                 controlnet_conditioning_scale, lat, ts[lo:hi], cond, uncond, cond_embedding,
                 masks, use_flash=self.use_flash,
-                seg_uncond=None if uncond_embeddings is None else uncond_embeddings[lo:hi])
-        return self.decode_latents(lat) if decode else lat
+                seg_uncond=None if uncond_embeddings is None else uncond_embeddings[lo:hi],
+                shard_ctx=self.shard_ctx)
+        return self._whole(self._decode(lat) if decode else lat)

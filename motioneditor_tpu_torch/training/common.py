@@ -196,6 +196,19 @@ def sum_over_world(tensors: Iterable[torch.Tensor]) -> None:
         dist.all_reduce(t)
 
 
+def sum_step_over_world(loss: torch.Tensor, params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """A sharded step's sums over every rank before its optimizer step: the
+    trainables' gradients in place (a trainable the loss does not reach
+    sums zeros) and the loss shares, whose sum it returns."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    loss = loss.detach().clone()
+    sum_over_world([loss] + [p.grad for p in params])
+    return loss
+
+
 def diffusion_target(schedule, latents, noise, timesteps, prediction_type: str):
     """The regression target of the denoising loss."""
     from motioneditor_tpu_torch.schedulers import ddpm_velocity

@@ -28,7 +28,7 @@ from motioneditor_tpu_torch.training.common import (
     draw_noise,
     draw_noise_sharded,
     mse,
-    sum_over_world,
+    sum_step_over_world,
 )
 
 TRAINABLE_MODULES = ("attn1.to_q", "attn2.to_q", "attn_temp")
@@ -90,12 +90,7 @@ def train_step_stage1(
         (loss / accum_steps).backward()
         total = total + loss.detach()
     if shard_ctx is not None:
-        params = state.optimizer.params()
-        for p in params:  # a trainable the loss does not reach sums zeros
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        total = total.clone()
-        sum_over_world([total] + [p.grad for p in params])
+        total = sum_step_over_world(total, state.optimizer.params())
     state.optimizer.step()
     state.step += 1
     return state, {"loss": total / accum_steps}

@@ -5,6 +5,14 @@ runs the frozen ControlNet on the source skeleton over the noisy latents
 without gradients (:347-371); its residuals go to the UNet's adapter
 branch for a batch other than 4, where the adapter cross-attends to the
 UNet's own down features (unet_2d_condition.py:482-485).
+
+Frame-sharded (``shard_ctx``, parallel/mesh.py), as stage 1 is: each rank
+holds its block of the latents', the skeleton's and the text's batch and
+of the frames; the noise and timesteps are drawn at the global shape and
+sliced, the frozen ControlNet is per frame and runs on the local frames,
+the UNet and its adapter communicate over the frame group, each rank's
+loss is its share of the global mean, and the adapter's gradients are
+summed over the world before the optimizer step (JAX stage2.py:31-98).
 """
 
 from __future__ import annotations
@@ -24,7 +32,9 @@ from motioneditor_tpu_torch.training.common import (
     TrainState,
     diffusion_target,
     draw_noise,
+    draw_noise_sharded,
     mse,
+    sum_step_over_world,
 )
 
 TRAINABLE_MODULES = ("controlnet_adapter",)
@@ -36,9 +46,10 @@ def stage2_loss(model: UNet3DConditionModel, controlnet: ControlNetModel,
                 noise: torch.Tensor, timesteps: torch.Tensor,
                 schedule: DiffusionSchedule = DiffusionSchedule(),
                 prediction_type: str = "epsilon", use_flash: bool = True, remat: bool = True,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = None, shard_ctx=None) -> torch.Tensor:
     """The adapter's denoising loss (stage2.py:53-100). source_skeleton:
-    [B, F, H, W, 3] in [0, 1]."""
+    [B, F, H, W, 3] in [0, 1]. ``shard_ctx``: every input is this rank's
+    block, and the loss is this rank's share."""
     noisy = ddpm_add_noise(schedule, latents, noise, timesteps)
     target = diffusion_target(schedule, latents, noise, timesteps, prediction_type)
     x_in, enc_in, skel_in = noisy, encoder_hidden_states, source_skeleton
@@ -51,8 +62,9 @@ def stage2_loss(model: UNet3DConditionModel, controlnet: ControlNetModel,
             use_flash=use_flash)
     pred = unet_apply(model, unet_config, x_in, timesteps, enc_in,
                       down_block_additional_residuals=down_res,
-                      mid_block_additional_residual=mid_res, use_flash=use_flash, remat=remat)
-    return mse(pred, target)
+                      mid_block_additional_residual=mid_res, use_flash=use_flash, remat=remat,
+                      shard_ctx=shard_ctx)
+    return mse(pred, target, shard_ctx)
 
 
 def train_step_stage2(
@@ -69,16 +81,26 @@ def train_step_stage2(
     use_flash: bool = True,
     remat: bool = True,
     compute_dtype: Optional[torch.dtype] = None,
+    shard_ctx=None,
 ) -> Tuple[TrainState, dict]:
     """One optimizer step of the adapter on ``state`` (updated in place and
     returned); the noise and timesteps come from ``generator``. Returns the
-    loss as a 0-d tensor on the device."""
+    loss as a 0-d tensor on the device. ``shard_ctx``: latents,
+    source_skeleton and encoder_hidden_states are this rank's blocks (see
+    the module docstring)."""
     state.optimizer.zero_grad()
-    noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)
+    if shard_ctx is None:
+        noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)
+    else:
+        noise, t = draw_noise_sharded(latents, generator, schedule.num_train_timesteps,
+                                      shard_ctx, draw_noise)
     loss = stage2_loss(state.model, controlnet, unet_config, controlnet_config, latents,
                        source_skeleton, encoder_hidden_states, noise, t, schedule,
-                       prediction_type, use_flash, remat, compute_dtype)
+                       prediction_type, use_flash, remat, compute_dtype, shard_ctx)
     loss.backward()
+    loss = loss.detach()
+    if shard_ctx is not None:
+        loss = sum_step_over_world(loss, state.optimizer.params())
     state.optimizer.step()
     state.step += 1
-    return state, {"loss": loss.detach()}
+    return state, {"loss": loss}

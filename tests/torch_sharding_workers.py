@@ -1,4 +1,4 @@
-"""The ranks of tests/test_torch_sharding.py: functions that
+"""The ranks of tests/test_torch_sharding*.py: functions that
 ``torch.multiprocessing.spawn`` runs, one process per rank, over gloo on the
 CPU. This module imports only torch and the port, so a rank starts without
 JAX. Each worker reads its inputs from ``<out_dir>/inputs.pt`` (written by
@@ -6,19 +6,25 @@ the test) and writes what it checked or computed to ``<out_dir>/``; an
 assertion error in any rank fails the spawn.
 """
 
+import datetime
 import os
 import pathlib
 import socket
 import traceback
+import zlib
 
 import torch
 import torch.distributed as dist
 
+from motioneditor_tpu_torch.models.clip_text import StubTokenizer
 from motioneditor_tpu_torch.parallel.mesh import (
     gather_video,
     init_frame_sharding,
     shard_video,
 )
+
+
+COLLECTIVE_TIMEOUT_S = 300
 
 
 def free_port() -> int:
@@ -46,8 +52,12 @@ def spawn(fn, layout, out_dir, inputs):
 def _entry(rank, fn, port, out_dir, layout):
     torch.set_num_threads(1)
     try:
-        ctx = init_frame_sharding(*layout, "cpu", rank=rank,
-                                  init_method=f"tcp://127.0.0.1:{port}")
+        # a rank left waiting in a collective (ranks that took different
+        # control flow) fails the test within the timeout instead of hanging
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=layout[0] * layout[1],
+                                timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        ctx = init_frame_sharding(*layout, "cpu", rank=rank)
         fn(ctx, out_dir)
         dist.barrier()
     except Exception:
@@ -250,3 +260,150 @@ def stage1_step(ctx, out_dir):
                     "trainable": {n: p.detach().clone() for n, p in state.trainable.items()}},
                    os.path.join(out_dir, f"{name}{ctx.rank}.pt"))
 
+
+
+# ---------------------------------------------------------------------------
+# inversion, null-text, the pipeline and the stage-2 step
+# ---------------------------------------------------------------------------
+
+
+def inversion(ctx, out_dir):
+    """The frame-sharded DDIM inversion, video attention off and on; rank 0
+    writes the gathered x_T and trajectories."""
+    from motioneditor_tpu_torch.pipelines.editor import ddim_invert
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    inp = _inputs(out_dir)
+    config, unet = _tiny_unet(inp)
+    out = {}
+    for normal_infer in (True, False):
+        x_t, all_lat = ddim_invert(unet, config, DiffusionSchedule(), shard_video(inp["lat"], ctx),
+                                   inp["cond"], inp["steps"], normal_infer=normal_infer,
+                                   shard_ctx=ctx)
+        out[normal_infer] = (gather_video(x_t, ctx),
+                             gather_video(all_lat, ctx, branch_axis=True, frame_dim=2))
+    if ctx.rank == 0:
+        torch.save(out, os.path.join(out_dir, "out.pt"))
+
+
+def null_text(ctx, out_dir):
+    """Frame-sharded null-text: ``null_optimization`` along the given
+    trajectory, then ``null_text_inversion`` from the latents. Every rank
+    writes its embeddings, the timestep of each objective call (the inner
+    steps taken) and the gathered x_T."""
+    from motioneditor_tpu_torch.pipelines import editor
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    inp = _inputs(out_dir)
+    config, unet = _tiny_unet(inp)
+    calls = []
+    loss_fn = editor.null_text_loss
+
+    def counting_loss(*args, **kwargs):
+        calls.append(args[8])  # the timestep
+        return loss_fn(*args, **kwargs)
+
+    editor.null_text_loss = counting_loss
+    opt = inp["opt"]
+    args = (unet, config, DiffusionSchedule())
+    uncond = editor.null_optimization(
+        *args, shard_video(inp["all_lat"], ctx, branch_axis=True, frame_dim=2), inp["cond"],
+        inp["uncond0"], opt["num_steps"], opt["inner_steps"], opt["base_lr"],
+        opt["guidance_scale"], early_stop_epsilon=opt["early_stop_epsilon"], shard_ctx=ctx)
+    opt_calls = list(calls)
+    calls.clear()
+    x_t, inv_uncond = editor.null_text_inversion(
+        *args, shard_video(inp["lat"], ctx), inp["cond"], inp["uncond0"], opt["num_steps"],
+        opt["inner_steps"], opt["base_lr"], opt["guidance_scale"], null_normal_infer=False,
+        early_stop_epsilon=opt["early_stop_epsilon"], shard_ctx=ctx)
+    torch.save({"uncond": uncond, "calls": opt_calls, "inversion_uncond": inv_uncond,
+                "inversion_calls": list(calls), "x_t": gather_video(x_t, ctx)},
+               os.path.join(out_dir, f"rank{ctx.rank}.pt"))
+
+
+class FixedTokenizer(StubTokenizer):
+    """``StubTokenizer`` with ids from crc32 instead of Python's salted
+    ``hash``: the same in every process, so a test's JAX pipeline and the
+    ranks read the same prompts."""
+
+    def encode(self, text):
+        words = [w for w in text.lower().strip().split(" ") if w]
+        return ([self.bos_token_id] + [zlib.crc32(w.encode()) % 49000 + 320 for w in words]
+                + [self.eos_token_id])
+
+
+def _tiny_pipeline(inp, shard, tokenizer=None):
+    """The tiny MotionEditorPipeline of the inputs' weights over ``shard``
+    (``FixedTokenizer`` unless another is given)."""
+    from motioneditor_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from motioneditor_tpu_torch.models.controlnet import ControlNetModel, controlnet_config
+    from motioneditor_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from motioneditor_tpu_torch.pipelines.editor import MotionEditorPipeline
+
+    config, unet = _tiny_unet(inp)
+    cn = ControlNetModel(controlnet_config(config)).eval()
+    cn.load_state_dict(inp["controlnet"])
+    vae_config, text_config = VAEConfig(**inp["vae_config"]), CLIPTextConfig(**inp["text_config"])
+    vae = AutoencoderKL(vae_config).eval()
+    vae.load_state_dict(inp["vae"])
+    text = CLIPTextModel(text_config).eval()
+    text.load_state_dict(inp["text"])
+    return MotionEditorPipeline(unet=unet, vae=vae, text_encoder=text, controlnet=cn,
+                                tokenizer=tokenizer or FixedTokenizer(), unet_config=config,
+                                vae_config=vae_config, text_config=text_config,
+                                shard_ctx=shard)
+
+
+def pipeline(ctx, out_dir):
+    """MotionEditorPipeline from frames to frames over ``ctx`` (and, on rank
+    0, unsharded): a generator-sampled encode, null-text inversion, the edit
+    with masks and the per-step embeddings, the decode. Each run writes its
+    results; every rank also writes a prompt's embeddings through
+    ``StubTokenizer``, whose ids differ between processes."""
+    inp = _inputs(out_dir)
+    kw = inp["run"]
+    runs = [("sharded", ctx)] + ([("unsharded", None)] if ctx.rank == 0 else [])
+    for name, shard in runs:
+        pipe = _tiny_pipeline(inp, shard)
+        lat = pipe.encode_video(inp["video"], generator=torch.Generator().manual_seed(kw["seed"]))
+        x_t, uncond = pipe.null_text_inversion(lat, kw["prompts"][0], num_steps=kw["steps"],
+                                               null_inner_steps=kw["inner_steps"])
+        video = pipe(kw["prompts"], torch.cat([x_t, x_t]), inp["skeleton"],
+                     source_masks=inp["masks"], uncond_embeddings=uncond,
+                     num_inference_steps=kw["steps"], start_step=kw["start_step"])
+        torch.save({"latents": lat, "x_t": x_t, "uncond": uncond, "video": video},
+                   os.path.join(out_dir, f"{name}{ctx.rank}.pt"))
+    stub = _tiny_pipeline(inp, ctx, StubTokenizer())
+    torch.save(stub.encode_prompt(kw["prompts"]), os.path.join(out_dir, f"stub{ctx.rank}.pt"))
+
+
+def stage2_step(ctx, out_dir):
+    """One frame- and data-sharded stage-2 step on the given noise; every
+    rank writes its loss and trainables, rank 0 also the unsharded step's."""
+    import copy
+
+    from motioneditor_tpu_torch.models.controlnet import ControlNetModel, controlnet_config
+    from motioneditor_tpu_torch.training import stage2
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    inp = _inputs(out_dir)
+    config, unet = _tiny_unet(inp)
+    cn = ControlNetModel(controlnet_config(config)).eval()
+    cn.load_state_dict(inp["controlnet"])
+    cn.requires_grad_(False)
+    draw = (inp["noise"], inp["timesteps"])
+    stage2.draw_noise = lambda *a: draw  # the test's noise, at the global shape
+    opt = make_optimizer(learning_rate=1e-3, eps=1e-4)
+    runs = [("sharded", ctx)] + ([("unsharded", None)] if ctx.rank == 0 else [])
+    for name, shard in runs:
+        state = make_train_state(copy.deepcopy(unet), stage2.TRAINABLE_MODULES, opt)
+        lat, skel, enc = inp["lat"], inp["skel"], inp["enc"]
+        if shard is not None:
+            lat, skel = shard_video(lat, ctx), shard_video(skel, ctx)
+            enc = enc.chunk(ctx.dp)[ctx.data_rank]
+        state, metrics = stage2.train_step_stage2(
+            state, cn, lat, skel, enc, torch.Generator(), config, controlnet_config(config),
+            remat=False, shard_ctx=shard)
+        torch.save({"loss": float(metrics["loss"]),
+                    "trainable": {n: p.detach().clone() for n, p in state.trainable.items()}},
+                   os.path.join(out_dir, f"{name}{ctx.rank}.pt"))
