@@ -75,6 +75,24 @@ Phases, each raising on failure:
               5-step schedule with start_step 3 (3 vanilla steps, 2
               injected); asserts a finite [2, 8, 512, 512, 3] video in
               [0, 1] and the launch counts, prints the time of each part
+  12. p2p     (run after phase 7, on its models and its inputs: x_T, the
+              per-step null-text embeddings, the skeleton and masks) the
+              edit under prompt-to-prompt control, P2P_PROMPTS through
+              make_controller (replace) with a LocalBlend on "man", beside
+              phase 7's edit of the same inputs and prompts, in turns
+              (plain, p2p, p2p, plain); asserts the per-step launch counts
+              (the mask edit's: the p2p hooks act below every kernel's
+              gate), a finite [2, 8, 512, 512, 3] video in [0, 1] and that
+              the edit moved; prints ms per step and peak memory of both,
+              and one more injected step of each under torch.profiler
+  13. eval    (run after phase 12) the edit-quality metrics of phase 12's
+              video against phase 7's source frames: PSNR, SSIM and LPIPS
+              (random AlexNet taps) of the reconstruction, the edit's
+              temporal consistency, its CLIP score and frame consistency (a
+              random ViT-L/14 image tower at full width, phase 7's text
+              encoder); each finite, with its ms on the card; then each on
+              2 frames in fp32 against the same function on the CPU, within
+              1e-4 of |CPU|
   8. auto     the denoise segment in auto-mask mode at full width, bf16, 3
               steps; asserts the per-step launch counts (every K1 and K8
               launch on the tensor-core body), prints ms per step, profiles
@@ -84,6 +102,13 @@ Phases, each raising on failure:
               of the mask injection at a head dim the packed kernels
               decline (d = 9), where K8 and K9 launch on their CUDA-core
               body (no ".tc" count)
+  12b. check  (run after phase 8b) tiny fp32 p2p segments at 32x32
+              latents, kernel path against plain path: replace, refine and
+              reweight with LocalBlend in mask mode, replace with normal
+              attention (the self-attention editor acts at the 16x16 sites)
+              and replace in auto-mask mode (K8); each at a LocalBlend
+              threshold that no map value of the plain run comes within
+              P2P_MARGIN of, so both paths take the same mask
   3c. norm    (run after phase 3b) the GroupNorm pair statistics (K10) at
               [1, 32768, 320] (x, x) and (dy, x), [8, 4096, 320],
               [1, 512, 2560] and the 24-frame [1, 98304, 320], every launch
@@ -137,7 +162,8 @@ Phases, each raising on failure:
               after a warm-up step; inversion and null-text on phase 6's
               schedule after a warm-up step; MotionEditorPipeline with a
               shard_ctx from frames to frames on phase 7's schedule (VAE
-              encode, null-text inversion, the edit, VAE decode); one stage-1
+              encode, null-text inversion, the edit, VAE decode) and phase
+              12's p2p edit of the same inputs; one stage-1
               and one stage-2 step, each after a warm-up step; asserts the
               per-step launch counts (K1, K4-K6, K12, K13, K14; derived on
               the CPU by tests/test_torch_sharding_phases_counts.py), prints
@@ -145,9 +171,11 @@ Phases, each raising on failure:
               steps, the device's busy share of one more step under
               torch.profiler
   11b. check  (run before phase 11) tiny fp32 checks in that group, each
-              sharded path against the unsharded one: the segment,
-              inversion, null-text with its early stop reached (the same
-              inner steps, the same embeddings on every rank), the
+              sharded path against the unsharded one: the segment, the
+              segment under the p2p controller with LocalBlend (K12, K13,
+              K14 launched), inversion, null-text with its early stop
+              reached (the same inner steps, the same embeddings on every
+              rank), the
               pipeline's edited latents, and a stage-1 and a stage-2 step
               (loss, gradients, parameters after one AdamW step; stage 2's
               gradients and parameters in fp64 on the plain path, its fp32
@@ -396,6 +424,7 @@ CUDA_CORE_SOURCE = {name: "motioneditor_tpu_torch/csrc/split_attention.cu"
                     for name in SPLIT_KERNELS}
 FORWARD_KERNELS = ("video_flash_attention", "video_injection_attention",
                    "temporal_flash_attention")
+AUTO_KERNELS = ("video_flash_attention", "flash_attention", "temporal_flash_attention")
 BACKWARD_KERNELS = ("video_flash_fwd_res", "video_flash_bwd_dq", "video_flash_bwd_dkv",
                     "temporal_flash_attention_bwd")
 
@@ -1438,7 +1467,9 @@ def run_pipeline(pipe, gen, seed: int, tag: str, barrier=lambda: None):
     drawn from ``gen``: encode_video -> null_text_inversion -> the edit (mask
     mode) -> decode on PIPE_STEPS steps from PIPE_START, each part timed
     (every rank starting and ending together) and its launches read. Checks
-    a finite video in [0, 1]; returns (metrics, launches by part)."""
+    a finite video in [0, 1]; returns (metrics, launches by part, the run's
+    inputs and outputs: the source video in [-1, 1], skeleton, masks, x_T,
+    the null-text embeddings, the edited latents and the decoded video)."""
     import torch
 
     from motioneditor_tpu_torch import _build
@@ -1481,12 +1512,49 @@ def run_pipeline(pipe, gen, seed: int, tag: str, barrier=lambda: None):
         raise AssertionError(f"{tag} output {tuple(out.shape)} is not a finite video")
     if out.min() < 0 or out.max() > 1:
         raise AssertionError(f"{tag} output leaves [0, 1]")
-    return metrics, paths
+    state = dict(video=video, skeleton=skeleton, masks=masks, x_t=x_t, uncond=uncond, lat=lat,
+                 out=out)
+    return metrics, paths, state
+
+
+P2P_PROMPTS = ["a girl is dancing", "a man is dancing"]  # make_controller picks replace
+P2P_WORDS = ["man"]  # LocalBlend's words
+
+
+def p2p_control(tokenizer, steps: int = PIPE_STEPS):
+    """The replace controller and the LocalBlend of phase 12 for P2P_PROMPTS."""
+    from motioneditor_tpu_torch.control.p2p import make_controller, make_local_blend
+
+    controller = make_controller(P2P_PROMPTS, tokenizer, steps)
+    if controller.kind != "replace":
+        raise AssertionError(f"make_controller picked {controller.kind} for {P2P_PROMPTS}")
+    return controller, make_local_blend(P2P_PROMPTS, [P2P_WORDS] * 2, tokenizer)
+
+
+def run_edit(pipe, state, p2p: bool, barrier=lambda: None):
+    """The edit of run_pipeline's inputs (x_T, the null-text embeddings, the
+    skeleton and masks) with P2P_PROMPTS, under the p2p controller and
+    LocalBlend when ``p2p``: (ms per step, its launches, the latents)."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+
+    control = {}
+    if p2p:
+        control = dict(zip(("p2p_controller", "local_blend"), p2p_control(pipe.tokenizer)))
+    _build.reset_launch_counts()
+    ms, lat = timed_steps(lambda: pipe(
+        P2P_PROMPTS, torch.cat([state["x_t"], state["x_t"]]), state["skeleton"],
+        source_masks=state["masks"], uncond_embeddings=state["uncond"],
+        num_inference_steps=PIPE_STEPS, start_step=PIPE_START, decode=False, **control),
+        PIPE_STEPS, barrier)
+    return ms, dict(_build.launch_counts), lat
 
 
 def phase_pipeline(device):
     """MotionEditorPipeline from frames to frames at full width, bf16:
-    encode_video -> null_text_inversion -> the edit -> decode."""
+    encode_video -> null_text_inversion -> the edit -> decode. Returns the
+    pipeline, the launches, the metrics and run_pipeline's state."""
     import torch
 
     from motioneditor_tpu_torch.models.clip_text import StubTokenizer
@@ -1499,7 +1567,7 @@ def phase_pipeline(device):
     vae, text = pipeline_models(device, dtype, gen)
     pipe = MotionEditorPipeline(unet=unet, vae=vae, text_encoder=text, controlnet=cn,
                                 tokenizer=StubTokenizer(), unet_config=pipeline_configs()[0])
-    metrics, paths = run_pipeline(pipe, gen, SEED + 12, "pipeline")
+    metrics, paths, state = run_pipeline(pipe, gen, SEED + 12, "pipeline")
     metrics["total_s"] = time.perf_counter() - t_all
     log(f"[pipe] {json.dumps(metrics)}")
     log(f"[pipe] launches {paths}")
@@ -1509,8 +1577,7 @@ def phase_pipeline(device):
     expect_counts("pipeline_edit", paths["pipeline_edit"], add_counts(
         scaled(EXPECTED_PER_VANILLA_STEP, PIPE_START),
         scaled(EXPECTED_PER_STEP, PIPE_STEPS - PIPE_START)), 1)
-    del pipe, vae, text
-    return unet, cn, paths, metrics
+    return pipe, paths, metrics, state
 
 
 def pipeline_configs():
@@ -1518,6 +1585,276 @@ def pipeline_configs():
     from motioneditor_tpu_torch.models.unet import UNetConfig
 
     return UNetConfig(), controlnet_config()
+
+
+P2P_MARGIN = 1e-5  # the least distance of a LocalBlend map value from its threshold in a check
+# the text embeddings' scale in the tiny p2p checks: 10x the other checks',
+# so that the random models' cross-attention sharpens and the LocalBlend
+# maps spread (at 0.3 the edit row's first map spans 0.95-1.0 at 8 frames
+# of 32x32 latents, at 3.0 0.44-1.0: a CPU run of the tiny models), and a
+# threshold inside their range keeps P2P_MARGIN from 16k values
+P2P_TEXT_SCALE = 3.0
+
+
+def recording_blend(alpha_layers, threshold: float):
+    """A LocalBlend that records, for each call, the least distance of a
+    normalized map value from its threshold (a value closer than float noise
+    could flip between two runs being compared), the edit row's range and
+    its share above the threshold."""
+    import dataclasses
+
+    from motioneditor_tpu_torch.control.p2p import LocalBlend
+
+    @dataclasses.dataclass(frozen=True, eq=False)
+    class RecordingBlend(LocalBlend):
+        calls: list = dataclasses.field(default_factory=list)
+
+        def selection(self, *args):
+            sel = super().selection(*args)
+            edit = sel[1]
+            self.calls.append(dict(gap=(sel - self.threshold).abs().min().item(),
+                                   lo=edit.min().item(), hi=edit.max().item(),
+                                   share=(edit > self.threshold).float().mean().item()))
+            return sel
+
+    return RecordingBlend(alpha_layers=alpha_layers, threshold=threshold)
+
+
+def clear_threshold(alpha_layers, run, reduce=lambda value, op: value) -> float:
+    """A LocalBlend threshold for a check that compares two runs: at random
+    weights the maps are nearly flat and every edit-row value clears 0.3,
+    so the threshold is placed inside the range of the edit row's first map
+    (a probe ``run(blend)`` at 0.3 reads it), at the first fraction of it
+    whose run leaves every value more than P2P_MARGIN from it with an edit
+    mask of both sides. ``reduce(value, "min" | "max")``: over the ranks of
+    a sharded run, so that every rank picks the same threshold."""
+    probe = recording_blend(alpha_layers, 0.3)
+    run(probe)
+    lo, hi = reduce(probe.calls[0]["lo"], "min"), reduce(probe.calls[0]["hi"], "max")
+    for q in (0.5, 0.4, 0.6, 0.3, 0.7, 0.45, 0.55, 0.35, 0.65, 0.25, 0.75, 0.42, 0.58):
+        blend = recording_blend(alpha_layers, lo + q * (hi - lo))
+        run(blend)
+        if reduce(float(all(c["gap"] > P2P_MARGIN and 0 < c["share"] < 1
+                            for c in blend.calls)), "min"):
+            return blend.threshold
+    raise AssertionError("no LocalBlend threshold inside the maps' range clears P2P_MARGIN")
+
+
+def phase_p2p(device, pipe, state):
+    """Phase 12: the p2p edit (replace + LocalBlend) of phase 7's inputs at
+    full width, beside phase 7's edit of the same inputs, in turns; the
+    decoded video; one more step of each under torch.profiler."""
+    import torch
+
+    from motioneditor_tpu_torch.control.injection import InjectionSpec, prepare_injection_masks
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.pipelines.editor import _count_16x16_sites, denoise_segment
+
+    run_edit(pipe, state, True)  # warm-up: the explicit cross-attention shapes
+    times, peaks, runs = {True: [], False: []}, {True: 0.0, False: 0.0}, {}
+    for p2p in (False, True, True, False):
+        torch.cuda.reset_peak_memory_stats()
+        ms, launches, lat = run_edit(pipe, state, p2p)
+        times[p2p].append(ms)
+        peaks[p2p] = max(peaks[p2p], torch.cuda.max_memory_allocated() / 2**30)
+        runs[p2p] = (launches, lat)
+    (launches, lat), (_, plain) = runs[True], runs[False]
+    expect_counts("p2p_edit", launches, add_counts(
+        scaled(EXPECTED_PER_VANILLA_STEP, PIPE_START),
+        scaled(EXPECTED_PER_STEP, PIPE_STEPS - PIPE_START)), 1)
+    video = pipe.decode_latents(lat)
+    size = 8 * LATENT
+    if video.shape != (2, FRAMES, size, size, 3) or not torch.isfinite(video).all():
+        raise AssertionError(f"p2p output {tuple(video.shape)} is not a finite video")
+    if video.min() < 0 or video.max() > 1:
+        raise AssertionError("p2p output leaves [0, 1]")
+    edit_moved = (lat[1].float() - plain[1].float()).abs().max().item()
+    recon_moved = (lat[0].float() - plain[0].float()).abs().max().item()
+    if not edit_moved > 1e-2:
+        raise AssertionError(f"the controller left the edit as it was: {edit_moved}")
+
+    # one more injected step of each edit, as __call__ builds its inputs
+    f, h = FRAMES, LATENT
+    cond = pipe.encode_prompt(P2P_PROMPTS)
+    masks = prepare_injection_masks(state["masks"], f, tuple((h >> i, h >> i) for i in range(4)))
+    skeleton = state["skeleton"].to(pipe.dtype)
+    with torch.no_grad():
+        cond_emb = precompute_cond_embedding(pipe.controlnet, skeleton[None].expand(2, *skeleton.shape))
+    ts = pipe.schedule.inference_timesteps(PIPE_STEPS)
+    controller, blend = p2p_control(pipe.tokenizer)
+    maps = torch.zeros((_count_16x16_sites(h, h), 4 * f, 256, 77), device=device)
+
+    def step(p2p):
+        control = dict(p2p_controller=controller, local_blend=blend, seg_lo=PIPE_START,
+                       maps_sum=maps) if p2p else {}
+        return denoise_segment(
+            pipe.unet, pipe.unet_config, pipe.controlnet, pipe.controlnet_config, pipe.schedule,
+            PIPE_STEPS, InjectionSpec.from_start_layer(10), 7.5, 1.0,
+            torch.cat([state["x_t"], state["x_t"]]), ts[PIPE_START:PIPE_START + 1], cond, None,
+            cond_emb, masks, seg_uncond=state["uncond"][PIPE_START:PIPE_START + 1], **control)
+
+    profiles = {"p2p": profile_step(lambda: step(True)), "plain": profile_step(lambda: step(False))}
+    metrics = {"p2p_edit_ms_per_step": sum(times[True]) / 2,
+               "plain_edit_ms_per_step": sum(times[False]) / 2,
+               "p2p_edit_ms_per_step_runs": times[True], "plain_edit_ms_per_step_runs": times[False],
+               "p2p_peak_gib": peaks[True], "plain_peak_gib": peaks[False],
+               "edit_latents_moved": edit_moved, "recon_latents_moved": recon_moved}
+    log(f"[p2p] {json.dumps(metrics)}; launches {launches}")
+    log(f"[p2p] one more step under torch.profiler: {json.dumps(profiles)}")
+    return launches, metrics, profiles, video
+
+
+def phase_p2p_check(device):
+    """Phase 12b: tiny fp32 p2p segments (2 steps inside the self window),
+    kernel path against plain path, at 32x32 latents so that level 0
+    reaches the kernels: replace, refine and reweight with LocalBlend in
+    mask mode, replace in normal attention (the self-attention editor acts at
+    the 16x16 sites) and replace in auto-mask mode (K8)."""
+    import dataclasses
+
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import InjectionSpec
+    from motioneditor_tpu_torch.control.p2p import make_controller, make_local_blend
+    from motioneditor_tpu_torch.models.clip_text import StubTokenizer
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.pipelines.editor import _count_16x16_sites, denoise_segment
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    config, cn_config, unet, cn, gen = build_tiny_models(device, SEED + 15)
+    f, hw = 2, 32
+    lat = 0.3 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
+    cond, uncond = (P2P_TEXT_SCALE * torch.randn((2, 77, 16), generator=gen, device=device)
+                    for _ in range(2))
+    image = torch.rand((2, f, 8 * hw, 8 * hw, 3), generator=gen, device=device)
+    masks = {(s, s): (torch.rand((f, s * s, 1), generator=gen, device=device) > 0.5).float()
+             for s in (32, 16, 8, 4)}
+    with torch.no_grad():
+        cond_emb = precompute_cond_embedding(cn, image)
+    schedule, tokenizer = DiffusionSchedule(), StubTokenizer()
+    prompts = {"replace": P2P_PROMPTS, "refine": ["a girl is dancing", "a man is dancing outside"],
+               "reweight": P2P_PROMPTS}
+    auto = dict(mask_mode="auto", auto_token_idx=(1, 2), auto_thres=0.3)
+    cases = (("replace", True, {}, FORWARD_KERNELS), ("refine", True, {}, FORWARD_KERNELS),
+             ("reweight", True, {}, FORWARD_KERNELS), ("replace", False, {}, FORWARD_KERNELS),
+             ("replace", True, auto, AUTO_KERNELS))
+    launched = {}
+    for kind, sc_attn, spec_kw, need in cases:
+        kw = dict(equalizer_words=["man"], equalizer_values=[3.0]) if kind == "reweight" else {}
+        controller = make_controller(prompts[kind], tokenizer, 50, **kw)
+        alpha = make_local_blend(prompts[kind], [P2P_WORDS] * 2, tokenizer).alpha_layers
+        cfg = dataclasses.replace(config, use_sc_attn=sc_attn)
+        spec = InjectionSpec.from_start_layer(10, **spec_kw)
+
+        def run(blend, use_flash=False):
+            maps = torch.zeros((_count_16x16_sites(hw, hw), 4 * f, 256, 77), device=device)
+            out = denoise_segment(unet, cfg, cn, cn_config, schedule, 50, spec, 7.5, 1.0, lat,
+                                  schedule.inference_timesteps(50)[4:6], cond, uncond, cond_emb,
+                                  masks, use_flash=use_flash, p2p_controller=controller,
+                                  local_blend=blend, seg_lo=4, maps_sum=maps)
+            torch.cuda.synchronize()
+            return out, maps
+
+        threshold = clear_threshold(alpha, run)
+        outs, gaps = {}, []
+        for use_flash in (True, False):
+            blend = recording_blend(alpha, threshold)
+            _build.reset_launch_counts()
+            outs[use_flash] = run(blend, use_flash)
+            gaps += [c["gap"] for c in blend.calls]
+            if use_flash:
+                got = dict(_build.launch_counts)
+                if not all(got.get(k) for k in need):
+                    raise AssertionError(f"the p2p {kind} check skipped a kernel: {got}")
+            elif _build.launch_counts:
+                raise AssertionError(f"plain path launched kernels: {_build.launch_counts}")
+        name = f"{kind}_{'auto' if spec_kw else 'mask'}{'' if sc_attn else '_normal'}"
+        launched[name] = got
+        err = (outs[True][0] - outs[False][0]).abs().max().item()
+        err_maps = (outs[True][1] - outs[False][1]).abs().max().item()
+        log(f"[p2p-check] {name}: 2-step fp32 segment with LocalBlend at threshold "
+            f"{threshold:.6f}, "
+            f"kernel vs plain path: max_abs_err={err:.3e}, map sum max_abs_err={err_maps:.3e}, "
+            f"least gap to the threshold {min(gaps):.2e}; launches {got}")
+        if not torch.isfinite(outs[True][0]).all() or err > 2e-3 or err_maps > 2e-3:
+            raise AssertionError(f"the p2p {name} kernel path disagrees with the plain path: "
+                                 f"{err}, {err_maps}")
+        if min(gaps) <= P2P_MARGIN:
+            raise AssertionError(f"a LocalBlend map value of {name} lies {min(gaps)} from the "
+                                 "threshold")
+    return {"p2p_check": add_counts(*launched.values())}
+
+
+def phase_eval(device, pipe, state, video):
+    """Phase 13: the edit-quality metrics of phase 12's video against phase
+    7's source frames on the card (psnr and ssim of the reconstruction,
+    temporal consistency of the edit, LPIPS with random AlexNet taps, CLIP
+    score and frame consistency with a random ViT-L/14 image tower at full
+    width and phase 7's text encoder), each finite and timed; then each on
+    2 frames in fp32 against the same function on the CPU."""
+    import copy
+
+    import torch
+
+    from motioneditor_tpu_torch.eval.lpips import LPIPS, init_lpips, lpips
+    from motioneditor_tpu_torch.eval.metrics import (
+        clip_score,
+        frame_clip_consistency,
+        psnr,
+        ssim,
+        temporal_consistency,
+    )
+    from motioneditor_tpu_torch.models.clip_image import CLIPVisionModel, init_clip_image
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    with torch.device(device):
+        image_model, lpips_model = CLIPVisionModel().eval(), LPIPS().eval()
+    init_clip_image(image_model, gen)
+    init_lpips(lpips_model, gen)
+    source = (state["video"][0].float() + 1) / 2  # [F, H, W, 3] in [0, 1]
+    prompt = P2P_PROMPTS[1]
+
+    def metrics(recon, src, edit, image, text, lp, tokenizer):
+        return {
+            "recon_psnr": lambda: psnr(recon, src),
+            "recon_ssim": lambda: ssim(recon, src),
+            "recon_lpips": lambda: lpips(lp, recon, src),
+            "edit_temporal_consistency": lambda: temporal_consistency(edit),
+            "edit_clip_score": lambda: clip_score(edit, prompt, image, text, tokenizer),
+            "edit_frame_clip_consistency": lambda: frame_clip_consistency(edit, image),
+        }
+
+    values, ms = {}, {}
+    with torch.no_grad():
+        for name, fn in metrics(video[0], source, video[1], image_model, pipe.text_encoder,
+                                lpips_model, pipe.tokenizer).items():
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            values[name] = float(fn())
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        bad = {k: v for k, v in values.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"metrics not finite: {bad}")
+        # 2 frames in fp32, on the card and on the CPU
+        text32 = copy.deepcopy(pipe.text_encoder).float()
+        frames = (video[0, :2].float(), source[:2], video[1, :2].float())
+        card = {k: float(fn()) for k, fn in metrics(
+            *frames, image_model, text32, lpips_model, pipe.tokenizer).items()}
+        cpu_models = [copy.deepcopy(m).cpu() for m in (image_model, text32, lpips_model)]
+        cpu = {k: float(fn()) for k, fn in metrics(
+            *(x.cpu() for x in frames), cpu_models[0], cpu_models[1], cpu_models[2],
+            pipe.tokenizer).items()}
+    errs = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    log(f"[eval] 8 frames on the card: {json.dumps(values)}; ms {json.dumps(ms)}")
+    log(f"[eval] 2 frames fp32, card vs CPU, error over |CPU|: {json.dumps(errs)}")
+    if any(e > 1e-4 for e in errs.values()):
+        raise AssertionError(f"metrics on the card disagree with the CPU: {errs}")
+    del image_model, lpips_model, text32, cpu_models
+    torch.cuda.empty_cache()
+    return {"values": values, "ms": ms, "card_vs_cpu_2_frames": errs}
 
 
 def phase_auto(device, unet, cn):
@@ -2521,7 +2858,8 @@ def sharded_null_text(device, ctx, unet, cn, barrier, reference):
 
 def sharded_pipeline(device, ctx, unet, cn, barrier, reference):
     """MotionEditorPipeline with the ``shard_ctx`` from frames to frames,
-    run_pipeline's parts and schedule (phase 7's)."""
+    run_pipeline's parts and schedule (phase 7's), then the p2p edit of the
+    same inputs (phase 12's)."""
     import torch
 
     from motioneditor_tpu_torch.models.clip_text import StubTokenizer
@@ -2534,11 +2872,19 @@ def sharded_pipeline(device, ctx, unet, cn, barrier, reference):
         pipe = MotionEditorPipeline(unet=unet, vae=vae, text_encoder=text, controlnet=cn,
                                     tokenizer=StubTokenizer(), unet_config=pipeline_configs()[0],
                                     shard_ctx=shard)
-        return run_pipeline(pipe, torch.Generator(device=device).manual_seed(SEED + 67),
-                            SEED + 68, "sharded_pipeline" if shard else "pipeline", bar)
+        got, paths, state = run_pipeline(
+            pipe, torch.Generator(device=device).manual_seed(SEED + 67), SEED + 68,
+            "sharded_pipeline" if shard else "pipeline", bar)
+        # the p2p edit of the same inputs (phase 12's, frame sharded)
+        got["p2p_edit_ms_per_step"], launches, _ = run_edit(pipe, state, True, bar)
+        paths[f"{'sharded_' if shard else ''}p2p_pipeline_edit"] = launches
+        return got, paths
 
     got, paths = run(ctx, barrier)
     log(f"[shard] the pipeline over (1, {ctx.fp}): {json.dumps(got)}; launches {paths}")
+    expect_counts("sharded_p2p_pipeline_edit", paths["sharded_p2p_pipeline_edit"], add_counts(
+        scaled(EXPECTED_PER_SHARDED_VANILLA_STEP, PIPE_START),
+        scaled(EXPECTED_PER_SHARDED_STEP, PIPE_STEPS - PIPE_START)), 1)
     expect_counts("sharded_pipeline_inversion", paths["sharded_pipeline_inversion"], add_counts(
         scaled(EXPECTED_PER_SHARDED_INVERSION_STEP, PIPE_STEPS),
         scaled(EXPECTED_PER_SHARDED_NULL_STEP, PIPE_STEPS)), 1)
@@ -2622,16 +2968,18 @@ def sharded_train(device, ctx, cn, stage: int, barrier, reference):
 def phase_sharded_check(device, seg_ctx, train_ctx):
     """Tiny fp32 checks on the card (32x32 latents, so level-0 attention
     reaches K12-K14), each sharded path against the unsharded one on the
-    same inputs: over ``seg_ctx`` the segment (K1, K2, K3), inversion and
-    null-text with its early stop reached, and the pipeline's latents; over
+    same inputs: over ``seg_ctx`` the segment (K1, K2, K3), the segment
+    under the p2p controller with LocalBlend, inversion and null-text with
+    its early stop reached, and the pipeline's latents; over
     ``train_ctx`` a stage-1 and a stage-2 step (K4-K7): loss, gradients,
     parameters after one AdamW step with eps 1e-4 (TRAIN_CHECKS). Rank 0
     compares."""
     config, cn_config, unet, cn, gen = build_tiny_models(device, SEED + 63)
     models = (config, cn_config, unet, cn, gen)
     launched = {}
-    for check, ctx in ((check_segment, seg_ctx), (check_null_text, seg_ctx),
-                       (check_pipeline, seg_ctx), (check_train, train_ctx)):
+    for check, ctx in ((check_segment, seg_ctx), (check_p2p_segment, seg_ctx),
+                       (check_null_text, seg_ctx), (check_pipeline, seg_ctx),
+                       (check_train, train_ctx)):
         launched.update(check(device, ctx, *models))
     return {"sharded_check": add_counts(*(v for k, v in launched.items()
                                           if k.startswith("sharded")))}
@@ -2683,6 +3031,73 @@ def check_segment(device, ctx, config, cn_config, unet, cn, gen):
             f"max_abs_err={err:.3e}; launches {launched}")
         if not torch.isfinite(outs["sharded"]).all() or err > 2e-3:
             raise AssertionError(f"the sharded segment disagrees with the unsharded one: {err}")
+    return launched
+
+
+def check_p2p_segment(device, ctx, config, cn_config, unet, cn, gen):
+    """The 2-step injected segment in mask mode under the replace controller
+    with LocalBlend, at a threshold clear of every rank's maps (the least
+    gap reduced over the frame group, so every rank picks the same one)."""
+    import torch
+    import torch.distributed as dist
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import InjectionSpec
+    from motioneditor_tpu_torch.control.p2p import make_controller, make_local_blend
+    from motioneditor_tpu_torch.models.clip_text import StubTokenizer
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.parallel.mesh import gather_video
+    from motioneditor_tpu_torch.pipelines.editor import _count_16x16_sites, denoise_segment
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    f, hw = FRAMES, 32
+    lat = 0.3 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
+    cond, uncond = (P2P_TEXT_SCALE * torch.randn((2, 77, 16), generator=gen, device=device)
+                    for _ in range(2))
+    image = torch.rand((2, f, 8 * hw, 8 * hw, 3), generator=gen, device=device)
+    masks = {(s, s): (torch.rand((f, s * s, 1), generator=gen, device=device) > 0.5).float()
+             for s in (32, 16, 8, 4)}
+    tokenizer, schedule = StubTokenizer(), DiffusionSchedule()
+    controller = make_controller(P2P_PROMPTS, tokenizer, 50)
+    alpha = make_local_blend(P2P_PROMPTS, [P2P_WORDS] * 2, tokenizer).alpha_layers
+
+    def run(shard, blend):
+        cut = shard_or_keep(shard)
+        with torch.no_grad():
+            emb = precompute_cond_embedding(cn, cut(image, branch_axis=True))
+        local = lat.shape[1] // (shard.fp if shard else 1)
+        maps = torch.zeros((_count_16x16_sites(hw, hw), 4 * local, 256, 77), device=device)
+        out = denoise_segment(
+            unet, config, cn, cn_config, schedule, 50, InjectionSpec.from_start_layer(10), 7.5,
+            1.0, cut(lat, branch_axis=True), schedule.inference_timesteps(50)[4:6], cond, uncond,
+            emb, {k: cut(m, frame_dim=0) for k, m in masks.items()}, shard_ctx=shard,
+            p2p_controller=controller, local_blend=blend, seg_lo=4, maps_sum=maps)
+        return gather_video(out, shard, branch_axis=True) if shard else out
+
+    def over_ranks(value, op):
+        t = torch.tensor([value], device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.MAX,
+                        group=ctx.frame_group)
+        return t.item()
+
+    threshold = clear_threshold(alpha, lambda blend: run(ctx, blend), over_ranks)
+    launched, outs, gaps = {}, {}, []
+    for name, shard in runs_of(ctx):
+        blend = recording_blend(alpha, threshold)
+        _build.reset_launch_counts()
+        outs[name] = run(shard, blend)
+        launched[f"{name}_p2p"] = dict(_build.launch_counts)
+        gaps += [c["gap"] for c in blend.calls]
+    if not all(launched["sharded_p2p"].get(k) for k in SHARDED_KERNELS):
+        raise AssertionError(f"the sharded p2p segment skipped a kernel: {launched}")
+    if ctx.rank == 0:
+        err = (outs["sharded"] - outs["unsharded"]).abs().max().item()
+        log(f"[shard-check] 2-step fp32 p2p segment (replace + LocalBlend at {threshold:.6f}) "
+            f"over (1, {ctx.fp}) vs unsharded: max_abs_err={err:.3e}, least gap to the "
+            f"threshold {min(gaps):.2e}; launches {launched}")
+        if not torch.isfinite(outs["sharded"]).all() or err > 2e-3 or min(gaps) <= P2P_MARGIN:
+            raise AssertionError(f"the sharded p2p segment disagrees with the unsharded one: "
+                                 f"{err}")
     return launched
 
 
@@ -2974,12 +3389,24 @@ def main() -> int:
     phase_null_check(device)
     paths, null_metrics = phase_null_text(device)
     paths["denoise"] = launches
-    unet, cn, pipe_paths, pipe_metrics = phase_pipeline(device)
+    pipe, pipe_paths, pipe_metrics, pipe_state = phase_pipeline(device)
     paths.update(pipe_paths)
+    t0 = time.perf_counter()
+    paths["p2p_edit"], p2p_metrics, p2p_profiles, p2p_video = phase_p2p(device, pipe, pipe_state)
+    log(f"[p2p] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eval_metrics = phase_eval(device, pipe, pipe_state, p2p_video)
+    log(f"[eval] done in {time.perf_counter() - t0:.1f} s")
+    unet, cn = pipe.unet, pipe.controlnet
+    del pipe, pipe_state, p2p_video
+    torch.cuda.empty_cache()
     paths["auto"], auto_ms, auto_profile = phase_auto(device, unet, cn)
     del unet, cn
     torch.cuda.empty_cache()
     paths["split_head"] = phase_split_check(device)
+    t0 = time.perf_counter()
+    paths.update(phase_p2p_check(device))
+    log(f"[p2p-check] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths["train_check"] = phase_train_check(device)
     log(f"[train-check] done in {time.perf_counter() - t0:.1f} s")
@@ -3047,9 +3474,12 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
+                      "p2p": p2p_metrics, "eval": eval_metrics,
                       "train": train_metrics, "norm_yardsticks": yardsticks,
                       "sharded": shard_metrics, "sharded_vs_unsharded": beside,
                       "profiles": {"denoise": slice_profile, "auto": auto_profile,
+                                   "p2p": p2p_profiles["p2p"],
+                                   "p2p_plain": p2p_profiles["plain"],
                                    "stage1": stage1_profile},
                       "launches_by_path": paths}))
     print(smi)

@@ -82,7 +82,8 @@ def edit(pipe: MotionEditorPipeline, cfg: RunConfig, batch: Dict[str, object],
     """Encode the batch's frames (sampled from ``generator``, the VAE's mean
     without one), invert them (null-text inversion, or plain DDIM inversion
     when ``use_null_inv`` is off) and run the edit for each
-    validation prompt. Returns {prompt: [2, F, H, W, 3] in [0, 1]}:
+    validation prompt, under prompt-to-prompt control when ``use_p2p`` is
+    on (``p2p_control``). Returns {prompt: [2, F, H, W, 3] in [0, 1]}:
     [reconstruction, edit]."""
     vd = cfg.validation_data
     dev, dt = pipe.device, pipe.dtype
@@ -105,13 +106,40 @@ def edit(pipe: MotionEditorPipeline, cfg: RunConfig, batch: Dict[str, object],
     seed_latents = torch.cat([inv_latent, inv_latent], dim=0)
     out = {}
     for target in vd.prompts:
-        sample = pipe([prompt, target], seed_latents, target_skel, source_masks=source_masks,
+        prompts = [prompt, target]
+        controller, blend = p2p_control(vd, prompts, pipe.tokenizer)
+        sample = pipe(prompts, seed_latents, target_skel, source_masks=source_masks,
                       uncond_embeddings=uncond_embeddings,
                       num_inference_steps=vd.num_inference_steps,
                       guidance_scale=vd.guidance_scale,
-                      controlnet_conditioning_scale=vd.controlnet_conditioning_scale)
+                      controlnet_conditioning_scale=vd.controlnet_conditioning_scale,
+                      p2p_controller=controller, local_blend=blend)
         out[target] = sample.float().cpu().numpy()
     return out
+
+
+def p2p_control(vd, prompts, tokenizer):
+    """(controller, LocalBlend) of the config's p2p settings for the prompt
+    pair [source, target], (None, None) when ``use_p2p`` is off: reweight
+    with ``p2p_eq_words``, else replace or refine by word count, and a
+    LocalBlend of ``p2p_blend_words`` when there are any
+    (scripts/inference.py:166-191)."""
+    from motioneditor_tpu_torch.control.p2p import make_controller, make_local_blend
+
+    if not vd.use_p2p:
+        return None, None
+    controller = make_controller(
+        prompts, tokenizer, vd.num_inference_steps,
+        cross_replace_steps=vd.p2p_cross_replace_steps,
+        self_replace_steps=vd.p2p_self_replace_steps,
+        equalizer_words=list(vd.p2p_eq_words) or None,
+        equalizer_values=list(vd.p2p_eq_values) or None)
+    blend = None
+    if vd.p2p_blend_words:
+        blend = make_local_blend(prompts, [list(vd.p2p_blend_words)] * 2, tokenizer,
+                                 threshold=vd.p2p_blend_threshold)
+    print(f"p2p control: {controller.kind}" + (" + LocalBlend" if blend else ""))
+    return controller, blend
 
 
 def resolve_device(name: str) -> torch.device:

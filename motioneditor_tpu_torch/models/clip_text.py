@@ -5,6 +5,9 @@
 ``text_encoder`` checkpoint (tests/fixtures/manifests/sd15_clip_text.txt);
 ``clip_text_apply`` returns the final hidden states [B, 77, 768] as JAX's
 does: causal -inf mask, quick-GELU MLP, LayerNorm eps 1e-5.
+``clip_text_embed`` is the pooled state at the EOT token, projected through
+``text_projection`` where the model has one (an openai CLIP checkpoint,
+read by ``load_clip_text``), the text side of the CLIP score.
 
 Tokenizers: ``load_clip_tokenizer`` loads the Hugging Face tokenizer of a
 local SD-1.5 checkpoint (it needs ``transformers``); ``StubTokenizer`` is
@@ -14,7 +17,7 @@ the deterministic word-hash stand-in for runs without checkpoint files.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,9 +61,13 @@ class CLIPLayer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    def __init__(self, config: CLIPTextConfig = CLIPTextConfig()):
+    """``projection_dim``: also hold ``text_projection`` (no bias), the
+    projection of an openai CLIP checkpoint."""
+
+    def __init__(self, config: CLIPTextConfig = CLIPTextConfig(),
+                 projection_dim: Optional[int] = None):
         super().__init__()
-        c = config
+        c = self.config = config
         tm = self.text_model = nn.Module()
         tm.embeddings = nn.Module()
         tm.embeddings.token_embedding = nn.Embedding(c.vocab_size, c.hidden_size)
@@ -72,6 +79,24 @@ class CLIPTextModel(nn.Module):
         tm.encoder = nn.Module()
         tm.encoder.layers = nn.ModuleList([CLIPLayer(c) for _ in range(c.num_layers)])
         tm.final_layer_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        if projection_dim is not None:
+            self.text_projection = nn.Linear(c.hidden_size, projection_dim, bias=False)
+
+
+def clip_encoder(layers, x: torch.Tensor, heads: int, eps: float,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The pre-LN transformer layers of the CLIP towers (``CLIPLayer``):
+    fp32 softmax with an additive ``bias``, quick-GELU MLP."""
+    scale = (x.shape[-1] // heads) ** -0.5
+    for lp in layers:
+        h = layer_norm(lp.layer_norm1, x, eps=eps)
+        a = lp.self_attn
+        q, k, v = (split_heads(linear(m, h), heads) for m in (a.q_proj, a.k_proj, a.v_proj))
+        probs = attention_probs(q, k, scale, bias=bias).to(v.dtype)
+        x = x + linear(a.out_proj, merge_heads(torch.matmul(probs, v)))
+        h = layer_norm(lp.layer_norm2, x, eps=eps)
+        x = x + linear(lp.mlp.fc2, quick_gelu(linear(lp.mlp.fc1, h)))
+    return x
 
 
 def clip_text_apply(model: CLIPTextModel, input_ids: torch.Tensor,
@@ -82,17 +107,44 @@ def clip_text_apply(model: CLIPTextModel, input_ids: torch.Tensor,
     emb = tm.embeddings
     x = emb.token_embedding.weight[input_ids] + emb.position_embedding.weight[None, :t]
     causal = torch.triu(torch.full((t, t), float("-inf"), device=x.device), diagonal=1)
-    heads = c.num_heads
-    scale = (c.hidden_size // heads) ** -0.5
-    for lp in tm.encoder.layers:
-        h = layer_norm(lp.layer_norm1, x, eps=c.layer_norm_eps)
-        a = lp.self_attn
-        q, k, v = (split_heads(linear(m, h), heads) for m in (a.q_proj, a.k_proj, a.v_proj))
-        probs = attention_probs(q, k, scale, bias=causal).to(v.dtype)
-        x = x + linear(a.out_proj, merge_heads(torch.matmul(probs, v)))
-        h = layer_norm(lp.layer_norm2, x, eps=c.layer_norm_eps)
-        x = x + linear(lp.mlp.fc2, quick_gelu(linear(lp.mlp.fc1, h)))
+    x = clip_encoder(tm.encoder.layers, x, c.num_heads, c.layer_norm_eps, bias=causal)
     return layer_norm(tm.final_layer_norm, x, eps=c.layer_norm_eps)
+
+
+def clip_text_embed(model: CLIPTextModel, input_ids: torch.Tensor,
+                    config: CLIPTextConfig = CLIPTextConfig()) -> torch.Tensor:
+    """The pooled text embedding [B, D] of the CLIP score: the hidden state
+    at the EOT token (the highest id, the first of them), through
+    ``text_projection`` when the model has one (JAX clip_text.py:103-121)."""
+    hidden = clip_text_apply(model, input_ids, config)
+    eot = input_ids.to(hidden.device).argmax(dim=-1)
+    pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device), eot]
+    if hasattr(model, "text_projection"):
+        pooled = linear(model.text_projection, pooled)
+    return pooled
+
+
+def load_clip_text(sd, config: CLIPTextConfig = CLIPTextConfig()) -> CLIPTextModel:
+    """A ``CLIPTextModel`` from a Hugging Face CLIP state dict (an SD-1.5
+    ``text_encoder`` or a whole openai CLIP checkpoint, whose vision keys it
+    ignores), with ``text_projection`` when the dict has one (the reader
+    JAX calls ``port_clip_text``, models/weights.py:337). The widths, depth
+    and vocabulary come from the shapes; ``config`` gives what they cannot:
+    the head count and the LayerNorm eps."""
+    keys = {k: v for k, v in sd.items()
+            if k.startswith("text_model.") or k == "text_projection.weight"}
+    proj = keys.get("text_projection.weight")
+    vocab, hidden = keys["text_model.embeddings.token_embedding.weight"].shape
+    config = dataclasses.replace(
+        config, vocab_size=vocab, hidden_size=hidden,
+        max_position_embeddings=keys["text_model.embeddings.position_embedding.weight"].shape[0],
+        num_layers=sum(1 for k in keys if k.endswith(".self_attn.q_proj.weight")),
+        intermediate_size=keys["text_model.encoder.layers.0.mlp.fc1.weight"].shape[0])
+    model = CLIPTextModel(config, None if proj is None else proj.shape[0])
+    keys.setdefault("text_model.embeddings.position_ids",
+                    model.text_model.embeddings.position_ids)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in keys.items()})
+    return model.eval()
 
 
 # ---------------------------------------------------------------------------

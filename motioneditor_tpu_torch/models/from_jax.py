@@ -1,10 +1,11 @@
 """JAX parameter trees -> this package's state_dicts.
 
 Takes the nested parameter dicts of ``motioneditor_tpu`` (``init_unet``,
-``init_controlnet``, ``init_vae``, ``init_clip_text``, or any tree with the
-same structure) with numpy-convertible leaves, and returns flat
-``{checkpoint key: torch.Tensor}`` dicts for ``load_state_dict``. Layout
-changes are the inverse of motioneditor_tpu/models/weights.py:
+``init_controlnet``, ``init_vae``, ``init_clip_text``, ``init_clip_image``,
+``init_lpips``, or any tree with the same structure) with numpy-convertible
+leaves, and returns flat ``{checkpoint key: torch.Tensor}`` dicts for
+``load_state_dict``. Layout changes are the inverse of
+motioneditor_tpu/models/weights.py:
 
   linear kernel [in, out]        -> weight [out, in]
   conv kernel HWIO               -> weight OIHW
@@ -187,7 +188,15 @@ def clip_text_state_dict(tree) -> Dict[str, torch.Tensor]:
         f"{pre}.embeddings.position_embedding.weight": _t(tree["position_embedding"]),
         f"{pre}.embeddings.position_ids": torch.arange(n_pos)[None],
     }
-    for i, lp in enumerate(tree["layers"]):
+    _clip_layers(sd, pre, tree["layers"])
+    _norm(sd, f"{pre}.final_layer_norm", tree["final_layer_norm"])
+    if "text_projection" in tree:
+        _put(sd, "text_projection", tree["text_projection"]["kernel"], perm=(1, 0))
+    return sd
+
+
+def _clip_layers(sd, pre, layers):
+    for i, lp in enumerate(layers):
         key = f"{pre}.encoder.layers.{i}"
         _norm(sd, f"{key}.layer_norm1", lp["layer_norm1"])
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
@@ -195,7 +204,37 @@ def clip_text_state_dict(tree) -> Dict[str, torch.Tensor]:
         _norm(sd, f"{key}.layer_norm2", lp["layer_norm2"])
         _lin(sd, f"{key}.mlp.fc1", lp["fc1"])
         _lin(sd, f"{key}.mlp.fc2", lp["fc2"])
-    _norm(sd, f"{pre}.final_layer_norm", tree["final_layer_norm"])
+
+
+def clip_image_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """CLIP image tree (``init_clip_image``) -> state_dict (keys
+    vision_model.*, visual_projection.weight); the inverse of
+    ``port_clip_image``."""
+    pre = "vision_model"
+    n_pos = np.shape(tree["position_embedding"])[0]
+    sd: Dict[str, torch.Tensor] = {
+        f"{pre}.embeddings.class_embedding": _t(tree["class_embedding"]),
+        f"{pre}.embeddings.patch_embedding.weight": _t(
+            np.asarray(tree["patch_embedding"], np.float32).transpose(3, 2, 0, 1)),
+        f"{pre}.embeddings.position_embedding.weight": _t(tree["position_embedding"]),
+        f"{pre}.embeddings.position_ids": torch.arange(n_pos)[None],
+    }
+    _norm(sd, f"{pre}.pre_layrnorm", tree["pre_layernorm"])
+    _clip_layers(sd, pre, tree["layers"])
+    _norm(sd, f"{pre}.post_layernorm", tree["post_layernorm"])
+    _put(sd, "visual_projection", tree["visual_projection"]["kernel"], perm=(1, 0))
+    return sd
+
+
+def lpips_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """LPIPS tree (``init_lpips``: convs + lins) -> state_dict (keys
+    features.{0,3,6,8,10}.*, lin{i}.model.1.weight)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, cp in zip((0, 3, 6, 8, 10), tree["convs"]):
+        _conv(sd, f"features.{i}", cp)
+    for i, lp in enumerate(tree["lins"]):
+        sd[f"lin{i}.model.1.weight"] = _t(np.asarray(lp["kernel"], np.float32)[:, 0][None, :,
+                                                                                      None, None])
     return sd
 
 

@@ -265,6 +265,9 @@ class AttnContext:
     # frame-sharded execution (parallel/mesh.FrameShardingCtx): the tokens
     # hold this rank's frames and the attention sites communicate
     shard: Optional[object] = None
+    # the p2p probability editor (control/p2p.py): every attn2, and attn1
+    # in normal mode only, as JAX unet.py:345 / :369
+    prob_editor: Optional[object] = None
 
 
 def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
@@ -288,8 +291,9 @@ def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
                                                    inj.mask_fgbg, use_flash=ctx.use_flash,
                                                    shard=ctx.shard)
     else:
-        attn1_out = spatial_self_attention(p.attn1, h, attn1_mode, ctx.heads,
-                                           use_flash=ctx.use_flash, shard=ctx.shard)
+        attn1_out = spatial_self_attention(
+            p.attn1, h, attn1_mode, ctx.heads, use_flash=ctx.use_flash, shard=ctx.shard,
+            prob_editor=ctx.prob_editor if attn1_mode == NORMAL else None)
     # the residual add and the next LayerNorm: fused in one kernel with
     # MOTIONEDITOR_FUSED_LN on, at JAX's call-site gate (flash on, N >= 512,
     # and no shard: unet.py:353)
@@ -305,7 +309,8 @@ def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
     tokens, h = add_norm(p.norm2, tokens, attn1_out)
     collect = ctx.cross_maps is not None and tokens.shape[2] == 256
     attn2_out = cross_attention(p.attn2, h, ctx.encoder_hidden_states, ctx.heads,
-                                collect_maps_into=ctx.cross_maps if collect else None)
+                                collect_maps_into=ctx.cross_maps if collect else None,
+                                prob_editor=ctx.prob_editor)
     tokens, h = add_norm(p.norm3, tokens, attn2_out)
     ff_out = feed_forward(p.ff, h)
     if hasattr(p, "attn_temp"):
@@ -357,6 +362,8 @@ def unet_apply(
     use_flash: bool = True,
     remat: bool = False,
     shard_ctx=None,
+    prob_editor=None,
+    cross_maps_out: Optional[list] = None,
 ) -> torch.Tensor:
     """Full UNet forward. sample: [B, F, H, W, C_in]; timesteps: scalar or
     [B]; encoder_hidden_states: [B, L, D_text]. ``remat`` is gradient
@@ -365,6 +372,11 @@ def unet_apply(
     ``shard_ctx`` (parallel/mesh.FrameShardingCtx): ``sample`` holds this
     rank's frames (and batch rows) and the output does too; every
     frame-mixing op communicates over the frame group.
+    ``prob_editor``: the p2p editor of this step (``P2PController.
+    prob_editor``). ``cross_maps_out``: a list that receives the 16x16
+    cross-attention maps [(B F), 256, L] of this forward, in forward order
+    (JAX's ``_cross_maps_out``); with auto-mask injection on too, the same
+    list serves the injection, as JAX unet.py:461-470.
 
     ControlNet residuals: 12 down + mid. With a 4-row branch axis and a
     4-row mid residual, the residuals are the 2-row edit-branch ControlNet
@@ -376,11 +388,14 @@ def unet_apply(
     c = config
     b = sample.shape[0]
     temb = time_embedding(model, c, timesteps, b, sample.dtype)
-    collect = injection is not None and injection.active and injection.collect_cross_maps
+    cross_maps = cross_maps_out
+    if cross_maps is None and (injection is not None and injection.active
+                               and injection.collect_cross_maps):
+        cross_maps = []
     ctx = AttnContext(encoder_hidden_states=encoder_hidden_states, heads=c.attention_heads,
                       injection=injection, injection_masks=injection_masks,
-                      use_flash=use_flash, cross_maps=[] if collect else None,
-                      shard=shard_ctx)
+                      use_flash=use_flash, cross_maps=cross_maps, shard=shard_ctx,
+                      prob_editor=prob_editor)
 
     def mode_for(use_st: bool) -> str:
         return NORMAL if normal_infer else c.attn1_mode(use_st)

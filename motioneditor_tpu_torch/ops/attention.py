@@ -113,11 +113,17 @@ def select_kv(x: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 def spatial_self_attention(p: Attention, x: torch.Tensor, mode: str, heads: int,
-                           use_flash: bool = True, shard=None) -> torch.Tensor:
+                           use_flash: bool = True, shard=None,
+                           prob_editor=None) -> torch.Tensor:
     """Video self-attention with per-frame K/V selection; x: [B, F, N, C].
     ``shard`` (a FrameShardingCtx): x holds the local frames, the K/V source
     is built with collectives and the explicit-K/V kernel runs on it
-    (parallel/flash_sharding.py), as JAX attention.py:187-196."""
+    (parallel/flash_sharding.py), as JAX attention.py:187-196.
+    ``prob_editor``: a (probs, is_cross=False) -> probs hook, the p2p
+    self-attention map replacement (control/p2p.py); at N <= 256 it takes
+    the explicit-probs path before the shard and kernel branches, as JAX
+    attention.py:176-184 (the callers pass it in normal mode only, whose
+    K/V are the frame's own, so a shard needs no collective)."""
     from motioneditor_tpu_torch.ops.video_flash import (
         video_flash_attention,
         video_flash_supported,
@@ -129,6 +135,12 @@ def spatial_self_attention(p: Attention, x: torch.Tensor, mode: str, heads: int,
     v = linear(p.to_v, x)
     inner = q.shape[-1]
     scale = (inner // heads) ** -0.5
+    if prob_editor is not None and n <= 256:
+        vh = split_heads(select_kv(v, mode), heads)
+        probs = attention_probs(split_heads(q, heads), split_heads(select_kv(k, mode), heads),
+                                scale)  # [B, F, H, N, KV]
+        out = torch.matmul(prob_editor(probs, False).to(vh.dtype), vh)
+        return linear(p.to_out[0], merge_heads(out))
     if shard is not None:
         from motioneditor_tpu_torch.parallel.flash_sharding import sharded_spatial_attention
 
@@ -145,11 +157,14 @@ def spatial_self_attention(p: Attention, x: torch.Tensor, mode: str, heads: int,
 
 
 def cross_attention(p: Attention, x: torch.Tensor, encoder_states: torch.Tensor,
-                    heads: int, collect_maps_into: Optional[list] = None) -> torch.Tensor:
+                    heads: int, collect_maps_into: Optional[list] = None,
+                    prob_editor=None) -> torch.Tensor:
     """Text cross-attention. x: [B, F, N, C]; encoder_states: [B, L, D_text]
     (the same text for every frame). ``collect_maps_into``: when given,
     appends the mean-over-heads probabilities [(B F), N, L], the maps the
-    auto-mask injection reads."""
+    auto-mask injection and LocalBlend read. ``prob_editor``: a (probs,
+    is_cross=True) -> probs hook over [B, F, H, N, L], the p2p controller;
+    the maps are collected before it edits them (JAX attention.py:251-258)."""
     b, f, n, _ = x.shape
     q = linear(p.to_q, x)
     k = linear(p.to_k, encoder_states)
@@ -158,10 +173,13 @@ def cross_attention(p: Attention, x: torch.Tensor, encoder_states: torch.Tensor,
     qh = split_heads(q, heads)  # [B, F, H, N, D]
     kh = split_heads(k, heads)[:, None]  # [B, 1, H, L, D], broadcast over frames
     vh = split_heads(v, heads)[:, None]
-    if collect_maps_into is None:
+    if collect_maps_into is None and prob_editor is None:
         return linear(p.to_out[0], merge_heads(sdpa(qh, kh, vh, scale)))
     probs = attention_probs(qh, kh, scale)  # [B, F, H, N, L]
-    collect_maps_into.append(probs.mean(dim=2).reshape(b * f, n, probs.shape[-1]))
+    if collect_maps_into is not None:
+        collect_maps_into.append(probs.mean(dim=2).reshape(b * f, n, probs.shape[-1]))
+    if prob_editor is not None:
+        probs = prob_editor(probs, True)
     out = torch.matmul(probs.to(vh.dtype), vh)
     return linear(p.to_out[0], merge_heads(out))
 

@@ -15,7 +15,9 @@ the adapter, fg/bg attention injection and temporal K/V injection; applies
 CFG and the DDIM step. The JAX ``lax.scan``/``while_loop`` loops are Python
 loops here. ``MotionEditorPipeline`` chains these phases from prompts and
 frames to frames, with the VAE and the CLIP text encoder. Prompt-to-prompt
-and local blend are not ported yet.
+control (control/p2p.py) edits the attention probabilities of the
+conditional edit row, and LocalBlend blends the latents after each DDIM
+step from the running sum of the 16x16 cross-attention maps.
 
 Every phase also runs frame sharded over a process group (``shard_ctx``,
 parallel/mesh.FrameShardingCtx): the functions take this rank's frames and
@@ -274,6 +276,10 @@ def denoise_segment(
     use_flash: bool = True,
     seg_uncond: Optional[torch.Tensor] = None,
     shard_ctx=None,
+    p2p_controller=None,
+    local_blend=None,
+    seg_lo: int = 0,
+    maps_sum: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the denoise steps ``seg_ts`` (descending timesteps of a
     ``num_steps`` schedule) from ``latents`` [2, F, h, w, 4] = [recon, edit].
@@ -289,7 +295,19 @@ def denoise_segment(
     ``cond_embedding`` and ``masks`` hold this rank's frames (the branch
     axis stays whole: ``shard_video(..., branch_axis=True)``), and so do
     the returned latents. The ControlNet is per frame and runs on them
-    unchanged; the UNet communicates over the frame group."""
+    unchanged; the UNet communicates over the frame group.
+
+    ``p2p_controller`` (control/p2p.P2PController) edits the attention
+    probabilities of step ``seg_lo + idx`` of the schedule, ``seg_lo`` being
+    the segment's first step. ``local_blend`` (control/p2p.LocalBlend) needs
+    ``maps_sum``, the running sum over steps of the 16x16 cross-attention
+    maps [n_sites, 4 F, 256, L] fp32 (``_count_16x16_sites``), the carry
+    of JAX ``_jit_denoise_segment``: each step adds its maps to it in place
+    after the UNet, and the blend reads its conditional rows after the
+    DDIM step. Both are frame local."""
+    if local_blend is not None and maps_sum is None:
+        raise ValueError("LocalBlend needs the running map sum maps_sum")
+    f = latents.shape[1]
     lat = latents
     for idx, t in enumerate(seg_ts):
         t = int(t)
@@ -302,15 +320,41 @@ def denoise_segment(
             cond_embedding, conditioning_scale=controlnet_scale, use_flash=use_flash)
         zero_mid = torch.zeros_like(mid_res[:1])
         mid4 = torch.cat([zero_mid, mid_res[:1], zero_mid, mid_res[1:2]], dim=0)
+        step_maps = [] if local_blend is not None else None
+        editor = None if p2p_controller is None else p2p_controller.prob_editor(seg_lo + idx)
         eps = unet_apply(
             unet, unet_config, latent_in, t, text_in,
             injection=injection_spec, injection_masks=masks,
             down_block_additional_residuals=down_res,
-            mid_block_additional_residual=mid4, use_flash=use_flash, shard_ctx=shard_ctx)
+            mid_block_additional_residual=mid4, use_flash=use_flash, shard_ctx=shard_ctx,
+            prob_editor=editor, cross_maps_out=step_maps)
+        if local_blend is not None:
+            maps_sum += torch.stack(step_maps)
         eps_u, eps_c = eps.chunk(2, dim=0)
         eps_g = eps_u + guidance_scale * (eps_c - eps_u)
         lat = ddim_step(schedule, eps_g, t, lat, num_steps)
+        if local_blend is not None:
+            # the conditional rows [recon_c, edit_c]: the map store sees only
+            # the conditional half
+            lat = local_blend(lat, list(maps_sum[:, 2 * f:]))
     return lat
+
+
+def _count_16x16_sites(h0: int, w0: int) -> int:
+    """The transformer blocks whose token count is 256 (the 16x16
+    cross-attention map sites) for latents (h0, w0): at SD-1.5's 64x64
+    latents, the two of down block 2 and the three of up block 1, the maps
+    LocalBlend reads (JAX editor.py:415-431)."""
+    n = 0
+    for i in range(3):  # down blocks 0-2, 2 attention sites each
+        if (h0 >> i) * (w0 >> i) == 256:
+            n += 2
+    if (h0 >> 3) * (w0 >> 3) == 256:  # mid block
+        n += 1
+    for r in (2, 1, 0):  # up blocks 1-3, 3 attention sites each
+        if (h0 >> r) * (w0 >> r) == 256:
+            n += 3
+    return n
 
 
 @dataclasses.dataclass
@@ -448,17 +492,22 @@ class MotionEditorPipeline:
         injection (None: target rows read the source K/V wholesale);
         uncond_embeddings: optional per-step null-text embeddings
         [num_inference_steps, 1, 77, 768]. Steps [0, start_step) run vanilla,
-        the rest inject from transformer block ``start_layer`` on. Returns
-        [2, F, H, W, 3] in [0, 1] ([reconstruction, edit]), or the latents
-        when ``decode`` is False."""
-        if p2p_controller is not None or local_blend is not None:
-            raise NotImplementedError(
-                "prompt-to-prompt control and LocalBlend come with the p2p slice of the port")
+        the rest inject from transformer block ``start_layer`` on.
+        p2p_controller: optional control.p2p.P2PController, prompt-to-prompt
+        editing of the conditional edit row's attention probabilities;
+        local_blend: optional control.p2p.LocalBlend, applied after every
+        DDIM step from the running sum of the 16x16 cross-attention maps
+        (JAX editor.py:245-290). Returns [2, F, H, W, 3] in [0, 1]
+        ([reconstruction, edit]), or the latents when ``decode`` is False."""
         if len(prompts) != 2 or latents.shape[0] != 2:
             raise ValueError("the edit takes [source, target] prompts and 2 latent rows")
         if uncond_embeddings is not None and len(uncond_embeddings) < num_inference_steps:
             raise ValueError(f"{len(uncond_embeddings)} uncond embeddings for "
                              f"{num_inference_steps} steps")
+        n_sites = _count_16x16_sites(*latents.shape[2:4])
+        if local_blend is not None and n_sites == 0:
+            raise ValueError("LocalBlend requires a 16x16 attention resolution; latent shape "
+                             f"{tuple(latents.shape[2:4])} never reaches 256 tokens")
         # sharded, every per-frame input is cut to this rank's frames
         lat = self._frames(latents)
         f = lat.shape[1]
@@ -478,6 +527,10 @@ class MotionEditorPipeline:
         skeleton = self._frames(target_skeleton, frame_dim=0).to(self.dtype)
         cond_embedding = precompute_cond_embedding(self.controlnet,
                                                    skeleton[None].expand(2, *skeleton.shape))
+        maps_sum = None
+        if local_blend is not None:
+            maps_sum = torch.zeros((n_sites, 4 * f, 256, cond.shape[-2]), dtype=torch.float32,
+                                   device=self.device)
         for lo, hi, injected in segment_step_ranges(num_inference_steps, start_step=start_step):
             lat = denoise_segment(
                 self.unet, self.unet_config, self.controlnet, self.controlnet_config,
@@ -485,5 +538,6 @@ class MotionEditorPipeline:
                 controlnet_conditioning_scale, lat, ts[lo:hi], cond, uncond, cond_embedding,
                 masks, use_flash=self.use_flash,
                 seg_uncond=None if uncond_embeddings is None else uncond_embeddings[lo:hi],
-                shard_ctx=self.shard_ctx)
+                shard_ctx=self.shard_ctx, p2p_controller=p2p_controller,
+                local_blend=local_blend, seg_lo=lo, maps_sum=maps_sum)
         return self._whole(self._decode(lat) if decode else lat)

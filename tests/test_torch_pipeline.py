@@ -182,13 +182,18 @@ def test_pipeline_encoders_match_jax(pipelines):
 
 
 def test_call_rejects_what_it_does_not_run(pipelines):
+    """A LocalBlend at latents that never reach a 16x16 (256-token) map
+    site, as JAX's __call__ (editor.py:248-253); too few uncond embeddings."""
+    from motioneditor_tpu_torch.control.p2p import make_local_blend
+
     _, pipe = pipelines
     lat = torch.zeros((2, F, 16, 16, 4))
     skel = torch.zeros((F, SIZE, SIZE, 3))
-    with pytest.raises(NotImplementedError, match="p2p"):
-        pipe(["a", "b"], lat, skel, p2p_controller=object())
-    with pytest.raises(NotImplementedError, match="p2p"):
-        pipe(["a", "b"], lat, skel, local_blend=object())
+    prompts = ["a girl is dancing", "a man is dancing"]
+    blend = make_local_blend(prompts, [["man"]] * 2, pipe.tokenizer)
+    for hw in ((8, 8), (40, 40)):
+        with pytest.raises(ValueError, match="16x16"):
+            pipe(prompts, torch.zeros((2, F) + hw + (4,)), skel, local_blend=blend)
     with pytest.raises(ValueError, match="uncond"):
         pipe(["a", "b"], lat, skel, uncond_embeddings=torch.zeros((2, 1, 77, 16)),
              num_inference_steps=3)
@@ -202,7 +207,7 @@ def test_main_refuses_to_fall_back_to_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["smoke/eval.yaml", "smoke/eval-null.yaml",
-                                  "case-1/eval-motion.yaml"])
+                                  "case-1/eval-motion.yaml", "smoke/eval-p2p.yaml"])
 def test_configs_match_jax(name, tmp_path):
     path = osp.join(REPO, "configs", name)
     got, ref = TCF.load_config(path), JCF.load_config(path)

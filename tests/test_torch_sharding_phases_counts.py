@@ -1,6 +1,7 @@
 """The kernel launches per step that chip_smoke.py asserts on the card,
 derived here on the CPU for the frame-sharded paths of phase 11 and the
-unsharded paths they stand beside (phases 6 and 7).
+unsharded paths they stand beside (phases 6 and 7), and the p2p edit of
+phase 12 (whose hooks act below every kernel's gate).
 
 SD-1.5 runs at full width in bf16 on the meta device (shapes, no data), 8
 frames of 64x64 latents, in a one-rank process group whose collectives are
@@ -144,6 +145,21 @@ def pipeline_edit(m, sharded):
                          num_inference_steps=2, start_step=1)
 
 
+def p2p_pipeline_edit(m, sharded):
+    """``pipeline_edit`` under the replace controller with LocalBlend: the
+    p2p hooks act at the 16x16 map sites and the cross-attention, below
+    every kernel's gate, so the launches are the mask edit's."""
+    from motioneditor_tpu_torch.control.p2p import make_controller, make_local_blend
+
+    pipe = pipeline(m, sharded)
+    prompts = ["a girl is dancing", "a man is dancing"]
+    pipe(prompts, empty(2, F, LAT, LAT, 4), empty(F, 8 * LAT, 8 * LAT, 3),
+         source_masks=empty(F, 8 * LAT, 8 * LAT),
+         uncond_embeddings=empty(2, 1, 77, 768, dtype=torch.float32), num_inference_steps=2,
+         start_step=1, p2p_controller=make_controller(prompts, pipe.tokenizer, 2),
+         local_blend=make_local_blend(prompts, [["man"]] * 2, pipe.tokenizer))
+
+
 CASES = {
     # phase 11: the frame-sharded paths in a one-rank group
     "sharded_inversion": (lambda m: inversion(m, True), cs.EXPECTED_PER_SHARDED_INVERSION_STEP),
@@ -160,6 +176,9 @@ CASES = {
     "sharded_pipeline_edit": (
         lambda m: pipeline_edit(m, True),
         cs.add_counts(cs.EXPECTED_PER_SHARDED_VANILLA_STEP, cs.EXPECTED_PER_SHARDED_STEP)),
+    "sharded_p2p_pipeline_edit": (
+        lambda m: p2p_pipeline_edit(m, True),
+        cs.add_counts(cs.EXPECTED_PER_SHARDED_VANILLA_STEP, cs.EXPECTED_PER_SHARDED_STEP)),
     # phases 4, 6 and 7: the unsharded paths they stand beside
     "inversion": (lambda m: inversion(m, False), cs.EXPECTED_PER_INVERSION_STEP),
     "null_text": (lambda m: null_text(m, False), cs.EXPECTED_PER_NULL_STEP),
@@ -171,6 +190,9 @@ CASES = {
                       cs.scaled(cs.EXPECTED_PER_NULL_STEP, 2))),
     "pipeline_edit": (lambda m: pipeline_edit(m, False),
                       cs.add_counts(cs.EXPECTED_PER_VANILLA_STEP, cs.EXPECTED_PER_STEP)),
+    # phase 12: the p2p edit
+    "p2p_pipeline_edit": (lambda m: p2p_pipeline_edit(m, False),
+                          cs.add_counts(cs.EXPECTED_PER_VANILLA_STEP, cs.EXPECTED_PER_STEP)),
 }
 
 

@@ -1,8 +1,9 @@
 """The ranks of tests/test_torch_sharding*.py: functions that
 ``torch.multiprocessing.spawn`` runs, one process per rank, over gloo on the
-CPU. This module imports only torch and the port, so a rank starts without
-JAX. Each worker reads its inputs from ``<out_dir>/inputs.pt`` (written by
-the test) and writes what it checked or computed to ``<out_dir>/``; an
+CPU. This module imports only torch, the port and chip_smoke.py (which
+imports neither JAX nor the JAX package), so a rank starts without JAX.
+Each worker reads its inputs from ``<out_dir>/inputs.pt`` (written by the
+test) and writes what it checked or computed to ``<out_dir>/``; an
 assertion error in any rank fails the spawn.
 """
 
@@ -407,3 +408,54 @@ def stage2_step(ctx, out_dir):
         torch.save({"loss": float(metrics["loss"]),
                     "trainable": {n: p.detach().clone() for n, p in state.trainable.items()}},
                    os.path.join(out_dir, f"{name}{ctx.rank}.pt"))
+
+
+def p2p_edit(ctx, out_dir):
+    """The p2p edit over ``ctx`` (and, on rank 0, unsharded) from the
+    inputs' x_T, for each case of ``inp["cases"]`` (kind, start_step, with
+    masks): the controllers and LocalBlend from this process's
+    ``StubTokenizer``, whose ids differ between processes. The LocalBlend
+    threshold comes from chip_smoke.py's ``clear_threshold`` over the
+    sharded run, reduced over the ranks so that every rank picks the same
+    one. Writes each rank's controllers' arrays, the thresholds, the videos,
+    and the distances of the compared runs' map values from the threshold."""
+    import chip_smoke as cs
+    from motioneditor_tpu_torch.control import p2p
+
+    inp = _inputs(out_dir)
+
+    def over_ranks(value, op):
+        t = torch.tensor([float(value)])
+        dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.MAX,
+                        group=ctx.frame_group)
+        return t.item()
+
+    results = {"arrays": {}, "videos": {}, "thresholds": {}, "gaps": []}
+    sharded = _tiny_pipeline(inp, ctx, StubTokenizer())
+    for kind, start_step, with_masks in inp["cases"]:
+        prompts = inp["prompts"][kind]
+        kw = {"equalizer_words": ["man"], "equalizer_values": [3.0]} \
+            if kind == "reweight" else {}
+        ctl = p2p.make_controller(prompts, sharded.tokenizer, inp["steps"], **kw)
+        alpha = p2p.make_local_blend(prompts, [["man"]] * 2, sharded.tokenizer).alpha_layers
+        assert ctl.kind == kind
+        results["arrays"][kind] = {k: getattr(ctl, k) for k in (
+            "cross_alpha", "mapper", "refine_alphas", "equalizer")}
+        results["arrays"][kind]["alpha_layers"] = alpha
+
+        def run(pipe, blend):
+            return pipe(prompts, torch.cat([inp["x_t"], inp["x_t"]]), inp["skeleton"],
+                        source_masks=inp["masks"] if with_masks else None,
+                        num_inference_steps=inp["steps"], start_step=start_step,
+                        p2p_controller=ctl, local_blend=blend)
+
+        threshold = cs.clear_threshold(alpha, lambda blend: run(sharded, blend), over_ranks)
+        results["thresholds"][kind] = threshold
+        runs = [("sharded", sharded)]
+        if ctx.rank == 0:
+            runs.append(("unsharded", _tiny_pipeline(inp, None, sharded.tokenizer)))
+        for name, pipe in runs:
+            blend = cs.recording_blend(alpha, threshold)
+            results["videos"][(name, kind)] = run(pipe, blend)
+            results["gaps"] += [c["gap"] for c in blend.calls]
+    torch.save(results, os.path.join(out_dir, f"rank{ctx.rank}.pt"))
