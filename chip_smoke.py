@@ -93,6 +93,34 @@ Phases, each raising on failure:
               encoder); each finite, with its ms on the card; then each on
               2 frames in fp32 against the same function on the CPU, within
               1e-4 of |CPU|
+  14. weights (run after phase 13, on phase 7's pipeline) phase 7's models
+              written in the published checkpoints' layouts under
+              build/phase14_weights (the UNet as .safetensors through
+              write_safetensors, without temporal or adapter keys; the VAE
+              .bin under to_q / to_out.0 names with 1x1-conv attention
+              weights; the text encoder .bin with the text_model. prefix
+              and position_ids; the ControlNet .bin; the adapter as the
+              reference's .pth), fp32, read back through
+              inference.build_pipeline in bf16: write, read and build
+              seconds per model; every loaded parameter equal to phase 7's
+              bitwise but attn_temp's q / k / v (fresh init, to_out zero);
+              phase 7's edit on the loaded pipeline and again on phase 7's:
+              the same launches as phase 7's, latents within the repeat's
+              spread of phase 7's (0 when both are bitwise); the directory
+              is deleted
+  15. prep    OpenPose body, hand and face and MiDaS DPT-Hybrid at the
+              published widths, random from the seed, written as the
+              released files' layouts (prefix-stripped body and hand .pth,
+              flat facenet.pth, the DPT checkpoint mirror's .pt) and read
+              back through the loaders; on 8 frames of 512 x 512:
+              render_skeleton_full with body + hand + face, the hand and
+              face networks on a 128 px crop of each frame (random weights
+              find no person, so no crop reaches them inside the render),
+              estimate_depth, and align_frames on synthetic masks; ms per
+              frame of each network (CUDA events, at the inputs the path
+              gives it) apart from the host decoding; each network's fp32
+              output on one input, card against CPU, within
+              PREP_CARD_CPU_LIMIT of max |CPU|
   8. auto     the denoise segment in auto-mask mode at full width, bf16, 3
               steps; asserts the per-step launch counts (every K1 and K8
               launch on the tensor-core body), prints ms per step, profiles
@@ -1857,6 +1885,389 @@ def phase_eval(device, pipe, state, video):
     return {"values": values, "ms": ms, "card_vs_cpu_2_frames": errs}
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def write_safetensors(sd: dict, path: str) -> None:
+    """A ``.safetensors`` file of fp32 CPU tensors: the 8-byte little-endian
+    header length, the JSON header (dtype, shape, data_offsets), the raw
+    buffer."""
+    import torch
+
+    header, offset = {}, 0
+    for name, t in sd.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype}; this writer takes fp32 only")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in sd.values():
+            f.write(t.contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+
+
+VIDEO_ONLY = ("temp_conv1.", "temp_conv2.", ".attn_temp.", ".norm_temp.", "controlnet_adapter.")
+VAE_NEW_NAMES = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
+
+
+def write_sd15_directory(root: str, pipe) -> dict:
+    """Phase 7's models as a diffusers SD-1.5 directory, a ControlNet
+    directory and the reference's adapter .pth, fp32, in the layouts the
+    loaders must accept: the UNet as .safetensors without temporal or
+    adapter keys, the VAE with to_q / to_out.0 names and 1x1-conv attention
+    weights, the text encoder with the text_model. prefix and position_ids.
+    Returns the seconds and bytes written per model."""
+    import torch
+
+    def cpu32(sd):
+        return {k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu()
+                for k, v in sd.items()}
+
+    out = {}
+    for d in ("unet", "vae", "text_encoder", "controlnet"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    t0 = time.perf_counter()
+    unet = {k: v for k, v in cpu32(pipe.unet.state_dict()).items()
+            if not any(tag in k for tag in VIDEO_ONLY)}
+    write_safetensors(unet, os.path.join(root, "unet", "diffusion_pytorch_model.safetensors"))
+    out["unet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vae = {}
+    for k, v in cpu32(pipe.vae.state_dict()).items():
+        parts = k.split(".")
+        if ".mid_block.attentions.0." in k and parts[-2] in VAE_NEW_NAMES:
+            k = ".".join(parts[:-2] + [VAE_NEW_NAMES[parts[-2]], parts[-1]])
+            v = v[:, :, None, None].contiguous() if v.ndim == 2 else v
+        vae[k] = v
+    torch.save(vae, os.path.join(root, "vae", "diffusion_pytorch_model.bin"))
+    out["vae"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    text = cpu32(pipe.text_encoder.state_dict())
+    if "text_model.embeddings.position_ids" not in text:
+        raise AssertionError("the text encoder has no position_ids buffer to write")
+    torch.save(text, os.path.join(root, "text_encoder", "pytorch_model.bin"))
+    out["text_encoder"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.save(cpu32(pipe.controlnet.state_dict()),
+               os.path.join(root, "controlnet", "diffusion_pytorch_model.bin"))
+    out["controlnet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.save(cpu32(pipe.unet.controlnet_adapter.state_dict()), os.path.join(root, "adapter.pth"))
+    out["adapter"] = time.perf_counter() - t0
+    sizes = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            sizes[os.path.relpath(os.path.join(dirpath, f), root)] = os.path.getsize(
+                os.path.join(dirpath, f))
+    return {"write_s": out, "bytes": sizes}
+
+
+def phase_weights(device, pipe, state, pipe_launches):
+    """Phase 14: phase 7's models written as the published checkpoints'
+    layouts (write_sd15_directory), read back through
+    inference.build_pipeline (bf16, StubTokenizer); every loaded parameter
+    equal to phase 7's bitwise but attn_temp's q / k / v (fresh init; their
+    to_out is zero); phase 7's edit of its own inputs on the loaded pipeline
+    beside a repeat on phase 7's: the same launches, the same latents
+    (bitwise, or within the repeat's spread)."""
+    import shutil
+
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.configs import RunConfig
+    from motioneditor_tpu_torch.inference import build_pipeline
+    from motioneditor_tpu_torch.models import weights as W
+    from motioneditor_tpu_torch.models.clip_text import StubTokenizer
+
+    root = os.path.join(REPO, "build", "phase14_weights")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        written = write_sd15_directory(root, pipe)
+        log(f"[weights] {card()}: wrote {json.dumps(written)}")
+        try:  # models/weights.py reads .safetensors without it
+            import safetensors
+
+            log(f"[weights] the safetensors package is importable here ({safetensors.__version__})")
+        except ImportError:
+            log("[weights] the safetensors package is not importable here")
+        cfg = RunConfig(pretrained_model_path=root,
+                        controlnet_path=os.path.join(root, "controlnet"),
+                        adapter_weight_path=os.path.join(root, "adapter.pth"), seed=SEED + 18)
+        timings, current = {}, []
+
+        def timed(name, fn):
+            def wrapper(*a, **kw):
+                current.append(name)
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    timings.setdefault(name, {})["total_s"] = time.perf_counter() - t0
+                    current.pop()
+            return wrapper
+
+        def timed_read(fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                entry = timings.setdefault(current[-1] if current else "?", {})
+                entry["read_s"] = entry.get("read_s", 0.0) + time.perf_counter() - t0
+                return out
+            return wrapper
+
+        names = ("load_sd15_unet", "load_sd15_vae", "load_sd15_text_encoder", "load_controlnet",
+                 "load_adapter_checkpoint", "load_state_dict")
+        saved = {n: getattr(W, n) for n in names}
+        for n in names[:-1]:
+            setattr(W, n, timed(n[len("load_"):], saved[n]))
+        W.load_state_dict = timed_read(saved["load_state_dict"])
+        try:
+            t0 = time.perf_counter()
+            loaded = build_pipeline(cfg, device, dtype=pipe.dtype,
+                                    unet_config=pipeline_configs()[0], tokenizer=StubTokenizer())
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        finally:
+            for n, fn in saved.items():
+                setattr(W, n, fn)
+        for entry in timings.values():
+            entry["build_s"] = entry["total_s"] - entry.get("read_s", 0.0)
+        log(f"[weights] {card()}: build_pipeline {build_s:.2f} s; read and build seconds per "
+            f"model {json.dumps(timings)}")
+
+        differ = []
+        for name in ("unet", "vae", "text_encoder", "controlnet"):
+            ref = dict(getattr(pipe, name).named_parameters())
+            got = dict(getattr(loaded, name).named_parameters())
+            if got.keys() != ref.keys():
+                raise AssertionError(f"{name}: the loaded parameters have other names")
+            for k, v in got.items():
+                if v.dtype != ref[k].dtype or not torch.equal(v, ref[k]):
+                    differ.append(f"{name}.{k}")
+        allowed = [k for k in differ if ".attn_temp.to_" in k and ".to_out." not in k]
+        if differ != allowed or not allowed:
+            raise AssertionError(f"loaded parameters differ from phase 7's: "
+                                 f"{[k for k in differ if k not in allowed][:5]}")
+        log(f"[weights] every loaded parameter equals phase 7's bitwise but the "
+            f"{len(allowed)} attn_temp q / k / v tensors, which keep fresh init")
+
+        def edit(p):
+            _build.reset_launch_counts()
+            ms, lat = timed_steps(lambda: p(
+                PIPE_PROMPTS, torch.cat([state["x_t"], state["x_t"]]), state["skeleton"],
+                source_masks=state["masks"], uncond_embeddings=state["uncond"],
+                num_inference_steps=PIPE_STEPS, start_step=PIPE_START, decode=False),
+                PIPE_STEPS, lambda: None)
+            return ms, dict(_build.launch_counts), lat
+
+        ms_loaded, launches, lat_loaded = edit(loaded)
+        ms_repeat, launches_repeat, lat_repeat = edit(pipe)
+        for tag, got in (("loaded", launches), ("repeat", launches_repeat)):
+            if got != pipe_launches:
+                raise AssertionError(f"the {tag} edit launched {got}, phase 7's {pipe_launches}")
+        spread = (lat_repeat.float() - state["lat"].float()).abs().max().item()
+        err = (lat_loaded.float() - state["lat"].float()).abs().max().item()
+        log(f"[weights] phase 7's edit ({PIPE_STEPS} steps from {PIPE_START}) on the loaded "
+            f"pipeline: {ms_loaded:.1f} ms/step, max |latents - phase 7's| {err:.3e}; a repeat "
+            f"on phase 7's pipeline {ms_repeat:.1f} ms/step, {spread:.3e}; launches {launches}; "
+            f"{card()}")
+        if not err <= spread:
+            raise AssertionError(f"the loaded pipeline's edit is {err} from phase 7's, past the "
+                                 f"repeat's spread {spread}")
+        del loaded
+        torch.cuda.empty_cache()
+        return launches, {"written": written, "build_pipeline_s": build_s, "per_model": timings,
+                          "edit_ms_per_step": ms_loaded, "repeat_ms_per_step": ms_repeat,
+                          "max_abs_err": err, "repeat_spread": spread,
+                          "fresh_attn_temp_tensors": len(allowed)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+PREP_FRAMES = 8
+PREP_CROP = 128  # the hand and face crops timed on their own
+PREP_CARD_CPU_LIMIT = 1e-3  # max |card - CPU| / max |CPU| of a network's fp32 maps
+
+
+def stripped(sd: dict) -> dict:
+    """pytorch-openpose's released layout: the module prefix dropped."""
+    return {k.split(".", 1)[1]: v for k, v in sd.items()}
+
+
+def phase_prep(device):
+    """Phase 15: the skeleton side of data preparation at the published
+    widths, random weights from the seed written as the released files'
+    layouts (prefix-stripped body / hand .pth, flat face .pth, MiDaS in the
+    checkpoint mirror's layout) and read back through the loaders: on
+    PREP_FRAMES frames of 512 x 512, render_skeleton_full with body, hand
+    and face models, estimate_depth and align_frames on synthetic masks;
+    ms per frame of each network (CUDA events) apart from the host's
+    decoding; then one input of each network on the card against the CPU,
+    fp32 (TF32 off)."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from motioneditor_tpu_torch.models import midas as M
+    from motioneditor_tpu_torch.models import openpose as O
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.prep.alignment import align_frames
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    with torch.device(device):
+        nets = {"body": O.BodyPoseModel(), "hand": O.HandPoseModel(), "face": O.FaceModel(),
+                "midas": M.DPTHybrid()}
+    for m in nets.values():
+        init_params(m, gen)
+    vit = nets["midas"].pretrained.model
+    with torch.no_grad():
+        vit.pos_embed.normal_(0.0, 0.02, generator=gen)
+        vit.cls_token.normal_(0.0, 0.02, generator=gen)
+        # at these weights the head's last ReLU zeroes every depth value;
+        # a positive last bias keeps a depth map to normalize and compare
+        getattr(nets["midas"].scratch.output_conv, "4").bias.fill_(0.5)
+    root = os.path.join(REPO, "build", "phase15_weights")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        files = {"body": "body_pose_model.pth", "hand": "hand_pose_model.pth",
+                 "face": "facenet.pth", "midas": "dpt_hybrid-midas-501f0c75.pt"}
+        for name, m in nets.items():
+            sd = {k: v.cpu() for k, v in m.state_dict().items()}
+            torch.save(stripped(sd) if name in ("body", "hand") else sd,
+                       os.path.join(root, files[name]))
+        load = {"body": O.load_body_params, "hand": O.load_hand_params,
+                "face": O.load_face_params, "midas": M.load_dpt_params}
+        models, load_s = {}, {}
+        for name in nets:
+            t0 = time.perf_counter()
+            models[name] = load[name](os.path.join(root, files[name]), device)
+            torch.cuda.synchronize()
+            load_s[name] = time.perf_counter() - t0
+            for k, v in nets[name].state_dict().items():
+                if not torch.equal(models[name].state_dict()[k], v):
+                    raise AssertionError(f"{files[name]}: {k} did not load back")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    body, hand, face, dpt = (models[k] for k in ("body", "hand", "face", "midas"))
+
+    size = 8 * LATENT
+    frames = torch.randint(0, 256, (PREP_FRAMES, size, size, 3), generator=gen, device=device,
+                           dtype=torch.uint8).cpu().numpy()
+    skeletons, depths, host = [], [], {"body_decode": 0.0, "hand_decode": 0.0,
+                                       "face_decode": 0.0, "depth_post": 0.0}
+    found = {"people": 0, "hands": 0, "faces": 0}
+    t_all = time.perf_counter()
+    for img in frames:
+        skeletons.append(O.render_skeleton_full(body, img, hand_model=hand, face_model=face))
+        heat, paf = O.body_maps(body, img)
+        t0 = time.perf_counter()
+        cand, subset = O.decode_body(heat, paf)
+        host["body_decode"] += time.perf_counter() - t0
+        found["people"] += len(subset)
+        found["hands"] += len(O.hand_detect(cand, subset, size, size))
+        found["faces"] += len(O.face_detect(cand, subset, size, size))
+        crop = img[:PREP_CROP, :PREP_CROP]
+        hand_heat = O.hand_maps(hand, crop)
+        t0 = time.perf_counter()
+        O.hand_peaks(hand_heat)
+        host["hand_decode"] += time.perf_counter() - t0
+        face_heat = O.face_maps(face, crop)
+        t0 = time.perf_counter()
+        O.face_peaks(face_heat)
+        host["face_decode"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        depths.append(M.estimate_depth(dpt, img))
+        host["depth_total"] = host.get("depth_total", 0.0) + time.perf_counter() - t0
+    prep_s = time.perf_counter() - t_all
+    masks = np.zeros((PREP_FRAMES, size, size), np.float32)
+    target = np.zeros_like(masks)
+    u = size // 64  # the source person walks down, the target one left
+    for i in range(PREP_FRAMES):
+        masks[i, (12 + i) * u:56 * u, 20 * u:40 * u] = 1.0
+        target[i, 16 * u:60 * u, (32 - i) * u:50 * u] = 1.0
+    # the skeletons with vertical bars, so the aligned poses are not empty
+    poses = np.stack([np.where(np.arange(size)[None, :, None] % (8 * u) < u, 255, s)
+                      .astype(np.uint8) for s in skeletons])
+    t0 = time.perf_counter()
+    aligned = align_frames(masks, target, poses, canvas_hw=(size, size))
+    align_s = time.perf_counter() - t0
+    for what, arr in (("skeletons", np.stack(skeletons)), ("depth", np.stack(depths)),
+                      ("aligned", aligned)):
+        if arr.shape != (PREP_FRAMES, size, size, 3) or arr.dtype != np.uint8:
+            raise AssertionError(f"{what}: {arr.shape} {arr.dtype}")
+    if not aligned.any():
+        raise AssertionError("the aligned poses are empty")
+
+    # each network alone, CUDA events, at the inputs the path gives it
+    body_in = round(size * 0.5 * 368 / size)
+    hand_ins = [round(PREP_CROP * s * 368 / PREP_CROP) for s in (0.5, 1.0, 1.5, 2.0)]
+    inputs = {
+        "body": [torch.rand((1, body_in, body_in, 3), generator=gen, device=device) - 0.5],
+        "hand": [torch.rand((1, n, n, 3), generator=gen, device=device) - 0.5
+                 for n in hand_ins],
+        "face": [torch.rand((1, 384, 384, 3), generator=gen, device=device) - 0.5],
+        "midas": [torch.rand((1, size, size, 3), generator=gen, device=device) * 2 - 1],
+    }
+    forward = {"body": O.body_forward, "hand": O.hand_forward, "face": O.face_forward,
+               "midas": M.dpt_forward}
+    ms = {}
+    with torch.no_grad():
+        for name, xs in inputs.items():
+            ms[name] = sum(time_ms(lambda: forward[name](models[name], x), reps=5) for x in xs)
+    per_frame = {
+        "body_network_ms": ms["body"],
+        "body_decode_ms": host["body_decode"] * 1e3 / PREP_FRAMES,
+        "hand_network_ms_per_crop_4_scales": ms["hand"],
+        "hand_decode_ms_per_crop": host["hand_decode"] * 1e3 / PREP_FRAMES,
+        "face_network_ms_per_crop": ms["face"],
+        "face_decode_ms_per_crop": host["face_decode"] * 1e3 / PREP_FRAMES,
+        "midas_network_ms": ms["midas"],
+        "estimate_depth_ms": host["depth_total"] * 1e3 / PREP_FRAMES,
+        "align_ms": align_s * 1e3 / PREP_FRAMES,
+    }
+
+    # one input of each network, card against CPU, fp32
+    errs = {}
+    with torch.no_grad():
+        for name, xs in inputs.items():
+            x = xs[0]
+            on_card = forward[name](models[name], x)
+            cpu = forward[name](copy.deepcopy(models[name]).cpu(), x.cpu())
+            pairs = zip(on_card, cpu) if isinstance(on_card, tuple) else ((on_card, cpu),)
+            errs[name] = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+                             for a, b in pairs)
+    log(f"[prep] {card()}: {PREP_FRAMES} frames of {size} px in {prep_s:.1f} s "
+        f"(render_skeleton_full "
+        f"with body + hand + face, the hand and face crops alone, estimate_depth), found "
+        f"{json.dumps(found)}; ms per frame {json.dumps(per_frame)}; load s {json.dumps(load_s)}")
+    log(f"[prep] card vs CPU, fp32, max |card - CPU| / max |CPU| (limit "
+        f"{PREP_CARD_CPU_LIMIT}): {json.dumps(errs)}")
+    if any(not e <= PREP_CARD_CPU_LIMIT for e in errs.values()):
+        raise AssertionError(f"a network on the card disagrees with the CPU: {errs}")
+    del models, body, hand, face, dpt, nets
+    torch.cuda.empty_cache()
+    return {"ms_per_frame": per_frame, "found": found, "load_s": load_s, "prep_s": prep_s,
+            "card_vs_cpu": errs, "inputs": {"body": body_in, "hand": hand_ins, "face": 384,
+                                            "midas": size}}
+
+
 def phase_auto(device, unet, cn):
     """The denoise segment in auto-mask mode at full width, bf16, 3 steps."""
     import torch
@@ -3330,9 +3741,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card()
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
@@ -3397,6 +3806,15 @@ def main() -> int:
     t0 = time.perf_counter()
     eval_metrics = phase_eval(device, pipe, pipe_state, p2p_video)
     log(f"[eval] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["weights_edit"], weights_metrics = phase_weights(device, pipe, pipe_state,
+                                                           pipe_paths["pipeline_edit"])
+    log(f"[weights] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    prep_metrics = phase_prep(device)
+    paths["prep"] = dict(_build.launch_counts)
+    log(f"[prep] done in {time.perf_counter() - t0:.1f} s; launches {paths['prep']}")
     unet, cn = pipe.unet, pipe.controlnet
     del pipe, pipe_state, p2p_video
     torch.cuda.empty_cache()
@@ -3474,7 +3892,8 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
-                      "p2p": p2p_metrics, "eval": eval_metrics,
+                      "p2p": p2p_metrics, "eval": eval_metrics, "weights": weights_metrics,
+                      "prep": prep_metrics,
                       "train": train_metrics, "norm_yardsticks": yardsticks,
                       "sharded": shard_metrics, "sharded_vs_unsharded": beside,
                       "profiles": {"denoise": slice_profile, "auto": auto_profile,

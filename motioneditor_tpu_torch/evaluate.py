@@ -11,7 +11,8 @@ Prints one JSON object of metrics:
   - edit_temporal_consistency: 1 - mean adjacent-frame L1 of the edit
   - edit_clip_score / edit_frame_clip_consistency: with ``--prompt`` and an
     openai clip-vit-large-patch14 checkpoint directory at ``--clip_path``
-    (its weights file and tokenizer files, read with ``transformers``)
+    (its ``model.safetensors`` or ``pytorch_model.bin``, read by
+    models/weights.py, and its tokenizer files, read with ``transformers``)
   - recon_lpips: with a directory at ``--lpips_path`` holding torchvision's
     ``alexnet.pth`` and the lpips package's ``alex.pth``
 
@@ -31,7 +32,6 @@ import numpy as np
 import torch
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
-_WEIGHT_FILES = ("model.safetensors", "pytorch_model.bin")
 
 
 def load_video(path: str) -> np.ndarray:
@@ -78,27 +78,10 @@ def match(a: np.ndarray, b: np.ndarray):
     return resize_to(a), resize_to(b)
 
 
-def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A ``.safetensors`` (read with the safetensors package) or a torch
-    checkpoint, on the CPU."""
-    if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
-
-        return load_file(path)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return sd.state_dict() if hasattr(sd, "state_dict") else sd
-
-
-def find_weights(model_dir: str) -> str:
-    for name in _WEIGHT_FILES:
-        if osp.isfile(osp.join(model_dir, name)):
-            return osp.join(model_dir, name)
-    raise FileNotFoundError(f"no model weights ({', '.join(_WEIGHT_FILES)}) in {model_dir}")
-
-
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     from motioneditor_tpu_torch.eval.metrics import psnr, ssim, temporal_consistency
     from motioneditor_tpu_torch.inference import resolve_device
+    from motioneditor_tpu_torch.models.weights import find_model_file, load_state_dict
 
     p = argparse.ArgumentParser()
     p.add_argument("--source", type=str, required=True)
@@ -142,7 +125,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
             from motioneditor_tpu_torch.models.clip_image import port_clip_image
             from motioneditor_tpu_torch.models.clip_text import load_clip_text
 
-            sd = load_state_dict(find_weights(args.clip_path))
+            sd = load_state_dict(find_model_file(args.clip_path))
             image_model, text_model = port_clip_image(sd).to(dev), load_clip_text(sd).to(dev)
             tokenizer = CLIPTokenizer.from_pretrained(args.clip_path)
             with torch.no_grad():

@@ -8,9 +8,10 @@ The run is on the GPU unless ``--device cpu`` asks for the CPU; without a
 CUDA device and without that flag it raises. Without weights at
 ``pretrained_model_path`` every model is randomly initialized from the
 config's seed and prompts go through ``StubTokenizer`` (smoke-test mode).
-The port's own training checkpoints load (``resume_from_checkpoint``,
-``adapter_weight_path``); diffusers weights and the reference's ``.pth``
-adapter do not yet, and a config that names them raises.
+A diffusers SD-1.5 directory there (``unet/``, ``vae/``, ``text_encoder/``,
+``tokenizer/``), a ControlNet directory at ``controlnet_path``, the
+reference's ``.pth`` adapter and this package's training checkpoints load
+through ``build_pipeline``.
 """
 
 from __future__ import annotations
@@ -35,44 +36,73 @@ from motioneditor_tpu_torch.pipelines.editor import MotionEditorPipeline
 def build_pipeline(cfg: RunConfig, device: torch.device, dtype: Optional[torch.dtype] = None,
                    need_controlnet: bool = True, unet_config: Optional[UNetConfig] = None,
                    vae_config: VAEConfig = VAEConfig(),
-                   text_config: CLIPTextConfig = CLIPTextConfig()) -> MotionEditorPipeline:
-    """Random-init models from ``cfg.seed`` in ``dtype`` (``cfg.compute_dtype``
-    when None), on ``device``, at SD-1.5's widths unless the model configs
-    say otherwise; then the port's own stage-1 checkpoint
-    (``resume_from_checkpoint``, a ``checkpoint-<N>/`` directory) and adapter
-    checkpoint (``adapter_weight_path``, a
-    ``controlnet_adapter_checkpoint-<N>/`` directory) when the config names
-    them (scripts/inference.py:84-111)."""
+                   text_config: CLIPTextConfig = CLIPTextConfig(),
+                   tokenizer=None) -> MotionEditorPipeline:
+    """The pipeline's models on ``device`` in ``dtype`` (``cfg.compute_dtype``
+    when None), at SD-1.5's widths unless the model configs say otherwise
+    (scripts/inference.py:33-111):
+
+    - with a diffusers SD-1.5 directory at ``pretrained_model_path`` (one
+      with ``unet/``), its UNet (the temporal modules and the adapter from
+      ``cfg.seed``), VAE and text encoder, the tokenizer from its
+      ``tokenizer/`` (``load_clip_tokenizer``, which needs transformers)
+      unless ``tokenizer`` is given, and the ControlNet from
+      ``controlnet_path`` when that is a directory, else from ``cfg.seed``;
+    - without one, every model from ``cfg.seed`` and ``StubTokenizer``
+      unless ``tokenizer`` is given (smoke-test mode);
+
+    then the stage-1 checkpoint (``resume_from_checkpoint``, a
+    ``checkpoint-<N>/`` directory) and the adapter (``adapter_weight_path``:
+    the reference's ``.pth`` or this package's
+    ``controlnet_adapter_checkpoint-<N>/``) when the config names them.
+    ``need_controlnet=False`` builds and reads no ControlNet."""
+    from motioneditor_tpu_torch.models import weights as W
+    from motioneditor_tpu_torch.models.clip_text import load_clip_tokenizer
     from motioneditor_tpu_torch.training.checkpoint import load_adapter, load_trainables
 
-    if osp.exists(osp.join(cfg.pretrained_model_path, "unet")):
-        raise NotImplementedError(
-            f"loading diffusers weights ({cfg.pretrained_model_path}) is not ported yet")
-    if cfg.adapter_weight_path and cfg.adapter_weight_path.endswith(".pth"):
-        raise NotImplementedError(
-            f"loading a reference adapter ({cfg.adapter_weight_path}) is not ported yet")
-    print(f"WARNING: no pretrained weights at {cfg.pretrained_model_path}; "
-          "using random init (smoke-test mode)")
     unet_config = unet_config or UNetConfig(
         use_sc_attn=cfg.use_sc_attn, use_st_attn=cfg.use_st_attn, st_attn_idx=cfg.st_attn_idx)
     gen = torch.Generator(device=device).manual_seed(cfg.seed or 0)
-    with torch.device(device):
-        models = dict(unet=UNet3DConditionModel(unet_config), vae=AutoencoderKL(vae_config),
-                      text_encoder=CLIPTextModel(text_config),
-                      controlnet=(ControlNetModel(controlnet_config(unet_config))
-                                  if need_controlnet else None))
+    path = cfg.pretrained_model_path
+    if osp.isdir(osp.join(path, "unet")):
+        print(f"loading SD-1.5 weights from {path}")
+        models = dict(unet=W.load_sd15_unet(path, unet_config, gen, device),
+                      vae=W.load_sd15_vae(path, vae_config, device),
+                      text_encoder=W.load_sd15_text_encoder(path, text_config, device),
+                      controlnet=None)
+        tokenizer = tokenizer or load_clip_tokenizer(path)
+        if need_controlnet and osp.isdir(cfg.controlnet_path):
+            models["controlnet"] = W.load_controlnet(
+                cfg.controlnet_path, controlnet_config(unet_config), device)
+        elif need_controlnet:
+            with torch.device(device):
+                models["controlnet"] = init_params(
+                    ControlNetModel(controlnet_config(unet_config)), gen)
+    else:
+        print(f"WARNING: no pretrained weights at {path}; using random init (smoke-test mode)")
+        with torch.device(device):
+            models = dict(unet=UNet3DConditionModel(unet_config), vae=AutoencoderKL(vae_config),
+                          text_encoder=CLIPTextModel(text_config),
+                          controlnet=(ControlNetModel(controlnet_config(unet_config))
+                                      if need_controlnet else None))
+        for m in models.values():
+            if m is not None:
+                init_params(m, gen)
+        tokenizer = tokenizer or StubTokenizer()
     for m in models.values():
         if m is not None:
-            init_params(m, gen)
             m.to(dtype or cfg.compute_dtype).eval()
     unet = models["unet"]
     if cfg.resume_from_checkpoint and osp.isdir(cfg.resume_from_checkpoint):
         load_trainables(cfg.resume_from_checkpoint, unet)
         print(f"restored stage-1 state from {cfg.resume_from_checkpoint}")
-    if cfg.adapter_weight_path and osp.isdir(cfg.adapter_weight_path):
+    if cfg.adapter_weight_path and cfg.adapter_weight_path.endswith(".pth"):
+        W.load_adapter_checkpoint(cfg.adapter_weight_path, unet.controlnet_adapter)
+        print(f"loaded adapter weights from {cfg.adapter_weight_path}")
+    elif cfg.adapter_weight_path and osp.isdir(cfg.adapter_weight_path):
         load_adapter(cfg.adapter_weight_path, unet.controlnet_adapter)
         print(f"loaded adapter weights from {cfg.adapter_weight_path}")
-    return MotionEditorPipeline(tokenizer=StubTokenizer(), unet_config=unet_config,
+    return MotionEditorPipeline(tokenizer=tokenizer, unet_config=unet_config,
                                 vae_config=vae_config, text_config=text_config,
                                 use_flash=cfg.use_flash_attention, **models)
 

@@ -274,3 +274,76 @@ def trainable_names(mask_tree, params_tree, convert=unet_state_dict) -> set:
     full = _zip_map(lambda m, p: np.full(np.shape(p), float(bool(m)), np.float32), mask_tree,
                     params_tree)
     return {k for k, v in convert(full).items() if bool(v.all())}
+
+
+def _conv_tree(sd, tree, prefix=""):
+    """{layer: {"kernel", "bias"?}} -> ``{prefix}{layer}.weight`` / ``.bias``."""
+    for layer, p in tree.items():
+        _conv(sd, prefix + layer, p)
+
+
+def openpose_body_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """OpenPose body tree (``init_body_params``: {"model0": {...},
+    "model1_1": ...}) -> ``BodyPoseModel`` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for mod, layers in tree.items():
+        _conv_tree(sd, layers, mod + ".")
+    return sd
+
+
+openpose_hand_state_dict = openpose_body_state_dict  # the same {module: {layer}} nesting
+
+
+def openpose_face_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """OpenPose face tree (``init_face_params``, flat) -> ``FaceModel`` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_tree(sd, tree)
+    return sd
+
+
+def dpt_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """MiDaS DPT-Hybrid tree (``init_dpt_params``) -> ``DPTHybrid`` state_dict
+    in the dpt_hybrid checkpoint layout; the inverse of
+    ``convert_dpt_state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    bb = "pretrained.model.patch_embed.backbone."
+    _conv(sd, bb + "stem.conv", tree["backbone"]["stem"]["conv"])
+    _norm(sd, bb + "stem.norm", tree["backbone"]["stem"]["norm"])
+    for s, blocks in enumerate(tree["backbone"]["stages"]):
+        for b, blk in enumerate(blocks):
+            pre = f"{bb}stages.{s}.blocks.{b}."
+            for i in (1, 2, 3):
+                _conv(sd, f"{pre}conv{i}", blk[f"conv{i}"])
+                _norm(sd, f"{pre}norm{i}", blk[f"norm{i}"])
+            if "down_conv" in blk:
+                _conv(sd, pre + "downsample.conv", blk["down_conv"])
+                _norm(sd, pre + "downsample.norm", blk["down_norm"])
+    vm, vit = "pretrained.model.", tree["vit"]
+    sd[vm + "cls_token"] = _t(vit["cls_token"])
+    sd[vm + "pos_embed"] = _t(vit["pos_embed"])
+    _conv(sd, vm + "patch_embed.proj", vit["patch_proj"])
+    for i, blk in enumerate(vit["blocks"]):
+        pre = f"{vm}blocks.{i}."
+        _norm(sd, pre + "norm1", blk["norm1"])
+        _lin(sd, pre + "attn.qkv", blk["qkv"])
+        _lin(sd, pre + "attn.proj", blk["proj"])
+        _norm(sd, pre + "norm2", blk["norm2"])
+        _lin(sd, pre + "mlp.fc1", blk["fc1"])
+        _lin(sd, pre + "mlp.fc2", blk["fc2"])
+    for level in (3, 4):
+        post, pre = tree[f"post{level}"], f"pretrained.act_postprocess{level}."
+        _lin(sd, pre + "0.project.0", post["project"])
+        _conv(sd, pre + "3", post["conv"])
+        if "down" in post:
+            _conv(sd, pre + "4", post["down"])
+    sc = tree["scratch"]
+    for i in range(1, 5):
+        _conv(sd, f"scratch.layer{i}_rn", sc[f"layer{i}_rn"])
+        rn, pre = sc[f"refinenet{i}"], f"scratch.refinenet{i}."
+        _conv(sd, pre + "out_conv", rn["out_conv"])
+        for j in (1, 2):
+            for k in (1, 2):
+                _conv(sd, f"{pre}resConfUnit{j}.conv{k}", rn[f"rcu{j}"][f"conv{k}"])
+    for i, name in ((0, "head_conv1"), (2, "head_conv2"), (4, "head_conv3")):
+        _conv(sd, f"scratch.output_conv.{i}", sc[name])
+    return sd

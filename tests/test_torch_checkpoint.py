@@ -149,7 +149,8 @@ def test_resume_continues_the_loss_trajectory(tmp_path, clip_dir, tiny_models):
 
 def test_entry_points_write_and_inference_loads(tmp_path, clip_dir, tiny_models, capsys):
     """train_bg then train_adaptor on the smoke configs write checkpoint-2/
-    and controlnet_adapter_checkpoint-2/; build_pipeline loads both."""
+    and controlnet_adapter_checkpoint-2/; build_pipeline loads both, and the
+    reference's adapter .pth in place of the second."""
     losses = train_bg.main(_config(tmp_path, clip_dir, "train-bg.yaml", "bg"), "cpu")
     bg = tmp_path / "bg" / "checkpoint-2"
     assert len(losses) == 2 and np.isfinite(losses).all() and (bg / "state.pt").is_file()
@@ -176,8 +177,17 @@ def test_entry_points_write_and_inference_loads(tmp_path, clip_dir, tiny_models,
     for n, v in adapter.items():
         assert torch.equal(pipe.unet.controlnet_adapter.state_dict()[n], v.to(params[
             "controlnet_adapter." + n].dtype)), n
-    cfg.adapter_weight_path = "adapter.pth"
-    with pytest.raises(NotImplementedError, match="reference adapter"):
+    # the reference's stand-alone adapter .pth (train_adaptor.py:397-399) loads
+    # too (it raised NotImplementedError before the checkpoint readers)
+    reference = {n: v + 1.0 for n, v in adapter.items()}
+    torch.save(reference, tmp_path / "adapter.pth")
+    cfg.adapter_weight_path = str(tmp_path / "adapter.pth")
+    pipe = inference.build_pipeline(cfg, torch.device("cpu"), **TINY_MODELS)
+    for n, v in reference.items():
+        assert torch.equal(pipe.unet.controlnet_adapter.state_dict()[n], v.to(params[
+            "controlnet_adapter." + n].dtype)), n
+    cfg.adapter_weight_path = str(tmp_path / "missing.pth")
+    with pytest.raises(FileNotFoundError):
         inference.build_pipeline(cfg, torch.device("cpu"), **TINY_MODELS)
 
 

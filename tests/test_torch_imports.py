@@ -42,7 +42,7 @@ def test_port_imports_without_jax_or_triton():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 49  # every module of the port was imported
+    assert len(names) >= 55  # every module of the port was imported
     assert {f"motioneditor_tpu_torch.{m}" for m in (
         "ops.video_flash_bwd", "ops.temporal_flash", "pipelines.editor", "models.vae",
         "models.clip_text", "ops.flash_attention", "ops.injection_flash", "configs",
@@ -51,4 +51,5 @@ def test_port_imports_without_jax_or_triton():
         "training.stage2", "training.checkpoint", "train_bg", "train_adaptor",
         "parallel", "parallel.mesh", "parallel.flash_sharding", "parallel.frame_ops",
         "control.p2p", "control.seq_aligner", "models.clip_image", "eval", "eval.metrics",
-        "eval.lpips", "evaluate")} <= names
+        "eval.lpips", "evaluate", "models.weights", "models.openpose", "models.midas", "prep",
+        "prep.skeletons", "prep.alignment")} <= names
