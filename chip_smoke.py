@@ -121,6 +121,21 @@ Phases, each raising on failure:
               gives it) apart from the host decoding; each network's fp32
               output on one input, card against CPU, within
               PREP_CARD_CPU_LIMIT of max |CPU|
+  16. masks   (run after phase 15) GroundingDINO-SwinT and SAM ViT-H at the
+              published widths, random from the seed in fp32, written as
+              the released files (groundingdino_swint_ogc.pth as {"model":
+              ...} under tests/fixtures/manifests/gdino_swint.txt's keys,
+              a flat sam_vit_h_4b8939.pth under sam_vit_h.txt's) beside a
+              synthetic 30,522-token BERT vocab; the masks CLI's native path
+              (prep/masks.py main, --device cuda, box threshold 0) on 8
+              PNGs of 512 x 512: 8 masks of 0 / 255 at 512 x 512; ms per
+              frame of GroundingDINO, the SAM encoder and SAM's prompt +
+              decoder (CUDA events) beside the host's parts (tokenization,
+              PIL resizes, box decode, the mask resize, the PNG write);
+              the phase's peak memory; one frame in fp32 card against CPU:
+              boxes, finite logits, SAM's embedding and mask logits within
+              PREP_CARD_CPU_LIMIT of max |CPU|, the top-k queries
+              identical; no kernel launched
   8. auto     the denoise segment in auto-mask mode at full width, bf16, 3
               steps; asserts the per-step launch counts (every K1 and K8
               launch on the tensor-core body), prints ms per step, profiles
@@ -2268,6 +2283,293 @@ def phase_prep(device):
                                             "midas": size}}
 
 
+MASK_FRAMES = 8
+MASK_CAPTION = "person"
+BERT_VOCAB = 30522
+BERT_IDS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103, ".": 1012,
+            "person": 2711}  # bert-base-uncased's ids
+# max |card - CPU| / max |CPU| of GroundingDINO's encoder scores in fp32
+# (1.93e-6 measured on an H100 at 700 W): the 900 queries are the top 900
+# of ~12,700 of them, so two scores whose CPU gap is within twice this of
+# max |CPU| may trade places between the devices, and no others can
+TOPK_SCORE_LIMIT = 1e-5
+
+
+def write_bert_vocab(path: str) -> None:
+    """A synthetic vocab.txt of bert-base-uncased's size, with its special
+    tokens, "." and "person" at their ids there."""
+    lines = [f"[unused{i}]" if i < 1000 else f"w{i}" for i in range(BERT_VOCAB)]
+    for token, i in BERT_IDS.items():
+        lines[i] = token
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def manifest_shapes(name: str) -> dict:
+    with open(os.path.join(REPO, "tests", "fixtures", "manifests", name + ".txt")) as f:
+        return {k: tuple(int(d) for d in s.split(",")) for k, s in (ln.split() for ln in f)}
+
+
+def masks_work() -> dict:
+    """GFLOP of GroundingDINO-SwinT at 800 px with the caption, of the SAM
+    ViT-H encoder and of its prompt + decoder for one box, counted by
+    FlopCounterMode on the meta device, and the modules' parameters."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from motioneditor_tpu_torch.models import grounding_dino as G
+    from motioneditor_tpu_torch.models import sam as S
+
+    meta = torch.device("meta")
+    with meta:
+        gdino, sam = G.GroundingDINO(G.GDINO_SWINT), S.Sam(S.SAM_VIT_H)
+    ids = np.array([[BERT_IDS["[CLS]"], BERT_IDS[MASK_CAPTION], BERT_IDS["."],
+                     BERT_IDS["[SEP]"]]])
+    attn, pos = G.build_text_masks(ids, [BERT_IDS[t] for t in ("[CLS]", "[SEP]", ".")])
+    ids_t = torch.as_tensor(ids, device=meta)
+    gflop = {}
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as fc:
+            G.grounding_dino_apply(gdino, torch.zeros((1, 800, 800, 3), device=meta), ids_t,
+                                   torch.as_tensor(attn, device=meta),
+                                   torch.as_tensor(pos, device=meta),
+                                   torch.ones_like(ids_t, dtype=torch.bool))
+        gflop["grounding_dino"] = fc.get_total_flops() / 1e9
+        s = sam.config.img_size
+        with FlopCounterMode(display=False) as fc:
+            emb = S.sam_encode_image(sam, torch.zeros((1, s, s, 3), device=meta))
+        gflop["sam_encoder"] = fc.get_total_flops() / 1e9
+        with FlopCounterMode(display=False) as fc:
+            S.sam_decode_masks(sam, emb, torch.zeros((1, 4), device=meta))
+        gflop["sam_prompt_decoder"] = fc.get_total_flops() / 1e9
+    return {"gflop": gflop, "params_m": {
+        "grounding_dino": sum(p.numel() for p in gdino.parameters()) / 1e6,
+        "sam": sum(p.numel() for p in sam.parameters()) / 1e6}}
+
+
+def phase_masks(device):
+    """Phase 16: the mask side of data preparation at the published widths.
+    GroundingDINO-SwinT and SAM ViT-H, random from the seed in fp32, written
+    as the released files (``{"model": ...}`` under gdino_swint.txt's keys,
+    a flat state dict under sam_vit_h.txt's) beside a synthetic BERT vocab;
+    the masks CLI's native path (``--device cuda``) on MASK_FRAMES PNGs of
+    512 x 512 at box threshold 0 (random weights find no person, so a real
+    threshold would leave SAM idle): MASK_FRAMES masks of 0 / 255. Then ms
+    per frame of each network (CUDA events) beside the host's parts, the
+    peak memory, and one frame in fp32 on the card against the CPU: the
+    boxes, finite logits, SAM's embedding and mask logits within
+    PREP_CARD_CPU_LIMIT of max |CPU|; the encoder's scores within
+    TOPK_SCORE_LIMIT, and the top-k queries identical but for near ties
+    that the scores' error allows to trade places."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from motioneditor_tpu_torch.models import gdino_weights as W
+    from motioneditor_tpu_torch.models import grounding_dino as G
+    from motioneditor_tpu_torch.models import sam as S
+    from motioneditor_tpu_torch.prep import masks as K
+    from motioneditor_tpu_torch.prep.tokenizer import WordPieceTokenizer
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    with torch.device(device):
+        gdino, sam = G.GroundingDINO(G.GDINO_SWINT), S.Sam(S.SAM_VIT_H)
+    G.init_grounding_dino(gdino, gen)
+    S.init_sam(sam, gen)
+    with torch.no_grad():  # JAX's init leaves these zero; random, they take part
+        sam.image_encoder.pos_embed.normal_(0.0, 0.02, generator=gen)
+        for blk in sam.image_encoder.blocks:
+            blk.attn.rel_pos_h.normal_(0.0, 0.02, generator=gen)
+            blk.attn.rel_pos_w.normal_(0.0, 0.02, generator=gen)
+    gdino.eval()
+    sam.eval()
+    size = 8 * LATENT
+    root = os.path.join(REPO, "build", "phase16_masks")
+    shutil.rmtree(root, ignore_errors=True)
+    frames_dir, out_dir = os.path.join(root, "frames"), os.path.join(root, "masks")
+    os.makedirs(frames_dir)
+    files = {"dino": os.path.join(root, "groundingdino_swint_ogc.pth"),
+             "sam": os.path.join(root, "sam_vit_h_4b8939.pth"),
+             "vocab": os.path.join(root, "bert-base-uncased-vocab.txt")}
+    frames = torch.randint(0, 256, (MASK_FRAMES, size, size, 3), generator=gen, device=device,
+                           dtype=torch.uint8).cpu().numpy()
+    try:
+        t0 = time.perf_counter()
+        released = {"dino": {k: v.cpu() for k, v in W.released_state_dict(gdino).items()},
+                    "sam": {k: v.cpu() for k, v in S.released_state_dict(sam).items()}}
+        for name, manifest in (("dino", "gdino_swint"), ("sam", "sam_vit_h")):
+            got = {k: tuple(v.shape) for k, v in released[name].items()}
+            if got != manifest_shapes(manifest):
+                raise AssertionError(f"the {name} file's keys are not {manifest}.txt's")
+        torch.save({"model": released["dino"]}, files["dino"])
+        torch.save(released["sam"], files["sam"])
+        del released
+        write_bert_vocab(files["vocab"])
+        tokenizer = WordPieceTokenizer(files["vocab"])
+        for i, img in enumerate(frames):
+            Image.fromarray(img).save(os.path.join(frames_dir, f"{i:05d}.png"))
+        write_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        K.main(["--data", frames_dir, "--save_dir", out_dir, "--text_prompt", MASK_CAPTION,
+                "--dino_backend", "native", "--dino_ckpt", files["dino"], "--bert_vocab",
+                files["vocab"], "--sam_path", files["sam"], "--box_threshold", "0.0",
+                "--device", "cuda"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        names = sorted(os.listdir(out_dir))
+        if names != [f"{i:05d}.png" for i in range(MASK_FRAMES)]:
+            raise AssertionError(f"the CLI wrote {names}")
+        fg = []
+        for n in names:
+            m = np.asarray(Image.open(os.path.join(out_dir, n)))
+            if m.shape != (size, size) or m.dtype != np.uint8 or not np.isin(m, (0, 255)).all():
+                raise AssertionError(f"{n}: {m.shape} {m.dtype} {np.unique(m)[:4]}")
+            fg.append(float((m == 255).mean()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # each network alone (CUDA events) and the host's parts of one frame
+    image = Image.fromarray(frames[0])
+    host = {}
+    t0 = time.perf_counter()
+    ids = np.asarray(tokenizer(MASK_CAPTION + ".")["input_ids"], np.int32)[None]
+    host["tokenize"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    im, ids, attn, pos = K.dino_inputs(image, MASK_CAPTION, tokenizer)
+    host["dino_inputs"] = time.perf_counter() - t0  # tokenize, masks, PIL resize to 800
+    out = K.dino_network(gdino, im, ids, attn, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xyxy, scores = K.decode_boxes(out, size, size, 0.0)
+    host["box_decode"] = time.perf_counter() - t0
+    box = xyxy[int(scores.argmax())]
+    t0 = time.perf_counter()
+    x, (nh, nw) = S.sam_preprocess(frames[0], sam.config)
+    host["sam_preprocess"] = time.perf_counter() - t0  # PIL resize to 1024, pad
+    x = torch.from_numpy(x).to(device)
+    box_in = torch.as_tensor(box * (sam.config.img_size / size), dtype=torch.float32,
+                             device=device)[None]
+    ms = {}
+    with torch.no_grad():
+        ms["grounding_dino"] = time_ms(lambda: K.dino_network(gdino, im, ids, attn, pos))
+        ms["sam_encoder"] = time_ms(lambda: S.sam_encode_image(sam, x))
+        emb = S.sam_encode_image(sam, x)
+        ms["sam_prompt_decoder"] = time_ms(lambda: S.sam_decode_masks(sam, emb, box_in))
+        masks, _ = S.sam_decode_masks(sam, emb, box_in)
+        ms["mask_resize"] = time_ms(lambda: S._resize2d(S._resize2d(
+            masks[0, 0], 1024, 1024)[:nh, :nw], size, size))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask = (S.sam_predict_box(sam, frames[0], box) * 255).astype(np.uint8)
+    host["sam_predict_box"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Image.fromarray(mask).save(os.path.join(REPO, "build", "phase16_mask.png"))
+    host["png_write"] = time.perf_counter() - t0
+    os.remove(os.path.join(REPO, "build", "phase16_mask.png"))
+    peak = torch.cuda.max_memory_allocated()
+    host_ms = {k: v * 1e3 for k, v in host.items()}
+
+    log(f"[masks] {card()}: the masks CLI (native, --device cuda) on {MASK_FRAMES} frames of "
+        f"{size} px in {cli_s:.1f} s (files written in {write_s:.1f} s), foreground shares "
+        f"{json.dumps([round(f, 4) for f in fg])}; ms per frame {json.dumps(ms)}; host ms "
+        f"{json.dumps(host_ms)}; peak {(peak - base) / 2**30:.2f} GiB over the "
+        f"{base / 2**30:.2f} GiB held before the phase")
+    work = masks_work()
+    rates = {k: work["gflop"][k] / ms[k] for k in work["gflop"]}  # TFLOP/s
+    log(f"[masks] work {json.dumps(work)}; TFLOP/s {json.dumps(rates)}")
+    profiles = {"grounding_dino": profile_step(lambda: K.dino_network(gdino, im, ids, attn, pos),
+                                               top=8),
+                "sam_encoder": profile_step(lambda: S.sam_encode_image(sam, x), top=8)}
+    log(f"[masks] profiled: {json.dumps(profiles)}")
+
+    # one frame, card against CPU, fp32. The encoder's scores compare within
+    # TOPK_SCORE_LIMIT; the queries are the top 900 of ~12,700 scores whose
+    # closest neighbours lie nearer than fp32 on two devices can hold them.
+    # With each score within TOPK_SCORE_LIMIT * max |CPU| of the CPU's, only
+    # two scores whose CPU gap is within the band of twice that can trade
+    # places, so a query the card ranks where the CPU ranks another must be
+    # such a near tie, and at most two ranks differ for each gap within the
+    # band among the CPU's top 901. The card's selection of the CPU's scores
+    # must be the CPU's. The CPU's decoder then runs from the card's
+    # queries, so boxes and logits compare query for query
+    def dino_halves(model, topk_idx=None):
+        dev = next(model.parameters()).device
+        args = [torch.as_tensor(a, device=dev) for a in (im, ids, attn, pos)]
+        token_mask = torch.ones_like(args[1], dtype=torch.bool)
+        enc = G.grounding_dino_encode(model, *args, token_mask)
+        if topk_idx is None:
+            topk_idx = G.top_k_indices(enc["scores"], model.config.num_queries)
+        out = G.grounding_dino_decode(model, enc, topk_idx.to(dev), token_mask)
+        return {"enc_scores": enc["scores"].cpu(), "topk_idx": topk_idx.cpu(),
+                **{k: v.cpu() for k, v in out.items()}}
+
+    with torch.no_grad():
+        on_card = dino_halves(gdino)
+        gdino_cpu = copy.deepcopy(gdino).cpu()
+        cpu = dino_halves(gdino_cpu)
+        cpu_same = dino_halves(gdino_cpu, on_card["topk_idx"])
+        picked = G.top_k_indices(cpu["enc_scores"].to(device), gdino.config.num_queries).cpu()
+        card_sam = {k: v.cpu() for k, v in S.sam_mask_logits(sam, frames[0], box).items()}
+        cpu_sam = S.sam_mask_logits(copy.deepcopy(sam).cpu(), frames[0], box)
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / b.abs().max().item()
+
+    valid = torch.isfinite(cpu["enc_scores"])
+    if not torch.equal(torch.isfinite(on_card["enc_scores"]), valid):
+        raise AssertionError("the invalid proposals differ between card and CPU")
+    finite = torch.isfinite(cpu_same["pred_logits"])
+    if not torch.equal(torch.isfinite(on_card["pred_logits"]), finite):
+        raise AssertionError("the -inf pattern of pred_logits differs between card and CPU")
+    errs = {"enc_scores": rel(on_card["enc_scores"][valid], cpu["enc_scores"][valid]),
+            "pred_boxes": rel(on_card["pred_boxes"], cpu_same["pred_boxes"]),
+            "pred_logits": rel(on_card["pred_logits"][finite], cpu_same["pred_logits"][finite]),
+            "sam_image_emb": rel(card_sam["image_emb"], cpu_sam["image_emb"]),
+            "sam_mask_logits": rel(card_sam["masks"], cpu_sam["masks"])}
+    score_err = (on_card["enc_scores"][valid] - cpu["enc_scores"][valid]).abs().max().item()
+    ranked = cpu["enc_scores"][valid].sort(descending=True).values
+    k = gdino.config.num_queries
+    band = 2 * TOPK_SCORE_LIMIT * ranked.abs().max().item()
+    gaps = ranked[:k] - ranked[1:k + 1]
+    cpu_scores = cpu["enc_scores"][0]
+    swapped = (on_card["topk_idx"] != cpu["topk_idx"])[0]
+    tie = (cpu_scores[on_card["topk_idx"][0]] - cpu_scores[cpu["topk_idx"][0]]).abs()
+    topk = {"selection_of_cpu_scores_identical": torch.equal(picked, cpu["topk_idx"]),
+            "identical": not bool(swapped.any()), "ranks_differing": int(swapped.sum()),
+            "ranks_differing_limit": 2 * int((gaps <= band).sum()), "tie_band": band,
+            "max_score_gap_at_differing_ranks": tie[swapped].max().item() if swapped.any()
+            else 0.0, "max_score_err": score_err, "min_gap_top_k_plus_1": gaps.min().item(),
+            "max_abs_score": ranked.abs().max().item(), "valid_proposals": int(valid.sum())}
+    log(f"[masks] card vs CPU, fp32, max |card - CPU| / max |CPU| (limit "
+        f"{PREP_CARD_CPU_LIMIT}, enc_scores {TOPK_SCORE_LIMIT}; boxes and logits from the "
+        f"card's queries): {json.dumps(errs)}; the top-k queries: {json.dumps(topk)}")
+    if any(not e <= PREP_CARD_CPU_LIMIT for e in errs.values()):
+        raise AssertionError(f"a network on the card disagrees with the CPU: {errs}")
+    if not errs["enc_scores"] <= TOPK_SCORE_LIMIT:
+        raise AssertionError(f"the encoder's scores disagree beyond {TOPK_SCORE_LIMIT}: "
+                             f"{errs['enc_scores']}")
+    if not topk["selection_of_cpu_scores_identical"]:
+        raise AssertionError("the card's top-k of the CPU's scores is not the CPU's")
+    if not topk["max_score_gap_at_differing_ranks"] <= band:
+        raise AssertionError(f"the card picks a query the CPU's scores rank apart: {topk}")
+    if not topk["ranks_differing"] <= topk["ranks_differing_limit"]:
+        raise AssertionError(f"more queries trade places than near ties allow: {topk}")
+    del gdino, sam, emb, masks, x, gdino_cpu
+    torch.cuda.empty_cache()
+    return {"ms_per_frame": ms, "host_ms_per_frame": host_ms, "cli_s": cli_s,
+            "write_s": write_s, "peak_gib": (peak - base) / 2**30, "held_gib": base / 2**30,
+            "foreground": fg, "card_vs_cpu": errs, "topk": topk, **work, "tflops": rates,
+            "profiles": profiles}
+
+
 def phase_auto(device, unet, cn):
     """The denoise segment in auto-mask mode at full width, bf16, 3 steps."""
     import torch
@@ -3026,10 +3328,11 @@ PROFILE_BUCKETS = (
 )
 
 
-def profile_step(fn) -> dict:
+def profile_step(fn, top: int = 0) -> dict:
     """One call of ``fn`` (one step, ending in a synchronize) under
     torch.profiler: wall ms, the device's busy share (the union of kernel
-    intervals over the wall time), kernel time in ms and kernels per bucket."""
+    intervals over the wall time), kernel time in ms and kernels per bucket;
+    with ``top``, the ``top`` kernels by total time (ms, launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3050,9 +3353,17 @@ def profile_step(fn) -> dict:
         buckets[bucket] = buckets.get(bucket, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
         launches[bucket] = launches.get(bucket, 0) + 1
     busy = union_seconds([(e.time_range.start, e.time_range.end) for e in kernels]) / wall
-    return {"wall_ms": wall * 1e3, "busy_share": busy, "kernel_ms": sum(buckets.values()),
-            "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
-            "launches": launches}
+    out = {"wall_ms": wall * 1e3, "busy_share": busy, "kernel_ms": sum(buckets.values()),
+           "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
+           "launches": launches}
+    if top:
+        by_name: dict = {}
+        for e in kernels:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+        out["top_kernels"] = {name[:80]: v for name, v in
+                              sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]}
+    return out
 
 
 def sass_mma_counts(library) -> dict:
@@ -3815,6 +4126,13 @@ def main() -> int:
     prep_metrics = phase_prep(device)
     paths["prep"] = dict(_build.launch_counts)
     log(f"[prep] done in {time.perf_counter() - t0:.1f} s; launches {paths['prep']}")
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    masks_metrics = phase_masks(device)
+    paths["masks"] = dict(_build.launch_counts)
+    log(f"[masks] done in {time.perf_counter() - t0:.1f} s; launches {paths['masks']}")
+    if paths["masks"]:
+        raise AssertionError(f"phase 16 launched kernels: {paths['masks']}")
     unet, cn = pipe.unet, pipe.controlnet
     del pipe, pipe_state, p2p_video
     torch.cuda.empty_cache()
@@ -3893,7 +4211,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
                       "p2p": p2p_metrics, "eval": eval_metrics, "weights": weights_metrics,
-                      "prep": prep_metrics,
+                      "prep": prep_metrics, "masks": masks_metrics,
                       "train": train_metrics, "norm_yardsticks": yardsticks,
                       "sharded": shard_metrics, "sharded_vs_unsharded": beside,
                       "profiles": {"denoise": slice_profile, "auto": auto_profile,

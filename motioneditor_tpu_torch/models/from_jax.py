@@ -2,9 +2,9 @@
 
 Takes the nested parameter dicts of ``motioneditor_tpu`` (``init_unet``,
 ``init_controlnet``, ``init_vae``, ``init_clip_text``, ``init_clip_image``,
-``init_lpips``, or any tree with the same structure) with numpy-convertible
-leaves, and returns flat ``{checkpoint key: torch.Tensor}`` dicts for
-``load_state_dict``. Layout changes are the inverse of
+``init_lpips``, ``init_grounding_dino``, ``init_sam``, or any tree with
+the same structure) with numpy-convertible leaves, and returns flat
+``{checkpoint key: torch.Tensor}`` dicts for ``load_state_dict``. Layout changes are the inverse of
 motioneditor_tpu/models/weights.py:
 
   linear kernel [in, out]        -> weight [out, in]
@@ -238,6 +238,197 @@ def lpips_state_dict(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _mlp(sd, key, p):
+    for i, lp in enumerate(p["layers"]):
+        _lin(sd, f"{key}.layers.{i}", lp)
+
+
+def _swin_block(sd, key, p):
+    _norm(sd, f"{key}.norm1", p["norm1"])
+    _lin(sd, f"{key}.attn.qkv", p["attn"]["qkv"])
+    _lin(sd, f"{key}.attn.proj", p["attn"]["proj"])
+    sd[f"{key}.attn.relative_position_bias_table"] = _t(p["attn"]["rel_bias_table"])
+    _norm(sd, f"{key}.norm2", p["norm2"])
+    _lin(sd, f"{key}.mlp.fc1", p["fc1"])
+    _lin(sd, f"{key}.mlp.fc2", p["fc2"])
+
+
+def _swin(sd, key, p):
+    _conv(sd, f"{key}.patch_embed.proj", p["patch_embed"]["proj"])
+    _norm(sd, f"{key}.patch_embed.norm", p["patch_embed"]["norm"])
+    for i, stage in enumerate(p["stages"]):
+        for j, bp in enumerate(stage["blocks"]):
+            _swin_block(sd, f"{key}.layers.{i}.blocks.{j}", bp)
+        if "downsample" in stage:
+            _norm(sd, f"{key}.layers.{i}.downsample.norm", stage["downsample"]["norm"])
+            _lin(sd, f"{key}.layers.{i}.downsample.reduction", stage["downsample"]["reduction"])
+    for name in p:
+        if name.startswith("out_norm"):
+            _norm(sd, f"{key}.norm{name[len('out_norm'):]}", p[name])
+
+
+def _bert(sd, key, p):
+    e = f"{key}.embeddings"
+    sd[f"{e}.word_embeddings.weight"] = _t(p["word_emb"])
+    sd[f"{e}.position_embeddings.weight"] = _t(p["pos_emb"])
+    sd[f"{e}.token_type_embeddings.weight"] = _t(p["type_emb"])
+    _norm(sd, f"{e}.LayerNorm", p["emb_norm"])
+    for i, lp in enumerate(p["layers"]):
+        pre = f"{key}.encoder.layer.{i}"
+        for name, src in (("query", "q"), ("key", "k"), ("value", "v")):
+            _lin(sd, f"{pre}.attention.self.{name}", lp[src])
+        _lin(sd, f"{pre}.attention.output.dense", lp["attn_out"])
+        _norm(sd, f"{pre}.attention.output.LayerNorm", lp["attn_norm"])
+        _lin(sd, f"{pre}.intermediate.dense", lp["fc1"])
+        _lin(sd, f"{pre}.output.dense", lp["fc2"])
+        _norm(sd, f"{pre}.output.LayerNorm", lp["out_norm"])
+
+
+def _packed_attention(sd, key, p):
+    """q / k / v / out -> nn.MultiheadAttention's packed in_proj + out_proj."""
+    sd[f"{key}.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(p[n]["kernel"], np.float32).T for n in ("q", "k", "v")], 0))
+    sd[f"{key}.in_proj_bias"] = _t(np.concatenate([np.asarray(p[n]["bias"]) for n in "qkv"]))
+    _lin(sd, f"{key}.out_proj", p["out"])
+
+
+def _msdeform(sd, key, p):
+    for name in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
+        _lin(sd, f"{key}.{name}", p[name])
+
+
+def _gdino_enc_layer(sd, key, p):
+    _msdeform(sd, f"{key}.self_attn", p["self_attn"])
+    _norm(sd, f"{key}.norm1", p["norm1"])
+    _lin(sd, f"{key}.linear1", p["fc1"])
+    _lin(sd, f"{key}.linear2", p["fc2"])
+    _norm(sd, f"{key}.norm2", p["norm2"])
+
+
+def _gdino_text_layer(sd, key, p):
+    _packed_attention(sd, f"{key}.self_attn", p["attn"])
+    _norm(sd, f"{key}.norm1", p["norm1"])
+    _lin(sd, f"{key}.linear1", p["fc1"])
+    _lin(sd, f"{key}.linear2", p["fc2"])
+    _norm(sd, f"{key}.norm2", p["norm2"])
+
+
+def _gdino_fusion(sd, key, p):
+    _norm(sd, f"{key}.layer_norm_v", p["norm_v"])
+    _norm(sd, f"{key}.layer_norm_l", p["norm_l"])
+    for name in ("v_proj", "l_proj", "values_v_proj", "values_l_proj", "out_v_proj",
+                 "out_l_proj"):
+        _lin(sd, f"{key}.attn.{name}", p[name])
+    sd[f"{key}.gamma_v"] = _t(p["gamma_v"])
+    sd[f"{key}.gamma_l"] = _t(p["gamma_l"])
+
+
+def _gdino_dec_layer(sd, key, p):
+    _packed_attention(sd, f"{key}.self_attn", p["self_attn"])
+    _norm(sd, f"{key}.norm2", p["norm2"])
+    _packed_attention(sd, f"{key}.ca_text", p["ca_text"])
+    _norm(sd, f"{key}.catext_norm", p["catext_norm"])
+    _msdeform(sd, f"{key}.cross_attn", p["cross_attn"])
+    _norm(sd, f"{key}.norm1", p["norm1"])
+    _lin(sd, f"{key}.linear1", p["fc1"])
+    _lin(sd, f"{key}.linear2", p["fc2"])
+    _norm(sd, f"{key}.norm3", p["norm3"])
+
+
+def _grounding_dino(sd, key, p):
+    _swin(sd, f"{key}.backbone.0", p["backbone"])
+    _bert(sd, f"{key}.bert", p["bert"])
+    _lin(sd, f"{key}.feat_map", p["feat_map"])
+    for i, ip in enumerate(p["input_proj"]):
+        _conv(sd, f"{key}.input_proj.{i}.0", ip["conv"])
+        _put(sd, f"{key}.input_proj.{i}.1", ip["gn_scale"], ip["gn_bias"])
+    t = f"{key}.transformer"
+    sd[f"{t}.level_embed"] = _t(p["level_embed"])
+    for kind, fn, layers in (("layers", _gdino_enc_layer, "enc_layers"),
+                             ("text_layers", _gdino_text_layer, "text_layers"),
+                             ("fusion_layers", _gdino_fusion, "fusion_layers")):
+        for i, lp in enumerate(p[layers]):
+            fn(sd, f"{t}.encoder.{kind}.{i}", lp)
+    _lin(sd, f"{t}.enc_output", p["enc_output"])
+    _norm(sd, f"{t}.enc_output_norm", p["enc_output_norm"])
+    _mlp(sd, f"{t}.enc_out_bbox_embed", p["enc_out_bbox_embed"])
+    sd[f"{t}.tgt_embed.weight"] = _t(p["tgt_embed"])
+    _mlp(sd, f"{t}.decoder.ref_point_head", p["ref_point_head"])
+    for i, lp in enumerate(p["dec_layers"]):
+        _gdino_dec_layer(sd, f"{t}.decoder.layers.{i}", lp)
+    _norm(sd, f"{t}.decoder.norm", p["dec_norm"])
+    _mlp(sd, f"{key}.bbox_embed.0", p["bbox_embed"])
+
+
+def _sam_vit_block(sd, key, p):
+    _norm(sd, f"{key}.norm1", p["norm1"])
+    _lin(sd, f"{key}.attn.qkv", p["qkv"])
+    _lin(sd, f"{key}.attn.proj", p["proj"])
+    sd[f"{key}.attn.rel_pos_h"] = _t(p["rel_pos_h"])
+    sd[f"{key}.attn.rel_pos_w"] = _t(p["rel_pos_w"])
+    _norm(sd, f"{key}.norm2", p["norm2"])
+    _lin(sd, f"{key}.mlp.lin1", p["fc1"])
+    _lin(sd, f"{key}.mlp.lin2", p["fc2"])
+
+
+def _sam_attention(sd, key, p):
+    for name in ("q", "k", "v", "out"):
+        _lin(sd, f"{key}.{name}_proj", p[name])
+
+
+def _sam_twoway_block(sd, key, p):
+    _sam_attention(sd, f"{key}.self_attn", p["self_attn"])
+    _sam_attention(sd, f"{key}.cross_attn_token_to_image", p["ca_t2i"])
+    _sam_attention(sd, f"{key}.cross_attn_image_to_token", p["ca_i2t"])
+    for i in (1, 2, 3, 4):
+        _norm(sd, f"{key}.norm{i}", p[f"norm{i}"])
+    _lin(sd, f"{key}.mlp.lin1", p["fc1"])
+    _lin(sd, f"{key}.mlp.lin2", p["fc2"])
+
+
+def _sam(sd, key, p):
+    enc, pe, dec = f"{key}.image_encoder", f"{key}.prompt_encoder", f"{key}.mask_decoder"
+    _conv(sd, f"{enc}.patch_embed.proj", p["patch_embed"])
+    sd[f"{enc}.pos_embed"] = _t(np.asarray(p["pos_embed"])[None])
+    for i, bp in enumerate(p["blocks"]):
+        _sam_vit_block(sd, f"{enc}.blocks.{i}", bp)
+    _conv(sd, f"{enc}.neck.0", p["neck_conv1"])
+    _norm(sd, f"{enc}.neck.1", p["neck_ln1"])
+    _conv(sd, f"{enc}.neck.2", p["neck_conv2"])
+    _norm(sd, f"{enc}.neck.3", p["neck_ln2"])
+    sd[f"{pe}.pe_layer.positional_encoding_gaussian_matrix"] = _t(p["pe_gaussian"])
+    for i in range(4):
+        sd[f"{pe}.point_embeddings.{i}.weight"] = _t(np.asarray(p["point_embed"])[i:i + 1])
+    sd[f"{pe}.not_a_point_embed.weight"] = _t(np.asarray(p["not_a_point"])[None])
+    sd[f"{pe}.no_mask_embed.weight"] = _t(np.asarray(p["no_mask_embed"])[None])
+    sd[f"{dec}.iou_token.weight"] = _t(p["iou_token"])
+    sd[f"{dec}.mask_tokens.weight"] = _t(p["mask_tokens"])
+    for i, bp in enumerate(p["twoway"]):
+        _sam_twoway_block(sd, f"{dec}.transformer.layers.{i}", bp)
+    _sam_attention(sd, f"{dec}.transformer.final_attn_token_to_image", p["final_attn"])
+    _norm(sd, f"{dec}.transformer.norm_final_attn", p["norm_final"])
+    _put(sd, f"{dec}.output_upscaling.0", p["up_conv1"]["kernel"], p["up_conv1"]["bias"])
+    _norm(sd, f"{dec}.output_upscaling.1", p["up_ln"])
+    _put(sd, f"{dec}.output_upscaling.3", p["up_conv2"]["kernel"], p["up_conv2"]["bias"])
+    for i, mp in enumerate(p["hyper_mlps"]):
+        _mlp(sd, f"{dec}.output_hypernetworks_mlps.{i}", mp)
+    _mlp(sd, f"{dec}.iou_prediction_head", p["iou_head"])
+
+
+def grounding_dino_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """GroundingDINO tree (``init_grounding_dino``) -> ``GroundingDINO``
+    state_dict (the official checkpoint's names, packed attention
+    projections); the inverse of ``map_groundingdino_state_dict`` on the
+    keys the forward reads."""
+    return module_state_dict("grounding_dino", tree)
+
+
+def sam_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """SAM tree (``init_sam``) -> ``Sam`` state_dict (the official
+    ``sam_vit_*.pth`` names but the mask-prompt downscaler)."""
+    return module_state_dict("sam", tree)
+
+
 _MODULES = {
     "linear": _lin,
     "conv": _conv,
@@ -247,13 +438,17 @@ _MODULES = {
     "feed_forward": _ff,
     "resnet": _resnet,
     "transformer2d": _transformer2d,
+    "swin": _swin,
+    "grounding_dino": _grounding_dino,
+    "sam": _sam,
 }
 
 
 def module_state_dict(kind: str, tree) -> Dict[str, torch.Tensor]:
     """One module's tree -> its state_dict, keys relative to the module.
     ``kind``: linear, conv, temporal_conv, norm, attention, feed_forward,
-    resnet or transformer2d."""
+    resnet, transformer2d, swin (GroundingDINO's backbone), grounding_dino
+    or sam."""
     sd: Dict[str, torch.Tensor] = {}
     _MODULES[kind](sd, "", tree)
     return {k[1:]: v for k, v in sd.items()}  # drop the leading "."
