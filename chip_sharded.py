@@ -1,7 +1,7 @@
-"""The frame-sharded path of the PyTorch/CUDA port on several GPUs, one NCCL
-rank per card.
+"""The frame-sharded and tensor-parallel paths of the PyTorch/CUDA port on
+several GPUs, one NCCL rank per card.
 
-    python3 chip_sharded.py --ranks 4
+    python3 chip_sharded.py --ranks 4 [--only-tp]
 
 Rank r runs on cuda:r; the ranks meet at tcp://localhost:<a free port>.
 The kernels are built once, before the ranks start. Each rank runs
@@ -16,6 +16,17 @@ chip_smoke.py's frame-sharded phases over R ranks instead of one:
               frames, then a stage-1 and a stage-2 step after a warm-up step,
               asserting every rank's launch counts per step; rank 0 then
               times each of them unsharded on its card
+  11t. tp     tensor parallelism (parallel/tp.py) over (1, 1, R) and
+              (1, 2, R/2) (data, frames, model) layouts: tiny fp32 checks of
+              the injected segment and inversion with the UNet, adapter and
+              ControlNet split over the model group, against rank 0's
+              unsharded runs; then SD-1.5 at full width, bf16, 8 frames,
+              64x64 latents over (1, R), (1, 1, R) and (1, 2, R/2) in turn:
+              the segment (3 steps after a warm-up step) and inversion (5
+              steps), asserting every rank's launches and model-group
+              all-reduces per step, with ms per step, peak memory and the
+              bytes all-reduced over the model group per step; rank 0 then
+              runs both unsharded on its card. --only-tp runs this phase alone
 Prints one JSON line of every rank's results, then
 {"ok": true, "device": {...}} last. Needs R CUDA devices, R even. A rank
 still running after --stall-seconds prints every thread's stack and exits;
@@ -45,7 +56,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def rank_main(rank, ranks, port, out_dir, stall_s):
+def rank_main(rank, ranks, port, out_dir, stall_s, only_tp):
     """One rank, on cuda:rank over NCCL."""
     import faulthandler
 
@@ -65,13 +76,26 @@ def rank_main(rank, ranks, port, out_dir, stall_s):
     try:
         seg_ctx = init_frame_sharding(1, ranks, device, rank=rank)
         train_ctx = init_frame_sharding(2, ranks // 2, device, rank=rank)
+        tp_ctxs = [init_frame_sharding(1, 1, device, rank=rank, model=ranks),
+                   init_frame_sharding(1, 2, device, rank=rank, model=ranks // 2)]
         t0 = time.perf_counter()
-        cs.log(f"[rank {rank}] check")
-        paths = cs.phase_sharded_check(device, seg_ctx, train_ctx)
-        cs.log(f"[rank {rank}] shard")
-        shard_paths, metrics = cs.phase_sharded(device, seg_ctx, dist.barrier,
-                                                reference=rank == 0)
-        paths.update(shard_paths)
+        paths, metrics = {}, {}
+        if not only_tp:
+            cs.log(f"[rank {rank}] check")
+            paths = cs.phase_sharded_check(device, seg_ctx, train_ctx)
+            cs.log(f"[rank {rank}] shard")
+            shard_paths, metrics = cs.phase_sharded(device, seg_ctx, dist.barrier,
+                                                    reference=rank == 0)
+            paths.update(shard_paths)
+        cs.log(f"[rank {rank}] tp check")
+        for ctx in tp_ctxs:
+            paths.update(cs.phase_tp_check(device, ctx))
+            dist.barrier()
+        cs.log(f"[rank {rank}] tp shard")
+        tp_paths, metrics["tp"] = cs.phase_tp_sharded(
+            device, [(str(cs.layout_of(ctx)), ctx) for ctx in [seg_ctx] + tp_ctxs],
+            dist.barrier, reference=rank == 0)
+        paths.update(tp_paths)
         cs.log(f"[rank {rank}] done in {time.perf_counter() - t0:.1f} s")
         gathered = [None] * ranks
         dist.all_gather_object(gathered, {"metrics": metrics, "launches": paths})
@@ -98,6 +122,8 @@ def main() -> int:
     parser.add_argument("--stall-seconds", type=int, default=600,
                         help="a rank still running after this many seconds dumps its "
                              "stacks and exits (also the process group's timeout)")
+    parser.add_argument("--only-tp", action="store_true",
+                        help="run only the tensor-parallel phase (11t)")
     args = parser.parse_args()
     if not torch.cuda.is_available() or torch.cuda.device_count() < args.ranks:
         print(f"chip_sharded: needs {args.ranks} CUDA devices", file=sys.stderr)
@@ -117,8 +143,8 @@ def main() -> int:
     path, _ = _build.build()
     cs.log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as out_dir:
-        mp.spawn(rank_main, args=(args.ranks, free_port(), out_dir, args.stall_seconds),
-                 nprocs=args.ranks, join=True)
+        mp.spawn(rank_main, args=(args.ranks, free_port(), out_dir, args.stall_seconds,
+                                  args.only_tp), nprocs=args.ranks, join=True)
         with open(os.path.join(out_dir, "result.json")) as fh:
             result = json.load(fh)
     print(json.dumps(result))

@@ -223,6 +223,21 @@ Phases, each raising on failure:
               (loss, gradients, parameters after one AdamW step; stage 2's
               gradients and parameters in fp64 on the plain path, its fp32
               kernel path by the loss: TRAIN_CHECKS)
+  11t. tp     (run after phase 11) tensor parallelism's head-local kernels:
+              each distinct attention site of the SD-1.5 UNet (attn1 with
+              mask injection, attn2, attn_temp) and adapter (attn_temp,
+              attn_pose, attn_self_temp) at C = 320 / 640 / 1280 and the
+              segment's shapes (bf16, 8 frames, 512 px), split for model
+              groups of T = 2 and 4 in this one process by tp_split_plan and
+              narrow_params; each shard through the kernels at H / T heads
+              of C / T channels, the row-parallel partials summed in bf16,
+              the bias added once, held to the whole layer through the
+              kernels and to its plain path under TC_ERR_LIMITS; every shard
+              launches what the whole layer launches (each K1 / K2 launch on
+              the tensor-core body); prints K3's temporal tile at each width
+              and each launch's CUDA-event time at full and head-local width
+              with the card's name and power limit ("[tp]"). The real model
+              groups run in chip_sharded.py on four cards
 Then one JSON line of per-kernel results, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -427,6 +442,28 @@ EXPECTED_PER_SHARDED_STAGE2_STEP = tc({
     "video_flash_attention": 4, "video_flash_attention_kv": 22,
     "temporal_flash_attention_global": 22, "video_flash_fwd_res": 6, "video_flash_bwd_dq": 6,
     "video_flash_bwd_dkv": 6})
+# tensor parallelism (parallel/tp.py): the model group's all-reduces per step
+# and rank, one per split attention module called: the UNet's 16 blocks x
+# (attn1, attn2, attn_temp), and in the edit also the adapter's 12 blocks x 3
+# and the ControlNet's 7 blocks x (attn1, attn2); no all-gather. The kernel
+# launches per step and rank are the full width's: a (1, 1, T) layout runs the
+# unsharded routes, a (1, F, T) layout the frame-sharded ones. Derived on the
+# CPU by tests/test_torch_tp_counts.py
+TP_ALL_REDUCES_PER_STEP = {"denoise": 98, "inversion": 48}
+TP_LAYOUTS = ((1, 1, 4), (1, 2, 2))  # chip_sharded.py's, on four cards
+TP_SIZES = (2, 4)  # phase 11t's model groups, emulated in one process
+TP_LEVELS = ((4096, 320), (1024, 640), (256, 1280))  # phase 11t's (N, C) at 512 px
+
+
+def tp_expected(layout) -> dict:
+    """The launches per step and rank of the segment and of inversion on a
+    (data, frames, model) ``layout``."""
+    if layout[1] == 1:
+        return {"denoise": EXPECTED_PER_STEP, "inversion": EXPECTED_PER_INVERSION_STEP}
+    return {"denoise": EXPECTED_PER_SHARDED_STEP,
+            "inversion": EXPECTED_PER_SHARDED_INVERSION_STEP}
+
+
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense (no tensor cores in fp32)
 PEAK_BYTES = 3.35e12
 KERNEL_INFO = {
@@ -4041,6 +4078,396 @@ def check_train(device, ctx, config, cn_config, unet, cn, gen):
     return launched
 
 
+class KernelCalls:
+    """While active, records each call of K1, K2 and K3's wrappers (the
+    names attention sites import at call time) as (name, args, kwargs), and
+    with ``plain`` runs their plain versions instead: the plain path of a
+    layer, frame by frame, without the score matrix of all frames at once."""
+
+    def __init__(self, plain: bool = False):
+        self.plain, self.calls = plain, []
+
+    def __enter__(self):
+        from motioneditor_tpu_torch.ops import temporal_flash, video_flash
+
+        self.saved = []
+        for mod, name, plain in (
+                (video_flash, "video_flash_attention", video_flash.video_flash_attention_plain),
+                (video_flash, "video_injection_attention",
+                 video_flash.video_injection_attention_plain),
+                (temporal_flash, "temporal_flash_attention",
+                 temporal_flash.temporal_flash_attention_plain)):
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def wrapped(*args, _name=name, _fn=(plain if self.plain else fn), **kwargs):
+                self.calls.append((_name, args, kwargs))
+                return _fn(*args, **kwargs)
+
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def tp_sites(levels=TP_LEVELS):
+    """(name, channels, tokens, rows, site) of every distinct attention site
+    of the SD-1.5 UNet and adapter in the denoise segment (8 heads each) at
+    each (N, C) of ``levels``,
+    ``site(layer, x, heads, src, kernel)`` running it on x [rows, F, N, C]
+    (``src`` the adapter's source tokens and the masks' key), the kernels on
+    or off."""
+    from motioneditor_tpu_torch.control.injection import injected_spatial_attention
+    from motioneditor_tpu_torch.models.adapter import _per_frame_cross_attention
+    from motioneditor_tpu_torch.ops.attention import (
+        SPARSE_CAUSAL,
+        cross_attention,
+        spatial_self_attention,
+        temporal_self_attention_video,
+    )
+
+    sites = []
+    for n, c in levels:
+        sites += [
+            (f"unet attn1 injected C={c}", c, n, 4, lambda p, x, h, e, k: injected_spatial_attention(
+                p, x, h, e["mask"], use_flash=k)),
+            (f"unet attn2 cross C={c}", c, n, 4, lambda p, x, h, e, k: cross_attention(
+                p, x, e["text"], h)),
+            (f"unet attn_temp C={c}", c, n, 4, lambda p, x, h, e, k: temporal_self_attention_video(
+                p, x, h, kv_override=x[[0, 0, 2, 2]], use_kernel=k)),
+            (f"adapter attn_temp C={c}", c, n, 2, lambda p, x, h, e, k: spatial_self_attention(
+                p, x, SPARSE_CAUSAL, h, use_flash=k)),
+            (f"adapter attn_pose C={c}", c, n, 2, lambda p, x, h, e, k: _per_frame_cross_attention(
+                p, x, e["src"], k)),
+            (f"adapter attn_self_temp C={c}", c, n, 2,
+             lambda p, x, h, e, k: temporal_self_attention_video(p, x, h, use_kernel=k)),
+        ]
+    return sites
+
+
+def phase_tp(device, levels=TP_LEVELS):
+    """Phase 11t: each distinct attention site of the SD-1.5 UNet and
+    adapter at the segment's shapes (bf16, 8 frames, 512 px), split for a
+    model group of T in TP_SIZES in this one process: the T shard layers
+    made by tp_split_plan and narrow_params, each run through the kernels
+    at its head-local width (H / T heads of C / T channels), their
+    row-parallel partials (each shard marked split over a group of T
+    without a process group, whose reduction is then the identity) summed
+    in bf16 as an all-reduce does, the bias added once; the sum held to the whole layer through the kernels and to
+    its plain path (the kernels' plain versions) under TC_ERR_LIMITS. Every
+    shard must launch what the whole layer launches, each K1 / K2 launch on
+    the tensor-core body as at full width. Prints the temporal tile of K3
+    at each width and each launch's CUDA-event time at full and head-local
+    width, with the card's name and power limit."""
+    import copy
+
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.ops.attention import Attention
+    from motioneditor_tpu_torch.ops.temporal_flash import temporal_tile
+    from motioneditor_tpu_torch.parallel import tp
+
+    dtype, smi = torch.bfloat16, card()
+    gen = torch.Generator(device=device).manual_seed(SEED + 90)
+    results, launched = {}, {}
+    for name, c, n, rows, site in tp_sites(levels):
+        cross = 768 if "attn2" in name else None
+        with torch.device(device):
+            full = Attention(c, cross_dim=cross, heads=HEADS)
+        with torch.no_grad():
+            for prm in full.parameters():
+                prm.uniform_(-c ** -0.5, c ** -0.5, generator=gen)
+        full = full.to(dtype)
+        x = torch.randn((rows, FRAMES, n, c), generator=gen, device=device).to(dtype)
+        extra = {"text": torch.randn((rows, 77, 768), generator=gen, device=device).to(dtype),
+                 "src": torch.randn((rows, FRAMES, n, c), generator=gen, device=device).to(dtype),
+                 "mask": (torch.rand((FRAMES, n, 1), generator=gen, device=device) > 0.5).to(dtype)}
+        with torch.no_grad():
+            _build.reset_launch_counts()
+            with KernelCalls() as rec:
+                ref = site(full, x, HEADS, extra, True)
+            want = dict(_build.launch_counts)
+            with KernelCalls(plain=True):
+                plain = site(full, x, HEADS, extra, True)
+            if want != tc(want):
+                raise AssertionError(f"{name}: a launch left the tensor-core body: {want}")
+            r = {"full": {"launches": want, "ms": {
+                k: time_ms(lambda k=k, a=a, kw=kw: _build_fn(k)(*a, **kw), reps=KERNEL_REPS)
+                for k, a, kw in rec.calls}}}
+            for t in TP_SIZES:
+                plan, parts, shard_ms = tp.tp_split_plan(full, t), [], {}
+                for m in range(t):
+                    # model rank m's layer: its blocks, marked split over a
+                    # group of t without a process group, so the site runs
+                    # H / t heads and returns its row-parallel partial
+                    shard = copy.deepcopy(full)
+                    tp.narrow_params(shard, plan, t, m)
+                    shard.tp_size = t
+                    shard.to_out[0].bias.zero_()
+                    _build.reset_launch_counts()
+                    with KernelCalls() as rec_m:
+                        parts.append(site(shard, x, HEADS, extra, True))
+                    got = dict(_build.launch_counts)
+                    launched[f"tp{t}"] = add_counts(launched.get(f"tp{t}", {}), got)
+                    if got != want:
+                        raise AssertionError(f"{name} at T = {t}: model rank {m} launched {got}, "
+                                             f"the whole layer {want}")
+                    if m == 0:
+                        shard_ms = {k: time_ms(lambda k=k, a=a, kw=kw: _build_fn(k)(*a, **kw),
+                                               reps=KERNEL_REPS) for k, a, kw in rec_m.calls}
+                total = parts[0]
+                for part in parts[1:]:
+                    total = total + part
+                total = total + full.to_out[0].bias
+                r[f"tp{t}"] = {"vs_kernel": scaled_error(total, ref),
+                               "vs_plain": scaled_error(total, plain), "ms": shard_ms}
+                if "temporal_flash_attention" in want:
+                    d = c // HEADS
+                    r[f"tp{t}"]["tile"] = tuple(temporal_tile(FRAMES, FRAMES, d, HEADS // t,
+                                                              dtype, False))
+                    r["full"]["tile"] = tuple(temporal_tile(FRAMES, FRAMES, d, HEADS, dtype,
+                                                            False))
+        results[name] = r
+        line = ", ".join(f"{k} {r['full']['ms'].get(k, 0):.4f} ms full, " + ", ".join(
+            f"T={t} {r[f'tp{t}']['ms'].get(k, 0):.4f} ms" for t in TP_SIZES)
+            for k in r["full"]["ms"])
+        errs = "; ".join(f"T={t} vs kernel max {r[f'tp{t}']['vs_kernel']['max']:.2e} rms "
+                         f"{r[f'tp{t}']['vs_kernel']['rms']:.2e}, vs plain max "
+                         f"{r[f'tp{t}']['vs_plain']['max']:.2e}" for t in TP_SIZES)
+        tiles = ""
+        if "tile" in r["full"]:
+            tiles = f"; K3 tile full {r['full']['tile']}" + "".join(
+                f", T={t} {r[f'tp{t}']['tile']}" for t in TP_SIZES)
+        log(f"[tp] {name}, N = {n}, {rows} rows: launches per shard {want or 'none'}; "
+            f"{errs}; {line or 'no kernel'}{tiles} | {smi}")
+        del full, x, extra, ref, plain, parts, total
+        torch.cuda.empty_cache()
+    return results, launched
+
+
+def _build_fn(name: str):
+    """The wrapper of kernel ``name``, for timing it alone."""
+    from motioneditor_tpu_torch.ops import temporal_flash, video_flash
+
+    return getattr(video_flash if "video" in name else temporal_flash, name)
+
+
+def tp_split(models, ctx):
+    """Copies of ``models`` split over ``ctx``'s model group (the models
+    themselves without a layout)."""
+    import copy
+
+    from motioneditor_tpu_torch.parallel import tp
+
+    if ctx is None:
+        return models
+    out = [copy.deepcopy(m) for m in models]
+    for m in out:
+        tp.shard_params_tp(m, ctx)
+    return out
+
+
+def layout_of(ctx) -> tuple:
+    return (ctx.dp, ctx.fp, ctx.tp) if ctx is not None else (1, 1, 1)
+
+
+def phase_tp_check(device, ctx):
+    """Tiny fp32 checks of a (1, F, T) layout (chip_sharded.py): the 2-step
+    injected segment in mask mode and 2 steps of inversion with video
+    attention, the UNet, its adapter and the ControlNet split over the model
+    group, against rank 0's unsharded run, with the launches and the
+    model-group all-reduces per step asserted. 32x32 latents, so level-0
+    attention reaches the kernels at head-local widths."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import InjectionSpec
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.parallel import tp
+    from motioneditor_tpu_torch.parallel.mesh import gather_video
+    from motioneditor_tpu_torch.pipelines.editor import ddim_invert, denoise_segment
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    config, cn_config, unet, cn, gen = build_tiny_models(device, SEED + 91)
+    f, hw, steps = FRAMES, 32, 2
+    lat = 0.3 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
+    cond, uncond = (0.3 * torch.randn((2, 7, 16), generator=gen, device=device)
+                    for _ in range(2))
+    image = torch.rand((2, f, 8 * hw, 8 * hw, 3), generator=gen, device=device)
+    masks = {(s, s): (torch.rand((f, s * s, 1), generator=gen, device=device) > 0.5).float()
+             for s in (32, 16, 8, 4)}
+    schedule = DiffusionSchedule()
+    launched, outs, reduces = {}, {}, {}
+    for name, shard in runs_of(ctx):
+        u, c = tp_split((unet, cn), shard)
+        cut = shard_or_keep(shard)
+        _build.reset_launch_counts()
+        tp.reset_collective_counts()
+        with torch.no_grad():
+            emb = precompute_cond_embedding(c, cut(image, branch_axis=True))
+        seg = denoise_segment(
+            u, config, c, cn_config, schedule, 50, InjectionSpec.from_start_layer(10), 7.5, 1.0,
+            cut(lat, branch_axis=True), schedule.inference_timesteps(50)[4:4 + steps], cond,
+            uncond, emb, {k: cut(m, frame_dim=0) for k, m in masks.items()}, shard_ctx=shard)
+        launched[f"{name}_segment"] = dict(_build.launch_counts)
+        reduces[f"{name}_segment"] = tp.collective_counts["all_reduce"]
+        _build.reset_launch_counts()
+        tp.reset_collective_counts()
+        _, inv = ddim_invert(u, config, schedule, cut(lat[:1]), cond[:1], steps,
+                             normal_infer=False, shard_ctx=shard)
+        launched[f"{name}_inversion"] = dict(_build.launch_counts)
+        reduces[f"{name}_inversion"] = tp.collective_counts["all_reduce"]
+        if shard is not None:
+            seg = gather_video(seg, shard, branch_axis=True)
+            inv = gather_video(inv, shard, branch_axis=True, frame_dim=2)
+        outs[name] = (seg, inv)
+    for phase, path in (("segment", "denoise"), ("inversion", "inversion")):
+        got = launched[f"sharded_{phase}"]
+        # fp32: the kernels of the layout's path, on their CUDA-core bodies
+        if not all(got.get(k) for k in tp_expected(layout_of(ctx))[path] if "." not in k):
+            raise AssertionError(f"the tp {phase} skipped a kernel: {got}")
+        # the tiny UNet's 4-head sites split at T <= 4 like SD-1.5's 8-head ones
+        want = TP_ALL_REDUCES_PER_STEP[path] * steps
+        if reduces[f"sharded_{phase}"] != want:
+            raise AssertionError(f"the tp {phase}: {reduces[f'sharded_{phase}']} model-group "
+                                 f"all-reduces, "
+                                 f"expected {want}")
+    if ctx.rank == 0:
+        errs = [(a - b).abs().max().item() for a, b in zip(outs["sharded"], outs["unsharded"])]
+        log(f"[tp-check] 2-step fp32 segment and inversion over {layout_of(ctx)} vs unsharded: "
+            f"max_abs_err {errs[0]:.3e} and {errs[1]:.3e}; launches {launched}")
+        if not all(torch.isfinite(o).all() for o in outs["sharded"]) or max(errs) > 2e-3:
+            raise AssertionError(f"the tp segment or inversion disagrees: {errs}")
+    return {f"tp_check_{layout_of(ctx)}": add_counts(*(v for k, v in launched.items()
+                                                       if k.startswith("sharded")))}
+
+
+def tp_full_width(device, ctx, barrier):
+    """SD-1.5 at full width, bf16, 8 frames, 64x64 latents, built from the
+    seed and split over ``ctx``'s model group (``ctx`` None: unsharded on
+    this card): the injected segment, 3 steps after a warm-up step, and
+    inversion, NULL_STEPS steps after a warm-up step; the launches and
+    model-group all-reduces per step asserted, ms per step, peak memory,
+    bytes all-reduced per step; returns (launches by path, metrics, the
+    gathered outputs)."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import (
+        InjectionSpec,
+        prepare_injection_masks,
+    )
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.parallel import tp
+    from motioneditor_tpu_torch.parallel.mesh import gather_video
+    from motioneditor_tpu_torch.pipelines.editor import ddim_invert, denoise_segment
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    dtype = torch.bfloat16
+    config, cn_config = pipeline_configs()
+    torch.cuda.empty_cache()
+    unet, cn = build_models(config, cn_config, device, dtype, SEED)
+    if ctx is not None and ctx.tp > 1:
+        tp.shard_params_tp(unet, ctx)
+        tp.shard_params_tp(cn, ctx)
+    torch.cuda.empty_cache()
+    layout = layout_of(ctx)
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    lat = torch.randn((2, FRAMES, LATENT, LATENT, 4), generator=gen, device=device).to(dtype)
+    cond, uncond = (torch.randn((2, 77, 768), generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+    image = torch.rand((2, FRAMES, 8 * LATENT, 8 * LATENT, 3), generator=gen,
+                       device=device).to(dtype)
+    src = torch.zeros((FRAMES, LATENT, LATENT), device=device)
+    src[:, 16:48, 20:44] = 1.0
+    masks = {key: m.to(dtype) for key, m in prepare_injection_masks(src, FRAMES).items()}
+    schedule = DiffusionSchedule()
+    all_ts = schedule.inference_timesteps(50)
+    cut = shard_or_keep(ctx)
+    with torch.no_grad():
+        emb = precompute_cond_embedding(cn, cut(image, branch_axis=True))
+    lat_l, masks_l = cut(lat, branch_axis=True), {k: cut(m, frame_dim=0) for k, m in masks.items()}
+    bar = barrier if ctx is not None else (lambda: None)
+
+    def segment(ts):
+        return denoise_segment(unet, config, cn, cn_config, schedule, 50,
+                               InjectionSpec.from_start_layer(10), 7.5, 1.0, lat_l, ts, cond,
+                               uncond, emb, masks_l, shard_ctx=ctx)
+
+    def inversion(steps):
+        return ddim_invert(unet, config, schedule, lat_l[:1], cond[:1], steps,
+                           normal_infer=False, shard_ctx=ctx)
+
+    expected = (tp_expected(layout) if ctx is not None and ctx.tp > 1 else
+                {"denoise": EXPECTED_PER_SHARDED_STEP if ctx is not None else EXPECTED_PER_STEP,
+                 "inversion": EXPECTED_PER_SHARDED_INVERSION_STEP if ctx is not None
+                 else EXPECTED_PER_INVERSION_STEP})
+    reduces = TP_ALL_REDUCES_PER_STEP if ctx is not None and ctx.tp > 1 else {
+        "denoise": 0, "inversion": 0}
+    paths, metrics, outs = {}, {}, {}
+    segment(all_ts[4:5])  # warm-up
+    inversion(1)
+    torch.cuda.reset_peak_memory_stats()
+    for path, run, steps in (("denoise", lambda: segment(all_ts[4:7]), 3),
+                             ("inversion", lambda: inversion(NULL_STEPS), NULL_STEPS)):
+        _build.reset_launch_counts()
+        tp.reset_collective_counts()
+        ms, out = timed_steps(run, steps, bar)
+        paths[f"tp_{path}_{layout}"] = dict(_build.launch_counts)
+        counted = dict(tp.collective_counts)
+        expect_counts(f"{path} over {layout}", paths[f"tp_{path}_{layout}"], expected[path],
+                      steps)
+        if counted.get("all_reduce", 0) != reduces[path] * steps or "all_gather" in counted:
+            raise AssertionError(f"{path} over {layout}: model-group collectives {counted}, "
+                                 f"expected {reduces[path]} all-reduces per step")
+        metrics[f"{path}_ms_per_step"] = ms
+        metrics[f"{path}_model_all_reduce_bytes_per_step"] = (
+            counted.get("all_reduce_bytes", 0) / steps)
+        if path == "inversion":
+            out = out[0]
+        outs[path] = gather_video(out, ctx, branch_axis=True) if ctx is not None else out
+        if not torch.isfinite(outs[path]).all():
+            raise AssertionError(f"the {path} over {layout} is not finite")
+    metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    metrics["parameter_gib"] = sum(p.numel() * p.element_size() for m in (unet, cn)
+                                   for p in m.parameters()) / 2**30
+    del unet, cn, emb
+    torch.cuda.empty_cache()
+    return paths, metrics, outs
+
+
+def phase_tp_sharded(device, layouts, barrier, reference=False):
+    """chip_sharded.py's full-width tensor-parallel runs: ``tp_full_width``
+    over each (name, ctx) of ``layouts`` in turn, every rank in step, then
+    with ``reference`` the same unsharded on this card; logs each layout's
+    ms per step beside the others' and, on the reference rank, bf16
+    max |layout - unsharded| of the outputs."""
+    paths, metrics, outs = {}, {}, {}
+    for name, ctx in layouts:
+        got_paths, got, outs[name] = tp_full_width(device, ctx, barrier)
+        paths.update(got_paths)
+        metrics[name] = got
+        log(f"[tp-shard] rank {ctx.rank} over {name}: segment "
+            f"{got['denoise_ms_per_step']:.1f} ms/step, inversion "
+            f"{got['inversion_ms_per_step']:.1f} ms/step, peak {got['peak_gib']:.2f} GiB, "
+            f"parameters {got['parameter_gib']:.2f} GiB, model-group all-reduce "
+            f"{got['denoise_model_all_reduce_bytes_per_step'] / 1e6:.1f} and "
+            f"{got['inversion_model_all_reduce_bytes_per_step'] / 1e6:.1f} MB per step")
+        barrier()
+    if reference:
+        _, metrics["unsharded"], ref = tp_full_width(device, None, barrier)
+        for name in outs:
+            metrics[name]["bf16_max_abs_diff_vs_unsharded"] = {
+                path: (outs[name][path].float() - ref[path].float()).abs().max().item()
+                for path in ref}
+        log(f"[tp-shard] ms per step and bf16 max |layout - unsharded| on {card()}: "
+            f"{json.dumps(metrics)}")
+    return paths, metrics
+
+
 def main() -> int:
     import torch
 
@@ -4163,6 +4590,10 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     log(f"[shard] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp_metrics, tp_launched = phase_tp(device)
+    paths.update({f"{k}_layers": v for k, v in tp_launched.items()})
+    log(f"[tp] done in {time.perf_counter() - t0:.1f} s")
     sharded_pipe = shard_metrics["pipeline"]
     beside = {  # (sharded in the one-rank group, unsharded phase of this run)
         "inversion_ms_per_step": (shard_metrics["inversion_ms_per_step"],
@@ -4214,6 +4645,7 @@ def main() -> int:
                       "prep": prep_metrics, "masks": masks_metrics,
                       "train": train_metrics, "norm_yardsticks": yardsticks,
                       "sharded": shard_metrics, "sharded_vs_unsharded": beside,
+                      "tp": tp_metrics,
                       "profiles": {"denoise": slice_profile, "auto": auto_profile,
                                    "p2p": p2p_profiles["p2p"],
                                    "p2p_plain": p2p_profiles["plain"],

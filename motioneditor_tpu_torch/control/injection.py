@@ -15,16 +15,20 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from motioneditor_tpu_torch.models.layers import linear, nearest_resize
+from motioneditor_tpu_torch.models.layers import nearest_resize
 from motioneditor_tpu_torch.ops.attention import (
     _FLASH_MIN_Q,
     MOTION_FRAME,
     Attention,
+    local_heads,
     merge_heads,
+    project_out,
+    project_qkv,
     sdpa,
     select_kv,
     split_heads,
 )
+from motioneditor_tpu_torch.parallel.tp import refuse
 
 NUM_TRANSFORMER_BLOCKS = 16  # SD-1.5
 
@@ -136,7 +140,8 @@ def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
     ``shard`` (a FrameShardingCtx): x and mask_n hold the local frames; the
     source rows' [prev, cur] K/V and the mask are built over the frame halo
     once, the source rows run K12 on them and the masked edit rows K13 (JAX
-    injection.py:195-224). The branch axis stays local."""
+    injection.py:195-224). The branch axis stays local. Under a model group
+    (parallel/tp.py) every route runs on this rank's heads."""
     from motioneditor_tpu_torch.ops.injection_flash import fused_injection_attention
     from motioneditor_tpu_torch.ops.video_flash import (
         video_flash_attention,
@@ -147,9 +152,8 @@ def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
     b, f, n, c = x.shape
     if b != 4:
         raise ValueError("injection requires the 4-row branch axis")
-    q = linear(p.to_q, x)
-    k = linear(p.to_k, x)
-    v = linear(p.to_v, x)
+    q, k, v = project_qkv(p, x)
+    heads = local_heads(p, heads)
     inner = q.shape[-1]
     scale = (inner // heads) ** -0.5
     src = list(SRC_ROWS)
@@ -170,7 +174,7 @@ def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
         else:
             out_tgt = fs.kv_attention(q[tgt], k_mf, v_mf, scale, heads, kernel)
         out = torch.stack([out_src[0], out_tgt[0], out_src[1], out_tgt[1]], dim=0)
-        return linear(p.to_out[0], out)
+        return project_out(p, out)
 
     if use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads):
         # packed-head kernels: head split, motion-frame K/V selection and
@@ -183,7 +187,7 @@ def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
             out_tgt = video_flash_attention(q[tgt], k[src], v[src], MOTION_FRAME, scale,
                                             heads)
         out = torch.stack([out_src[0], out_tgt[0], out_src[1], out_tgt[1]], dim=0)
-        return linear(p.to_out[0], out)
+        return project_out(p, out)
 
     # split-head branch, for head dims the packed kernels decline: K8 for
     # the source rows (through sdpa) and K9 for the masked edit rows
@@ -206,7 +210,7 @@ def injected_spatial_attention(p: Attention, x: torch.Tensor, heads: int,
         v_inj = torch.cat([v_mf, v_mf, v[tgt]], dim=2)
         out_tgt = sdpa(q_t, split_heads(k_inj, heads), split_heads(v_inj, heads), scale)
     out = torch.stack([out_src[0], out_tgt[0], out_src[1], out_tgt[1]], dim=0)
-    return linear(p.to_out[0], merge_heads(out))
+    return project_out(p, merge_heads(out))
 
 
 def injected_temporal_kv(x: torch.Tensor) -> torch.Tensor:
@@ -254,9 +258,8 @@ def injected_spatial_attention_auto(p: Attention, x: torch.Tensor, heads: int,
     b, f, n, c = x.shape
     if b != 4:
         raise ValueError("injection requires the 4-row branch axis")
-    q = linear(p.to_q, x)
-    k = linear(p.to_k, x)
-    v = linear(p.to_v, x)
+    refuse("the auto-mask injection", None, p)
+    q, k, v = project_qkv(p, x)
     scale = (q.shape[-1] // heads) ** -0.5
     if shard is not None:
         from motioneditor_tpu_torch.parallel import flash_sharding as fs
@@ -285,4 +288,4 @@ def injected_spatial_attention_auto(p: Attention, x: torch.Tensor, heads: int,
         sm = sm.reshape(1, f, 1, n, 1).to(out_fg.dtype)  # over rows and heads
         out_tgt = out_fg * sm + out_bg * (1 - sm)
     out = torch.stack([out_src[0], out_tgt[0], out_src[1], out_tgt[1]], dim=0)
-    return linear(p.to_out[0], merge_heads(out))
+    return project_out(p, merge_heads(out))

@@ -172,14 +172,16 @@ def p2p_control(vd, prompts, tokenizer):
     return controller, blend
 
 
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` needs a CUDA device and raises without one; the CPU runs only
-    when asked for by name."""
-    if name == "cpu":
-        return torch.device("cpu")
+def resolve_device(name) -> torch.device:
+    """The device ``name`` (a string or a ``torch.device``): ``cuda`` needs a
+    CUDA device and raises without one; the CPU runs only when asked for by
+    name."""
+    device = torch.device(name)
+    if device.type == "cpu":
+        return device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
-    return torch.device(name)
+    return device
 
 
 def main(config_path: str, device: str = "cuda") -> Dict[str, np.ndarray]:

@@ -21,7 +21,6 @@ from motioneditor_tpu_torch.models.layers import (
     FeedForward,
     feed_forward,
     layer_norm,
-    linear,
     temporal_conv,
 )
 from motioneditor_tpu_torch.ops.attention import (
@@ -29,7 +28,10 @@ from motioneditor_tpu_torch.ops.attention import (
     NORMAL,
     SPARSE_CAUSAL,
     Attention,
+    local_heads,
     merge_heads,
+    project_out,
+    project_qkv,
     sdpa,
     spatial_self_attention,
     split_heads,
@@ -81,24 +83,23 @@ def _per_frame_cross_attention(p: Attention, q_tokens, kv_tokens, use_flash: boo
                                shard=None):
     """Each frame's adapter tokens attend to the same frame's source tokens:
     frame-local, so under a ``shard`` K1 runs on the local frames with no
-    communication (JAX adapter.py:148-159)."""
+    communication (JAX adapter.py:148-159). Under a model group
+    (parallel/tp.py) on this rank's heads."""
     from motioneditor_tpu_torch.ops.video_flash import (
         video_flash_attention,
         video_flash_supported,
     )
 
-    q = linear(p.to_q, q_tokens)
-    k = linear(p.to_k, kv_tokens)
-    v = linear(p.to_v, kv_tokens)
-    heads = ADAPTER_HEADS
+    q, k, v = project_qkv(p, q_tokens, kv_tokens)
+    heads = local_heads(p, ADAPTER_HEADS)
     inner = q.shape[-1]
     n = q.shape[-2]
     scale = (inner // heads) ** -0.5
     if use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads):
-        return linear(p.to_out[0], video_flash_attention(q, k, v, NORMAL, scale, heads))
+        return project_out(p, video_flash_attention(q, k, v, NORMAL, scale, heads))
     out = sdpa(split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale,
                use_flash=use_flash and shard is None)
-    return linear(p.to_out[0], merge_heads(out))
+    return project_out(p, merge_heads(out))
 
 
 def adapter_block_apply(p: AdapterBlock, x, source_hidden, use_flash: bool = True,

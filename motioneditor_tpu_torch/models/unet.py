@@ -371,7 +371,11 @@ def unet_apply(
     inputs and recomputes its activations in the backward pass.
     ``shard_ctx`` (parallel/mesh.FrameShardingCtx): ``sample`` holds this
     rank's frames (and batch rows) and the output does too; every
-    frame-mixing op communicates over the frame group.
+    frame-mixing op communicates over the frame group. A layout whose
+    frame axis is 1 with a model group of T > 1 holds every frame and runs
+    the unsharded routes (``FrameShardingCtx.shards_frames``); the
+    attention modules split over the model group (parallel/tp.py) reduce
+    their outputs over it whatever the layout.
     ``prob_editor``: the p2p editor of this step (``P2PController.
     prob_editor``). ``cross_maps_out``: a list that receives the 16x16
     cross-attention maps [(B F), 256, L] of this forward, in forward order
@@ -386,6 +390,8 @@ def unet_apply(
     from motioneditor_tpu_torch.models.adapter import control_adapter_apply
 
     c = config
+    if shard_ctx is not None and not shard_ctx.shards_frames:
+        shard_ctx = None
     b = sample.shape[0]
     temb = time_embedding(model, c, timesteps, b, sample.dtype)
     cross_maps = cross_maps_out

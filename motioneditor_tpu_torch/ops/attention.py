@@ -14,6 +14,12 @@ in the value dtype; with ``use_flash`` it routes long sequences to the
 split-head kernel (ops/flash_attention.py). The hand-written CUDA kernels
 (ops/video_flash.py, ops/temporal_flash.py, ops/flash_attention.py) run at
 the same call sites as the JAX Pallas kernels, behind the same size gates.
+
+Under tensor parallelism (parallel/tp.py) a split Attention holds its
+model rank's heads: every site projects with the column-parallel q / k / v
+(``project_qkv``), computes over ``local_heads`` at width C / T, the kernel
+gates evaluated there, and reduces through the row-parallel
+``project_out``.
 """
 
 from __future__ import annotations
@@ -21,9 +27,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from motioneditor_tpu_torch.models.layers import linear, zero_init
+from motioneditor_tpu_torch.parallel.tp import copy_to_model, reduce_from_model, refuse
 
 NORMAL = "normal"
 SPARSE_CAUSAL = "sparse_causal"
@@ -39,17 +47,54 @@ _TEMPORAL_MIN_N = 512  # temporal kernel runs at N >= this (attention.py:341)
 
 class Attention(nn.Module):
     """q/k/v without bias, out with bias; keys to_q / to_k / to_v / to_out.0.
-    ``zero_out`` zero-inits the output projection (layers.init_params)."""
+    ``zero_out`` zero-inits the output projection (layers.init_params).
+    ``tp_group`` / ``tp_size``: the model group parallel/tp.py
+    ``shard_params_tp`` split this module over (None / 1: whole)."""
+
+    tp_group = None
+    tp_size = 1
 
     def __init__(self, query_dim: int, cross_dim: Optional[int] = None, heads: int = 8,
                  zero_out: bool = False):
         super().__init__()
         cross_dim = cross_dim if cross_dim is not None else query_dim
+        self.heads = heads
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
         self.to_k = nn.Linear(cross_dim, query_dim, bias=False)
         self.to_v = nn.Linear(cross_dim, query_dim, bias=False)
         out = nn.Linear(query_dim, query_dim)
         self.to_out = nn.ModuleList([zero_init(out) if zero_out else out])
+
+
+def local_heads(p: Attention, heads: int) -> int:
+    """The heads this rank computes at site ``p``: ``heads``, or its share
+    of them when ``p`` is split over a model group."""
+    if p.tp_size == 1:
+        return heads
+    if heads != p.heads:
+        raise ValueError(f"a site split over {p.tp_size} model ranks for {p.heads} heads was "
+                         f"called with {heads}")
+    return heads // p.tp_size
+
+
+def project_qkv(p: Attention, x: torch.Tensor, kv: Optional[torch.Tensor] = None):
+    """q of ``x``, k and v of ``kv`` (``x`` when None): under a model group
+    the column-parallel projections to this rank's heads, their inputs
+    through Megatron's f (``copy_to_model``)."""
+    x = copy_to_model(x, p.tp_group)
+    kv = x if kv is None else copy_to_model(kv, p.tp_group)
+    return linear(p.to_q, x), linear(p.to_k, kv), linear(p.to_v, kv)
+
+
+def project_out(p: Attention, h: torch.Tensor) -> torch.Tensor:
+    """to_out.0 of the merged heads ``h``; under a model group the
+    row-parallel product of this rank's heads summed over the group, then
+    the bias, once."""
+    if p.tp_size == 1:
+        return linear(p.to_out[0], h)
+    out = p.to_out[0]
+    y = reduce_from_model(F.linear(h, out.weight.to(h.dtype)), p.tp_group)
+    return y + out.bias.to(h.dtype)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -130,30 +175,30 @@ def spatial_self_attention(p: Attention, x: torch.Tensor, mode: str, heads: int,
     )
 
     b, f, n, c = x.shape
-    q = linear(p.to_q, x)
-    k = linear(p.to_k, x)
-    v = linear(p.to_v, x)
+    q, k, v = project_qkv(p, x)
+    heads = local_heads(p, heads)
     inner = q.shape[-1]
     scale = (inner // heads) ** -0.5
     if prob_editor is not None and n <= 256:
+        refuse("the p2p self-attention editor", None, p)
         vh = split_heads(select_kv(v, mode), heads)
         probs = attention_probs(split_heads(q, heads), split_heads(select_kv(k, mode), heads),
                                 scale)  # [B, F, H, N, KV]
         out = torch.matmul(prob_editor(probs, False).to(vh.dtype), vh)
-        return linear(p.to_out[0], merge_heads(out))
+        return project_out(p, merge_heads(out))
     if shard is not None:
         from motioneditor_tpu_torch.parallel.flash_sharding import sharded_spatial_attention
 
         kernel = use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads)
         out = sharded_spatial_attention(q, k, v, mode, scale, heads, shard, kernel)
-        return linear(p.to_out[0], out)
+        return project_out(p, out)
     if use_flash and n >= _FLASH_MIN_Q and video_flash_supported(inner, heads):
         # packed-head kernel: head split and frame selection happen in-kernel
         out = video_flash_attention(q, k, v, mode, scale, heads)
-        return linear(p.to_out[0], out)
+        return project_out(p, out)
     out = sdpa(split_heads(q, heads), split_heads(select_kv(k, mode), heads),
                split_heads(select_kv(v, mode), heads), scale, use_flash=use_flash)
-    return linear(p.to_out[0], merge_heads(out))
+    return project_out(p, merge_heads(out))
 
 
 def cross_attention(p: Attention, x: torch.Tensor, encoder_states: torch.Tensor,
@@ -166,22 +211,22 @@ def cross_attention(p: Attention, x: torch.Tensor, encoder_states: torch.Tensor,
     is_cross=True) -> probs hook over [B, F, H, N, L], the p2p controller;
     the maps are collected before it edits them (JAX attention.py:251-258)."""
     b, f, n, _ = x.shape
-    q = linear(p.to_q, x)
-    k = linear(p.to_k, encoder_states)
-    v = linear(p.to_v, encoder_states)
+    q, k, v = project_qkv(p, x, encoder_states)
+    heads = local_heads(p, heads)
     scale = (q.shape[-1] // heads) ** -0.5
     qh = split_heads(q, heads)  # [B, F, H, N, D]
     kh = split_heads(k, heads)[:, None]  # [B, 1, H, L, D], broadcast over frames
     vh = split_heads(v, heads)[:, None]
     if collect_maps_into is None and prob_editor is None:
-        return linear(p.to_out[0], merge_heads(sdpa(qh, kh, vh, scale)))
+        return project_out(p, merge_heads(sdpa(qh, kh, vh, scale)))
+    refuse("the cross-attention map collection and the p2p editor", None, p)
     probs = attention_probs(qh, kh, scale)  # [B, F, H, N, L]
     if collect_maps_into is not None:
         collect_maps_into.append(probs.mean(dim=2).reshape(b * f, n, probs.shape[-1]))
     if prob_editor is not None:
         probs = prob_editor(probs, True)
     out = torch.matmul(probs.to(vh.dtype), vh)
-    return linear(p.to_out[0], merge_heads(out))
+    return project_out(p, merge_heads(out))
 
 
 def causal_temporal_bias(f: int, device=None) -> torch.Tensor:
@@ -195,15 +240,13 @@ def temporal_self_attention(p: Attention, x: torch.Tensor, heads: int, causal: b
     """Attention over the frame axis; x: [B, N, F, C]. ``kv_override`` (same
     shape) substitutes the K/V source (temporal injection)."""
     f = x.shape[2]
-    kv_src = x if kv_override is None else kv_override
-    q = linear(p.to_q, x)
-    k = linear(p.to_k, kv_src)
-    v = linear(p.to_v, kv_src)
+    q, k, v = project_qkv(p, x, kv_override)
+    heads = local_heads(p, heads)
     scale = (q.shape[-1] // heads) ** -0.5
     bias = causal_temporal_bias(f, x.device) if causal else None
     out = sdpa(split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale,
                bias=bias)
-    return linear(p.to_out[0], merge_heads(out))
+    return project_out(p, merge_heads(out))
 
 
 def temporal_self_attention_video(p: Attention, x: torch.Tensor, heads: int,
@@ -220,26 +263,21 @@ def temporal_self_attention_video(p: Attention, x: torch.Tensor, heads: int,
     )
 
     b, f, n, c = x.shape
-    kv_src = x if kv_override is None else kv_override
+    hl = local_heads(p, heads)
+    cl = p.to_q.weight.shape[0]  # this rank's channels
+    frames = f * shard.fp if shard is not None else f
+    kernel = use_kernel and n >= _TEMPORAL_MIN_N and temporal_flash_supported(frames, cl, hl)
+    if shard is None and not kernel:
+        xt = x.transpose(1, 2)
+        kvt = None if kv_override is None else kv_override.transpose(1, 2)
+        out = temporal_self_attention(p, xt, heads, causal=causal, kv_override=kvt)
+        return out.transpose(1, 2)
+    q, k, v = project_qkv(p, x, kv_override)
+    scale = (cl // hl) ** -0.5
     if shard is not None:
         from motioneditor_tpu_torch.parallel.flash_sharding import sharded_temporal_attention
 
-        q = linear(p.to_q, x)
-        k = linear(p.to_k, kv_src)
-        v = linear(p.to_v, kv_src)
-        scale = (q.shape[-1] // heads) ** -0.5
-        kernel = (use_kernel and n >= _TEMPORAL_MIN_N
-                  and temporal_flash_supported(f * shard.fp, c, heads))
-        out = sharded_temporal_attention(q, k, v, scale, heads, causal, shard, kernel)
-        return linear(p.to_out[0], out)
-    if use_kernel and n >= _TEMPORAL_MIN_N and temporal_flash_supported(f, c, heads):
-        q = linear(p.to_q, x)
-        k = linear(p.to_k, kv_src)
-        v = linear(p.to_v, kv_src)
-        scale = (q.shape[-1] // heads) ** -0.5
-        out = temporal_flash_attention(q, k, v, scale, heads, causal=causal)
-        return linear(p.to_out[0], out)
-    xt = x.transpose(1, 2)
-    kvt = None if kv_override is None else kv_src.transpose(1, 2)
-    out = temporal_self_attention(p, xt, heads, causal=causal, kv_override=kvt)
-    return out.transpose(1, 2)
+        out = sharded_temporal_attention(q, k, v, scale, hl, causal, shard, kernel)
+    else:
+        out = temporal_flash_attention(q, k, v, scale, hl, causal=causal)
+    return project_out(p, out)

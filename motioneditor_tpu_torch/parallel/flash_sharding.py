@@ -25,7 +25,15 @@ communication).
 Below the kernels' size gates, or at head dims they decline, the same K/V
 is built and the plain ``sdpa`` runs on it: the JAX package falls back to
 GSPMD's einsum on the global arrays there, which is the same arithmetic.
-Head sharding over a ``model`` axis is not ported yet.
+
+Head sharding over a ``model`` group (JAX ``head_shards``, :81-93): the
+call sites pass q / k / v of this model rank's heads, [B, Fl, N, C / T],
+made by the column-parallel projections (parallel/tp.py), and the local
+head count; the halo, frame-0 and all-gather collectives run over the
+frame group on those head-local tensors, and the kernels launch at width
+C / T. The fg mask has no channel axis and stays whole. No collective runs
+over the model group at a kernel boundary: the only model-group traffic is
+the row-parallel output's all-reduce after the kernel.
 """
 
 from __future__ import annotations

@@ -1,18 +1,23 @@
-"""Process groups over (data, frames) for frame-sharded execution
-(port of motioneditor_tpu/parallel/mesh.py).
+"""Process groups over (data, frames, model) for frame-sharded and
+tensor-parallel execution (port of motioneditor_tpu/parallel/mesh.py).
 
 The JAX package lays its devices out as a ``(data, frames)`` mesh and lets
 GSPMD partition the global arrays. PyTorch has no GSPMD: here each rank is
 one process that holds its LOCAL block of every video tensor, the frame
 axis split over the ``frames`` group and the batch axis over the ``data``
 group, and every op that mixes frames communicates explicitly
-(parallel/flash_sharding.py, parallel/frame_ops.py). Ranks are laid out
-data-major, as JAX's mesh reshapes its device list: rank = d * fp + f.
+(parallel/flash_sharding.py, parallel/frame_ops.py). The optional third
+size is the ``model`` group of tensor parallelism (parallel/tp.py): its
+ranks hold the same tokens and split the attention heads. Ranks are laid
+out data-major and model-minor, as JAX's mesh reshapes its device list:
+rank = (d * fp + f) * tp + m.
 
 The backend follows the device: NCCL for CUDA tensors, gloo only when the
 caller asks for the CPU. A one-rank world needs no network (a HashStore).
-Parameters are replicated on every rank; training sums the gradients over
-the world (training/stage1.py).
+Parameters are replicated on every rank but for the attention projections
+that parallel/tp.py splits over the model group; training sums the
+gradients over the world (training/stage1.py) and so runs only with a
+one-rank model group.
 """
 
 from __future__ import annotations
@@ -26,16 +31,19 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class FrameShardingCtx:
-    """This rank's view of the (data, frames) layout: the frame group (its
-    global ranks in frame order, this rank's index ``frame_rank`` and its
-    size ``fp``), the data group likewise, and the device the tensors live
-    on."""
+    """This rank's view of the (data, frames, model) layout: the frame
+    group (its global ranks in frame order, this rank's index
+    ``frame_rank`` and its size ``fp``), the data group and the model group
+    likewise, and the device the tensors live on. A one-rank model group
+    (``tp`` 1) has no group of its own."""
 
     frame_group: object
     frame_ranks: Tuple[int, ...]
     data_group: object
     data_ranks: Tuple[int, ...]
     device: torch.device
+    model_group: object = None
+    model_ranks: Tuple[int, ...] = ()
 
     @property
     def fp(self) -> int:
@@ -58,8 +66,25 @@ class FrameShardingCtx:
         return self.data_ranks.index(self.rank)
 
     @property
+    def tp(self) -> int:
+        return max(1, len(self.model_ranks))
+
+    @property
+    def model_rank(self) -> int:
+        return self.model_ranks.index(self.rank) if self.model_ranks else 0
+
+    @property
     def world_size(self) -> int:
-        return self.fp * self.dp
+        return self.fp * self.dp * self.tp
+
+    @property
+    def shards_frames(self) -> bool:
+        """Whether the frame-mixing ops take this layout's frame route. A
+        (d, 1, T > 1) layout holds every frame on every rank and runs the
+        unsharded kernels, as JAX's ``for_mesh`` returns no frame context
+        for a mesh whose frame axis is 1 (flash_sharding.py:102-104); a
+        one-rank (1, 1) layout keeps the frame route."""
+        return self.fp > 1 or self.tp == 1
 
     def supports(self, f: int) -> bool:
         """The global frame axis divides into at least one frame per shard
@@ -86,14 +111,16 @@ def backend_for(device: torch.device) -> str:
 
 
 def init_frame_sharding(data: int, frames: int, device, rank: int = 0,
-                        init_method: Optional[str] = None) -> FrameShardingCtx:
-    """Initialize the default process group (world size ``data * frames``)
-    if it is not yet, and build the frame and data groups for ``rank``.
-    ``init_method`` (e.g. ``tcp://localhost:<port>``) is needed unless the
-    world has one rank, which rides a HashStore and needs no network."""
+                        init_method: Optional[str] = None, model: int = 1) -> FrameShardingCtx:
+    """Initialize the default process group (world size ``data * frames *
+    model``) if it is not yet, and build the frame, data and (``model`` > 1)
+    model groups for ``rank``. ``init_method`` (e.g.
+    ``tcp://localhost:<port>``) is needed unless the world has one rank,
+    which rides a HashStore and needs no network. Every rank must call it
+    with the same sizes: every rank creates every group."""
     device = torch.device(device)
     backend = backend_for(device)
-    world = data * frames
+    world = data * frames * model
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
     if not dist.is_initialized():
@@ -106,23 +133,22 @@ def init_frame_sharding(data: int, frames: int, device, rank: int = 0,
         raise RuntimeError(f"the process group runs {dist.get_backend()}, the tensors on "
                            f"{device} need {backend}")
     if dist.get_world_size() != world:
-        raise ValueError(f"a ({data}, {frames}) layout needs {world} ranks, the world has "
-                         f"{dist.get_world_size()}")
+        raise ValueError(f"a ({data}, {frames}, {model}) layout needs {world} ranks, the "
+                         f"world has {dist.get_world_size()}")
     me = dist.get_rank()
-    frame_group = data_group = None
-    frame_ranks = data_ranks = ()
-    # every rank creates every group, in the same order
-    for d in range(data):
-        ranks = tuple(d * frames + f for f in range(frames))
-        g = dist.group.WORLD if data == 1 else dist.new_group(list(ranks))
-        if me in ranks:
-            frame_group, frame_ranks = g, ranks
-    for f in range(frames):
-        ranks = tuple(d * frames + f for d in range(data))
-        g = dist.group.WORLD if frames == 1 else dist.new_group(list(ranks))
-        if me in ranks:
-            data_group, data_ranks = g, ranks
-    return FrameShardingCtx(frame_group, frame_ranks, data_group, data_ranks, device)
+    grid = torch.arange(world).reshape(data, frames, model)  # rank = (d fp + f) tp + m
+    found = {}
+    # every rank creates every group, in the same order; a one-rank model
+    # group is none
+    for kind, lines in (("frame", grid.permute(0, 2, 1).reshape(-1, frames)),
+                        ("data", grid.permute(1, 2, 0).reshape(-1, data)),
+                        ("model", grid.reshape(-1, model) if model > 1 else [])):
+        for line in [tuple(x.tolist()) for x in lines]:
+            g = dist.group.WORLD if len(line) == world else dist.new_group(list(line))
+            if me in line:
+                found[kind] = (g, line)
+    model_group, model_ranks = found.get("model", (None, ()))
+    return FrameShardingCtx(*found["frame"], *found["data"], device, model_group, model_ranks)
 
 
 def local_block(x: torch.Tensor, dim: int, parts: int, index: int) -> torch.Tensor:

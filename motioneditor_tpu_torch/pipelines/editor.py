@@ -23,6 +23,11 @@ Every phase also runs frame sharded over a process group (``shard_ctx``,
 parallel/mesh.FrameShardingCtx): the functions take this rank's frames and
 return them; ``MotionEditorPipeline`` with a ``shard_ctx`` takes whole
 clips on every rank, works on this rank's frames and gathers the results.
+``ddim_invert`` and ``denoise_segment`` also run under tensor parallelism
+(a model group of T > 1, the UNet, its adapter and the ControlNet split by
+parallel/tp.py ``shard_params_tp``): latents, masks and text embeddings
+are replicated over the model group. Null-text, the pipeline class, the
+p2p controller and LocalBlend raise there for now.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from motioneditor_tpu_torch.models.vae import (
     vae_encode_video,
 )
 from motioneditor_tpu_torch.parallel.mesh import FrameShardingCtx, gather_video, shard_video
+from motioneditor_tpu_torch.parallel.tp import refuse
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule, ddim_inverse_step, ddim_step
 from motioneditor_tpu_torch.training.common import mse
 
@@ -83,7 +89,8 @@ def ddim_invert(
     (x_T, all_latents [num_steps + 1, ...]) with all_latents[i] the latent
     after i inversion steps (x_0 first). ``shard_ctx``: ``latents`` holds
     this rank's frames, and so do both results; the UNet communicates over
-    the frame group, the inverse DDIM step is per element."""
+    the frame group (and, split by ``shard_params_tp``, the model group),
+    the inverse DDIM step is per element."""
     ts = schedule.inference_timesteps(num_steps)
     cond_b = cond.to(latents.dtype).expand(latents.shape[0], *cond.shape[1:])
     lat = latents
@@ -172,6 +179,7 @@ def null_optimization(
     out are the same bits on every rank."""
     if shard_ctx is not None and shard_ctx.dp > 1:
         raise ValueError("null-text optimization shards frames only, not the data axis")
+    refuse("null-text optimization", shard_ctx, unet)
     cdt = _DTYPES[compute_dtype]
     param_dtype = next(unet.parameters()).dtype
     if param_dtype != cdt:
@@ -246,6 +254,7 @@ def null_text_inversion(
     trajectory. cond / uncond0: [1, L, D] text embeddings. Returns
     (x_T, uncond embeddings [num_steps, 1, L, D]). ``shard_ctx``: both
     phases run frame sharded; ``latents`` and x_T hold this rank's frames."""
+    refuse("null-text inversion", shard_ctx, unet)
     x_t, all_latents = ddim_invert(unet, unet_config, schedule, latents, cond, num_steps,
                                    normal_infer=null_normal_infer, use_flash=use_flash,
                                    shard_ctx=shard_ctx)
@@ -295,7 +304,10 @@ def denoise_segment(
     ``cond_embedding`` and ``masks`` hold this rank's frames (the branch
     axis stays whole: ``shard_video(..., branch_axis=True)``), and so do
     the returned latents. The ControlNet is per frame and runs on them
-    unchanged; the UNet communicates over the frame group.
+    unchanged; the UNet communicates over the frame group. Split over a
+    model group (parallel/tp.py), every model rank holds the same latents,
+    text and masks, and the split attention modules of the UNet, the
+    adapter and the ControlNet reduce their outputs over it.
 
     ``p2p_controller`` (control/p2p.P2PController) edits the attention
     probabilities of step ``seg_lo + idx`` of the schedule, ``seg_lo`` being
@@ -307,6 +319,8 @@ def denoise_segment(
     DDIM step. Both are frame local."""
     if local_blend is not None and maps_sum is None:
         raise ValueError("LocalBlend needs the running map sum maps_sum")
+    if p2p_controller is not None or local_blend is not None:
+        refuse("the p2p controller and LocalBlend", shard_ctx, unet, controlnet)
     f = latents.shape[1]
     lat = latents
     for idx, t in enumerate(seg_ts):
@@ -387,6 +401,7 @@ class MotionEditorPipeline:
         if self.shard_ctx is not None and self.shard_ctx.dp > 1:
             raise ValueError("the pipeline shards frames only: its layout needs data = 1, "
                              f"got {self.shard_ctx.dp}")
+        refuse("MotionEditorPipeline", self.shard_ctx, self.unet, self.controlnet)
 
     def _frames(self, x: torch.Tensor, frame_dim: int = 1) -> torch.Tensor:
         """This rank's frames of a whole clip (the clip itself unsharded);

@@ -41,9 +41,13 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 def extract_masks_transformers(frames_dir: str, text_prompt: str, save_dir: str,
                                dino_path: str, sam_path: str, box_threshold: float = 0.3,
-                               text_threshold: float = 0.25, device="cpu"):
+                               text_threshold: float = 0.25, device="cuda"):
     """The HF-transformers backend: both models and their inputs on
-    ``device``."""
+    ``device`` (the card unless the caller asks for the CPU; resolved
+    before any file is read, so it raises at once without a CUDA device)."""
+    from motioneditor_tpu_torch.inference import resolve_device
+
+    device = resolve_device(device)
     from PIL import Image
     from transformers import (
         AutoModelForZeroShotObjectDetection,
@@ -145,11 +149,15 @@ def native_dino_boxes(image, caption: str, model, tokenizer, box_threshold: floa
 
 def extract_masks_native(frames_dir: str, text_prompt: str, save_dir: str, dino_ckpt: str,
                          bert_vocab: str, sam_path: str, box_threshold: float = 0.3,
-                         device="cpu"):
+                         device="cuda"):
     """The native backend: this package's GroundingDINO boxes and, for an
     official ``sam_vit_*.pth``, this package's SAM masks, their configs
     picked by the files' names; an HF SAM directory runs through
-    ``transformers``. Every network runs on ``device``."""
+    ``transformers``. Every network runs on ``device`` (the card unless the
+    caller asks for the CPU; resolved before any file is read)."""
+    from motioneditor_tpu_torch.inference import resolve_device
+
+    device = resolve_device(device)
     from PIL import Image
 
     from motioneditor_tpu_torch.models.gdino_weights import load_groundingdino_checkpoint

@@ -60,9 +60,13 @@ def build_detector(kind: str):
 
 
 def build_native_detector(body_model: str, hand_model: str = None, face_model: str = None,
-                          device="cpu"):
+                          device="cuda"):
     """uint8 RGB [H, W, 3] -> skeleton image, through this package's
-    OpenPose networks on ``device``."""
+    OpenPose networks on ``device`` (the card unless the caller asks for the
+    CPU; resolved before any file is read)."""
+    from motioneditor_tpu_torch.inference import resolve_device
+
+    device = resolve_device(device)
     from motioneditor_tpu_torch.models.openpose import (
         load_body_params,
         load_face_params,
@@ -77,8 +81,13 @@ def build_native_detector(body_model: str, hand_model: str = None, face_model: s
                                             face_model=face)
 
 
-def build_native_depth_detector(depth_model: str, device="cpu"):
-    """uint8 RGB [H, W, 3] -> depth image, through this package's MiDaS."""
+def build_native_depth_detector(depth_model: str, device="cuda"):
+    """uint8 RGB [H, W, 3] -> depth image, through this package's MiDaS on
+    ``device`` (the card unless the caller asks for the CPU; resolved before
+    any file is read)."""
+    from motioneditor_tpu_torch.inference import resolve_device
+
+    device = resolve_device(device)
     from motioneditor_tpu_torch.models.midas import estimate_depth, load_dpt_params
 
     model = load_dpt_params(depth_model, device)

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig, unet_apply
+from motioneditor_tpu_torch.parallel.tp import refuse
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule, ddpm_add_noise
 from motioneditor_tpu_torch.training.common import (
     TrainState,
@@ -75,7 +76,9 @@ def train_step_stage1(
     averaged (accelerator.accumulate, train_bg.py:312). Returns the mean
     loss as a 0-d tensor on the device (no host synchronization).
     ``shard_ctx``: latents and encoder_hidden_states are this rank's blocks
-    (see the module docstring)."""
+    (see the module docstring). Raises under tensor parallelism: the world
+    sum would add up the split parameters' blocks."""
+    refuse("stage-1 training", shard_ctx, state.model)
     state.optimizer.zero_grad()
     total = 0.0
     for _ in range(accum_steps):

@@ -27,6 +27,7 @@ from motioneditor_tpu_torch.models.controlnet import (
     precompute_cond_embedding,
 )
 from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig, unet_apply
+from motioneditor_tpu_torch.parallel.tp import refuse
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule, ddpm_add_noise
 from motioneditor_tpu_torch.training.common import (
     TrainState,
@@ -87,7 +88,9 @@ def train_step_stage2(
     returned); the noise and timesteps come from ``generator``. Returns the
     loss as a 0-d tensor on the device. ``shard_ctx``: latents,
     source_skeleton and encoder_hidden_states are this rank's blocks (see
-    the module docstring)."""
+    the module docstring). Raises under tensor parallelism: the world sum
+    would add up the split parameters' blocks."""
+    refuse("stage-2 training", shard_ctx, state.model, controlnet)
     state.optimizer.zero_grad()
     if shard_ctx is None:
         noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)

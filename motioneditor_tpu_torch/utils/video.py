@@ -1,6 +1,8 @@
-"""Video grid saving, GIF + MP4 (a copy of motioneditor_tpu/utils/video.py's
-``save_videos_grid`` for the port), on channel-last numpy video tensors
-[B, F, H, W, 3] in [0, 1]. ``imageio`` is imported when a file is written.
+"""Video grid saving, GIF + MP4, and per-frame PNG dumps (a copy of
+motioneditor_tpu/utils/video.py's ``save_videos_grid`` and
+``save_videos_as_images`` for the port), on channel-last numpy video
+tensors [B, F, H, W, 3] in [0, 1]. ``imageio`` and PIL are imported when a
+file is written.
 """
 
 from __future__ import annotations
@@ -53,3 +55,20 @@ def save_videos_grid(
                 w.append_data(fr)
     except Exception as e:  # mp4 codec optional; GIF is the canonical artifact
         warnings.warn(f"MP4 writer failed for {mp4} ({e!r}); GIF was written")
+
+
+def save_videos_as_images(videos: np.ndarray, path: str, rescale: bool = False) -> None:
+    """videos: [B, F, H, W, 3]; writes frame f of row b as
+    ``path/vis_images/batch_{b}/frame_{f}.png`` (util.py:15-31)."""
+    from PIL import Image
+
+    videos = np.asarray(videos)
+    if rescale:
+        videos = (videos + 1.0) / 2.0
+    base = osp.join(path, "vis_images")
+    for b in range(videos.shape[0]):
+        d = osp.join(base, f"batch_{b}")
+        os.makedirs(d, exist_ok=True)
+        for f in range(videos.shape[1]):
+            img = (np.clip(videos[b, f], 0, 1) * 255).astype(np.uint8)
+            Image.fromarray(img).save(osp.join(d, f"frame_{f}.png"))

@@ -8,6 +8,7 @@ assertion error in any rank fails the spawn.
 """
 
 import datetime
+import math
 import os
 import pathlib
 import socket
@@ -35,15 +36,15 @@ def free_port() -> int:
 
 
 def spawn(fn, layout, out_dir, inputs):
-    """Run ``fn(ctx, out_dir)`` on a (data, frames) ``layout`` of ranks,
-    with ``inputs`` saved for them to read; raises with every failed rank's
-    traceback."""
+    """Run ``fn(ctx, out_dir)`` on a (data, frames[, model]) ``layout`` of
+    ranks, with ``inputs`` saved for them to read; raises with every failed
+    rank's traceback."""
     import torch.multiprocessing as mp
 
     out_dir = pathlib.Path(out_dir)
     torch.save(inputs, out_dir / "inputs.pt")
     try:
-        mp.spawn(_entry, args=(fn, free_port(), str(out_dir), layout), nprocs=layout[0] * layout[1],
+        mp.spawn(_entry, args=(fn, free_port(), str(out_dir), layout), nprocs=math.prod(layout),
                  join=True)
     except Exception:
         errors = sorted(out_dir.glob("error*.txt"))
@@ -56,9 +57,10 @@ def _entry(rank, fn, port, out_dir, layout):
         # a rank left waiting in a collective (ranks that took different
         # control flow) fails the test within the timeout instead of hanging
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                                world_size=layout[0] * layout[1],
+                                world_size=math.prod(layout),
                                 timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
-        ctx = init_frame_sharding(*layout, "cpu", rank=rank)
+        ctx = init_frame_sharding(layout[0], layout[1], "cpu", rank=rank,
+                                  model=layout[2] if len(layout) > 2 else 1)
         fn(ctx, out_dir)
         dist.barrier()
     except Exception:
