@@ -26,7 +26,14 @@ chip_smoke.py's frame-sharded phases over R ranks instead of one:
               steps), asserting every rank's launches and model-group
               all-reduces per step, with ms per step, peak memory and the
               bytes all-reduced over the model group per step; rank 0 then
-              runs both unsharded on its card. --only-tp runs this phase alone
+              runs both unsharded on its card; then, over (1, 1, R) and
+              (1, 2, R/2), chip_smoke.py's phase 11u paths: tiny fp32
+              checks of null-text, the pipeline, the auto-mask and p2p
+              segments and both training stages (AdamW and 8-bit AdamW)
+              against rank 0's unsharded runs, and each at full width for
+              TP_PATH_STEPS steps, launches and all-reduces asserted,
+              held to rank 0's unsharded run. --only-tp runs this phase
+              alone
 Prints one JSON line of every rank's results, then
 {"ok": true, "device": {...}} last. Needs R CUDA devices, R even. A rank
 still running after --stall-seconds prints every thread's stack and exits;
@@ -40,7 +47,6 @@ import argparse
 import datetime
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -48,12 +54,6 @@ import time
 import traceback
 
 import chip_smoke as cs
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def rank_main(rank, ranks, port, out_dir, stall_s, only_tp):
@@ -91,11 +91,18 @@ def rank_main(rank, ranks, port, out_dir, stall_s, only_tp):
         for ctx in tp_ctxs:
             paths.update(cs.phase_tp_check(device, ctx))
             dist.barrier()
+            paths.update(cs.phase_tp_check_paths(device, ctx))
+            dist.barrier()
         cs.log(f"[rank {rank}] tp shard")
         tp_paths, metrics["tp"] = cs.phase_tp_sharded(
             device, [(str(cs.layout_of(ctx)), ctx) for ctx in [seg_ctx] + tp_ctxs],
             dist.barrier, reference=rank == 0)
         paths.update(tp_paths)
+        for ctx in tp_ctxs:
+            got_paths, metrics[f"tp_paths_{cs.layout_of(ctx)}"] = cs.tp_paths_full_width(
+                device, ctx, dist.barrier)
+            paths.update(got_paths)
+            dist.barrier()
         cs.log(f"[rank {rank}] done in {time.perf_counter() - t0:.1f} s")
         gathered = [None] * ranks
         dist.all_gather_object(gathered, {"metrics": metrics, "launches": paths})
@@ -143,7 +150,7 @@ def main() -> int:
     path, _ = _build.build()
     cs.log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as out_dir:
-        mp.spawn(rank_main, args=(args.ranks, free_port(), out_dir, args.stall_seconds,
+        mp.spawn(rank_main, args=(args.ranks, cs.free_port(), out_dir, args.stall_seconds,
                                   args.only_tp), nprocs=args.ranks, join=True)
         with open(os.path.join(out_dir, "result.json")) as fh:
             result = json.load(fh)

@@ -236,8 +236,30 @@ Phases, each raising on failure:
               launches what the whole layer launches (each K1 / K2 launch on
               the tensor-core body); prints K3's temporal tile at each width
               and each launch's CUDA-event time at full and head-local width
-              with the card's name and power limit ("[tp]"). The real model
-              groups run in chip_sharded.py on four cards
+              with the card's name and power limit ("[tp]"); the auto-mask
+              injection (K8) among those sites. Then K4-K8 at their
+              call sites' shapes (attn1 and attn_temp under grad at C = 320
+              and 640, the auto mask's fg / bg attention): each model rank's
+              call on its channels at H / T heads, its output and dq, dk,
+              dv held to the same channels of the whole call's under
+              TC_ERR_LIMITS, the same launches, and CUDA-event times from
+              full width to T = 2 to T = 4. The real model groups run in
+              chip_sharded.py on four cards
+  11u. tp-gloo (run after phase 11t) two processes on this one card, a
+              (1, 1, 2) layout over gloo (NCCL refuses two ranks on one
+              device): tiny fp32 checks of null-text (its early stop
+              reached), the pipeline, the auto-mask segment, the p2p
+              segment with LocalBlend, and a stage-1 and a stage-2 step
+              with AdamW and with 8-bit AdamW, each against rank 0's
+              unsharded run; then SD-1.5 at full width, bf16, 8 frames,
+              512 px, TP_PATH_STEPS steps of each of those paths (the
+              pipeline from frames to frames), every rank's launches and
+              model-group all-reduces asserted, the outputs held to rank
+              0's unsharded run (TP_BF16_LIMITS, TP_PIPELINE_LIMITS,
+              TP_LOSS_LIMIT). Its times are gloo through
+              the host on one card. A failing rank exits at once and a
+              stalled one after TP_GLOO_STALL_S, so the phase fails and
+              does not hang ("[tp-paths]")
 Then one JSON line of per-kernel results, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -442,26 +464,61 @@ EXPECTED_PER_SHARDED_STAGE2_STEP = tc({
     "video_flash_attention": 4, "video_flash_attention_kv": 22,
     "temporal_flash_attention_global": 22, "video_flash_fwd_res": 6, "video_flash_bwd_dq": 6,
     "video_flash_bwd_dkv": 6})
+# per sharded auto-mode step: the auto-mask injection takes no kernel under a
+# shard (as JAX), so blocks 10-15 run plain attention; blocks 0-3 K12 (4) and
+# the adapter's attn_temp K12 (6), its per-frame cross attention K1 (6) and
+# the ControlNet's K1 (4); K14 at UNet blocks 0-3 and 10-15 and the adapter
+EXPECTED_PER_SHARDED_AUTO_STEP = tc({"video_flash_attention": 10,
+                                     "video_flash_attention_kv": 10,
+                                     "temporal_flash_attention_global": 16})
 # tensor parallelism (parallel/tp.py): the model group's all-reduces per step
 # and rank, one per split attention module called: the UNet's 16 blocks x
 # (attn1, attn2, attn_temp), and in the edit also the adapter's 12 blocks x 3
-# and the ControlNet's 7 blocks x (attn1, attn2); no all-gather. The kernel
-# launches per step and rank are the full width's: a (1, 1, T) layout runs the
-# unsharded routes, a (1, F, T) layout the frame-sharded ones. Derived on the
-# CPU by tests/test_torch_tp_counts.py
-TP_ALL_REDUCES_PER_STEP = {"denoise": 98, "inversion": 48}
+# and the ControlNet's 7 blocks x (attn1, attn2); no all-gather. The auto and
+# p2p (with LocalBlend) edits add one per 16x16 map site (5), the maps' head
+# sum. Null-text (inner_steps 1): three forwards (144) and the backward's
+# Megatron f at each split site whose input needs a gradient (62), plus one
+# broadcast of model rank 0's loss and gradient per inner step. Training,
+# gradient checkpointing on: the forward, the recomputed forward, the
+# backward's f and the clip's norm (1), plus one broadcast of model rank 0's
+# replicated gradients and loss; 8-bit AdamW adds two per split
+# trainable (the moments' block maxima): stage 1's 144 (attn1.to_q and
+# attn2.to_q of 16 blocks, the q / k / v / out weights of 28 attn_temp
+# sites, the adapter's among them), stage 2's 144 (the adapter's 36 sites x
+# 4). The kernel launches per step and rank are the full width's: a (1, 1, T)
+# layout runs the unsharded routes, a (1, F, T) layout the frame-sharded ones.
+# Derived on the CPU by tests/test_torch_tp_counts.py
+TP_ALL_REDUCES_PER_STEP = {"denoise": 98, "inversion": 48, "null_text": 206, "auto": 103,
+                           "p2p": 103, "stage1": 144, "stage2": 189, "stage1_8bit": 432,
+                           "stage2_8bit": 477}
+# model rank 0's values on every model rank: null-text's loss and gradient
+# once per inner step, a training step's replicated gradients and loss once
+TP_BROADCASTS_PER_STEP = {"null_text": 1, "stage1": 1, "stage2": 1}
 TP_LAYOUTS = ((1, 1, 4), (1, 2, 2))  # chip_sharded.py's, on four cards
 TP_SIZES = (2, 4)  # phase 11t's model groups, emulated in one process
 TP_LEVELS = ((4096, 320), (1024, 640), (256, 1280))  # phase 11t's (N, C) at 512 px
 
 
+def knobs_off(per_step: dict) -> dict:
+    """A training step's launches with MOTIONEDITOR_FUSED_GN / _LN off."""
+    return {k: n for k, n in per_step.items() if not k.startswith(NORM_KERNELS)}
+
+
 def tp_expected(layout) -> dict:
-    """The launches per step and rank of the segment and of inversion on a
-    (data, frames, model) ``layout``."""
+    """The launches per step and rank of each path on a (data, frames,
+    model) ``layout`` (training with the knobs off)."""
     if layout[1] == 1:
-        return {"denoise": EXPECTED_PER_STEP, "inversion": EXPECTED_PER_INVERSION_STEP}
+        return {"denoise": EXPECTED_PER_STEP, "inversion": EXPECTED_PER_INVERSION_STEP,
+                "vanilla": EXPECTED_PER_VANILLA_STEP,
+                "null_text": EXPECTED_PER_NULL_STEP, "auto": EXPECTED_PER_AUTO_STEP,
+                "p2p": EXPECTED_PER_STEP, "stage1": knobs_off(EXPECTED_PER_STAGE1_STEP),
+                "stage2": knobs_off(EXPECTED_PER_STAGE2_STEP)}
     return {"denoise": EXPECTED_PER_SHARDED_STEP,
-            "inversion": EXPECTED_PER_SHARDED_INVERSION_STEP}
+            "inversion": EXPECTED_PER_SHARDED_INVERSION_STEP,
+            "vanilla": EXPECTED_PER_SHARDED_VANILLA_STEP,
+            "null_text": EXPECTED_PER_SHARDED_NULL_STEP, "auto": EXPECTED_PER_SHARDED_AUTO_STEP,
+            "p2p": EXPECTED_PER_SHARDED_STEP, "stage1": EXPECTED_PER_SHARDED_STAGE1_STEP,
+            "stage2": EXPECTED_PER_SHARDED_STAGE2_STEP}
 
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense (no tensor cores in fp32)
@@ -3749,6 +3806,54 @@ def runs_of(ctx):
     return [("sharded", ctx)] + ([("unsharded", None)] if ctx.rank == 0 else [])
 
 
+def route_of(ctx) -> tuple:
+    """A layout whose launches per step (``tp_expected``) are ``ctx``'s."""
+    return (1, 2 if ctx.shards_frames else 1, ctx.tp)
+
+
+def kernels_of(shard) -> tuple:
+    """The forward kernels a segment launches on ``shard``'s route."""
+    return SHARDED_KERNELS if shard.shards_frames else FORWARD_KERNELS
+
+
+def same_on_every_rank(x) -> bool:
+    """Whether ``x`` holds the same bits on every rank: its elementwise max
+    and min over the world (all-reduces, which gloo also runs on CUDA
+    tensors) equal it."""
+    import torch
+    import torch.distributed as dist
+
+    hi, lo = x.detach().clone(), x.detach().clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return torch.equal(hi, x) and torch.equal(lo, x)
+
+
+def gather_blocks(x, dim: int, ctx):
+    """The full tensor of the model group's blocks of ``x`` along ``dim``,
+    each placed in zeros and summed by an all-reduce (gloo gathers no CUDA
+    tensor)."""
+    import torch.distributed as dist
+
+    shape = list(x.shape)
+    step = shape[dim]
+    shape[dim] *= ctx.tp
+    full = x.new_zeros(shape)
+    full.narrow(dim, ctx.model_rank * step, step).copy_(x)
+    dist.all_reduce(full, group=ctx.model_group)
+    return full
+
+
+def full_tensors(values: dict, module, ctx) -> dict:
+    """``values`` (tensors by parameter name of ``module``) with every split
+    one gathered from the model group (``gather_blocks``)."""
+    from motioneditor_tpu_torch.parallel import tp
+
+    split = tp.split_parameters(module)
+    return {n: gather_blocks(v, split[n], ctx) if n in split else v
+            for n, v in values.items()}
+
+
 def check_segment(device, ctx, config, cn_config, unet, cn, gen):
     """The 2-step injected segment in mask mode."""
     import torch
@@ -3820,23 +3925,25 @@ def check_p2p_segment(device, ctx, config, cn_config, unet, cn, gen):
     controller = make_controller(P2P_PROMPTS, tokenizer, 50)
     alpha = make_local_blend(P2P_PROMPTS, [P2P_WORDS] * 2, tokenizer).alpha_layers
 
+    split = {None: (unet, cn), ctx: tp_split((unet, cn), ctx)}
+
     def run(shard, blend):
+        u, c = split[shard]
         cut = shard_or_keep(shard)
         with torch.no_grad():
-            emb = precompute_cond_embedding(cn, cut(image, branch_axis=True))
+            emb = precompute_cond_embedding(c, cut(image, branch_axis=True))
         local = lat.shape[1] // (shard.fp if shard else 1)
         maps = torch.zeros((_count_16x16_sites(hw, hw), 4 * local, 256, 77), device=device)
         out = denoise_segment(
-            unet, config, cn, cn_config, schedule, 50, InjectionSpec.from_start_layer(10), 7.5,
+            u, config, c, cn_config, schedule, 50, InjectionSpec.from_start_layer(10), 7.5,
             1.0, cut(lat, branch_axis=True), schedule.inference_timesteps(50)[4:6], cond, uncond,
             emb, {k: cut(m, frame_dim=0) for k, m in masks.items()}, shard_ctx=shard,
             p2p_controller=controller, local_blend=blend, seg_lo=4, maps_sum=maps)
         return gather_video(out, shard, branch_axis=True) if shard else out
 
-    def over_ranks(value, op):
+    def over_ranks(value, op):  # over the world: the model ranks too
         t = torch.tensor([value], device=device)
-        dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.MAX,
-                        group=ctx.frame_group)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.MAX)
         return t.item()
 
     threshold = clear_threshold(alpha, lambda blend: run(ctx, blend), over_ranks)
@@ -3847,15 +3954,70 @@ def check_p2p_segment(device, ctx, config, cn_config, unet, cn, gen):
         outs[name] = run(shard, blend)
         launched[f"{name}_p2p"] = dict(_build.launch_counts)
         gaps += [c["gap"] for c in blend.calls]
-    if not all(launched["sharded_p2p"].get(k) for k in SHARDED_KERNELS):
+    if not all(launched["sharded_p2p"].get(k) for k in kernels_of(ctx)):
         raise AssertionError(f"the sharded p2p segment skipped a kernel: {launched}")
+    if not same_on_every_rank(outs["sharded"]):
+        raise AssertionError("the ranks' p2p segments differ")
     if ctx.rank == 0:
         err = (outs["sharded"] - outs["unsharded"]).abs().max().item()
         log(f"[shard-check] 2-step fp32 p2p segment (replace + LocalBlend at {threshold:.6f}) "
-            f"over (1, {ctx.fp}) vs unsharded: max_abs_err={err:.3e}, least gap to the "
+            f"over {layout_of(ctx)} vs unsharded: max_abs_err={err:.3e}, least gap to the "
             f"threshold {min(gaps):.2e}; launches {launched}")
         if not torch.isfinite(outs["sharded"]).all() or err > 2e-3 or min(gaps) <= P2P_MARGIN:
             raise AssertionError(f"the sharded p2p segment disagrees with the unsharded one: "
+                                 f"{err}")
+    return launched
+
+
+def check_auto_segment(device, ctx, config, cn_config, unet, cn, gen):
+    """The 2-step injected segment in auto-mask mode (token 1, threshold
+    0.1): at 32x32 latents the auto mask's fg / bg attention reaches K8 on
+    the unsharded route, at H / T heads of C / T channels under a model
+    group; the frame route takes no kernel for it, as JAX."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import InjectionSpec
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.parallel.mesh import gather_video
+    from motioneditor_tpu_torch.pipelines.editor import denoise_segment
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+
+    f, hw = FRAMES, 32
+    lat = 0.3 * torch.randn((2, f, hw, hw, 4), generator=gen, device=device)
+    cond, uncond = (P2P_TEXT_SCALE * torch.randn((2, 7, 16), generator=gen, device=device)
+                    for _ in range(2))
+    image = torch.rand((2, f, 8 * hw, 8 * hw, 3), generator=gen, device=device)
+    masks = {(s, s): (torch.rand((f, s * s, 1), generator=gen, device=device) > 0.5).float()
+             for s in (32, 16, 8, 4)}
+    schedule = DiffusionSchedule()
+    spec = InjectionSpec.from_start_layer(10, mask_mode="auto", auto_token_idx=(1,),
+                                          auto_thres=0.1)
+    nets = {"sharded": tp_split((unet, cn), ctx), "unsharded": (unet, cn)}
+    launched, outs = {}, {}
+    for name, shard in runs_of(ctx):
+        u, c = nets[name]
+        cut = shard_or_keep(shard)
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            emb = precompute_cond_embedding(c, cut(image, branch_axis=True))
+        out = denoise_segment(
+            u, config, c, cn_config, schedule, 50, spec, 7.5, 1.0, cut(lat, branch_axis=True),
+            schedule.inference_timesteps(50)[4:6], cond, uncond, emb,
+            {k: cut(m, frame_dim=0) for k, m in masks.items()}, shard_ctx=shard)
+        launched[f"{name}_auto"] = dict(_build.launch_counts)
+        outs[name] = gather_video(out, shard, branch_axis=True) if shard else out
+    need = [k for k in tp_expected(route_of(ctx))["auto"] if "." not in k]
+    if not all(launched["sharded_auto"].get(k) for k in need):
+        raise AssertionError(f"the sharded auto segment skipped a kernel: {launched}")
+    if not same_on_every_rank(outs["sharded"]):
+        raise AssertionError("the ranks' auto segments differ")
+    if ctx.rank == 0:
+        err = (outs["sharded"] - outs["unsharded"]).abs().max().item()
+        log(f"[shard-check] 2-step fp32 auto-mask segment over {layout_of(ctx)} vs unsharded: "
+            f"max_abs_err={err:.3e}; launches {launched}")
+        if not torch.isfinite(outs["sharded"]).all() or err > 2e-3:
+            raise AssertionError(f"the sharded auto segment disagrees with the unsharded one: "
                                  f"{err}")
     return launched
 
@@ -3904,10 +4066,11 @@ def check_null_text(device, ctx, config, cn_config, unet, cn, gen):
     schedule = DiffusionSchedule()
     lead = ctx.rank == 0
     launched, traj, whole = {}, {}, {}
+    nets = {"sharded": tp_split((unet,), ctx)[0], "unsharded": unet}
     for name, shard in runs_of(ctx):
         _build.reset_launch_counts()
-        _, traj[name] = ddim_invert(unet, config, schedule, shard_or_keep(shard)(lat), cond,
-                                    steps, normal_infer=False, shard_ctx=shard)
+        _, traj[name] = ddim_invert(nets[name], config, schedule, shard_or_keep(shard)(lat),
+                                    cond, steps, normal_infer=False, shard_ctx=shard)
         launched[f"{name}_inversion"] = dict(_build.launch_counts)
         whole[name] = (gather_video(traj[name], shard, branch_axis=True, frame_dim=2)
                        if shard else traj[name])
@@ -3917,32 +4080,33 @@ def check_null_text(device, ctx, config, cn_config, unet, cn, gen):
             null_optimization(unet, config, schedule, traj["unsharded"], cond, uncond0, steps,
                               inner, 1e-2, 7.5, early_stop_epsilon=-1.0)
         eps.fill_((calls[0][1] + calls[1][1]).item() / 2)
-    dist.broadcast(eps, ctx.frame_ranks[0], group=ctx.frame_group)
+    dist.broadcast(eps, 0)  # global rank 0's, on every rank of every group
     unconds, taken = {}, {}
     for name, shard in runs_of(ctx):
         _build.reset_launch_counts()
         with null_text_objective_calls() as calls:
             unconds[name] = null_optimization(
-                unet, config, schedule, traj[name], cond, uncond0, steps, inner, 1e-2, 7.5,
-                early_stop_epsilon=eps.item(), shard_ctx=shard)
+                nets[name], config, schedule, traj[name], cond, uncond0, steps, inner, 1e-2,
+                7.5, early_stop_epsilon=eps.item(), shard_ctx=shard)
         launched[f"{name}_null_text"] = dict(_build.launch_counts)
         taken[name] = [t for t, _ in calls]
-    ranks = [torch.empty_like(unconds["sharded"]) for _ in range(ctx.fp)]
-    dist.all_gather(ranks, unconds["sharded"], group=ctx.frame_group)
-    for name in ("sharded_inversion", "sharded_null_text"):
-        if not all(launched[name].get(k) for k in SHARDED_STAGE1_LAUNCHES):
-            raise AssertionError(f"the {name} path skipped K12 or K14: {launched[name]}")
+    same = same_on_every_rank(unconds["sharded"])
+    expected = tp_expected(route_of(ctx))
+    for name, path in (("sharded_inversion", "inversion"), ("sharded_null_text", "null_text")):
+        # fp32: the kernels of the layout's route, on their CUDA-core bodies
+        if not all(launched[name].get(k) for k in expected[path] if "." not in k):
+            raise AssertionError(f"the {name} path skipped a kernel: {launched[name]}")
     if lead:
         err_x = (whole["sharded"] - whole["unsharded"]).abs().max().item()
         err_u = (unconds["sharded"] - unconds["unsharded"]).abs().max().item()
         per_t = collections.Counter(taken["unsharded"])
-        log(f"[shard-check] fp32 inversion and null-text over (1, {ctx.fp}) vs unsharded: "
+        log(f"[shard-check] fp32 inversion and null-text over {layout_of(ctx)} vs unsharded: "
             f"trajectory max_abs_err={err_x:.3e}, uncond max_abs_err={err_u:.3e}; early stop "
             f"at {eps.item():.6f}: inner steps by timestep {dict(per_t)}; launches {launched}")
         if taken["sharded"] != taken["unsharded"] or min(per_t.values()) >= inner:
             raise AssertionError(f"inner steps: sharded {taken['sharded']}, unsharded "
                                  f"{taken['unsharded']}; the early stop must be reached")
-        if not all(torch.equal(r, ranks[0]) for r in ranks):
+        if not same:
             raise AssertionError("the ranks' null-text embeddings differ")
         if not torch.isfinite(unconds["sharded"]).all() or err_x > 2e-3 or err_u > 2e-3:
             raise AssertionError(f"sharded inversion / null-text disagree: {err_x}, {err_u}")
@@ -3981,8 +4145,10 @@ def check_pipeline(device, ctx, config, cn_config, unet, cn, gen):
     masks[:, 64:192, 80:176] = 1.0
     prompts = ["a man is dancing", "a man is jumping"]
     launched, outs = {}, {}
+    nets = {"sharded": tp_split((unet, cn), ctx), "unsharded": (unet, cn)}
     for name, shard in runs_of(ctx):
-        pipe = MotionEditorPipeline(unet=unet, vae=vae, text_encoder=text, controlnet=cn,
+        u, c = nets[name]
+        pipe = MotionEditorPipeline(unet=u, vae=vae, text_encoder=text, controlnet=c,
                                     tokenizer=StubTokenizer(), unet_config=config,
                                     vae_config=vae_config, text_config=text_config,
                                     shard_ctx=shard)
@@ -3994,11 +4160,13 @@ def check_pipeline(device, ctx, config, cn_config, unet, cn, gen):
                           uncond_embeddings=uncond, num_inference_steps=3, start_step=2,
                           decode=False)
         launched[f"{name}_pipeline"] = dict(_build.launch_counts)
-    if not all(launched["sharded_pipeline"].get(k) for k in SHARDED_KERNELS):
+    if not all(launched["sharded_pipeline"].get(k) for k in kernels_of(ctx)):
         raise AssertionError(f"the sharded pipeline skipped a kernel: {launched}")
+    if not same_on_every_rank(outs["sharded"]):
+        raise AssertionError("the ranks' pipeline latents differ")
     if ctx.rank == 0:
         err = (outs["sharded"] - outs["unsharded"]).abs().max().item()
-        log(f"[shard-check] fp32 pipeline from frames to latents over (1, {ctx.fp}) vs "
+        log(f"[shard-check] fp32 pipeline from frames to latents over {layout_of(ctx)} vs "
             f"unsharded: max_abs_err={err:.3e}; launches {launched}")
         if not torch.isfinite(outs["sharded"]).all() or err > 2e-3:
             raise AssertionError(f"the sharded pipeline disagrees with the unsharded one: {err}")
@@ -4016,15 +4184,20 @@ TRAIN_CHECKS = (("stage1", "float32", True), ("stage2", "float32", False),
                 ("stage2", "float64", True))
 
 
-def check_train(device, ctx, config, cn_config, unet, cn, gen):
+def check_train(device, ctx, config, cn_config, unet, cn, gen,
+                optimizers=(("adamw", False),)):
     """A stage-1 and a stage-2 step, gradient checkpointing on; stage 1 and
     stage 2 in fp32 on the kernels, stage 2 also in fp64 on the plain path
-    (TRAIN_CHECKS: which runs compare gradients and parameters)."""
+    (TRAIN_CHECKS: which runs compare gradients and parameters), with each
+    of ``optimizers`` ((name, 8-bit)). Under a model group the UNet and the
+    ControlNet are split, and the split gradients and parameters gathered
+    before the comparison."""
     import copy
 
     import torch
 
     from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.parallel import tp
     from motioneditor_tpu_torch.training import stage1, stage2
     from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
 
@@ -4033,44 +4206,54 @@ def check_train(device, ctx, config, cn_config, unet, cn, gen):
     enc = 0.5 * torch.randn((2, 7, 16), generator=gen, device=device)
     skel = torch.rand((2, f, 8 * hw, 8 * hw, 3), generator=gen, device=device)
     cn.requires_grad_(False)
+    need = (SHARDED_STAGE1_LAUNCHES if ctx.shards_frames else
+            [k for k in tp_expected(route_of(ctx))["stage1"] if "." not in k])
     launched = {}
-    for stage, dtype_name, compare_grads in TRAIN_CHECKS:
+    for (stage, dtype_name, compare_grads), (opt, use_8bit) in itertools.product(
+            TRAIN_CHECKS, optimizers):
         module = stage1 if stage == "stage1" else stage2
         dtype = getattr(torch, dtype_name)
         kernels = dtype == torch.float32  # the kernels take bf16 and fp32
         cn_run = cn if kernels else copy.deepcopy(cn).to(dtype)
+        tag = stage if opt == "adamw" else f"{stage}_{opt}"
         out = {}
         for name, shard in runs_of(ctx):
-            state = make_train_state(copy.deepcopy(unet).to(dtype), module.TRAINABLE_MODULES,
-                                     make_optimizer(learning_rate=1e-3, eps=1e-4))
+            model, c = tp_split((copy.deepcopy(unet).to(dtype), cn_run), shard)
+            state = make_train_state(model, module.TRAINABLE_MODULES,
+                                     make_optimizer(learning_rate=1e-3, eps=1e-4,
+                                                    use_8bit=use_8bit))
             x, e, s = lat.to(dtype), enc.to(dtype), skel.to(dtype)
             if shard is not None:
                 cut = shard_or_keep(shard)
                 x, s, e = cut(x), cut(s), e.chunk(shard.dp)[shard.data_rank]
             _build.reset_launch_counts()
+            tp.reset_collective_counts()
             state, metrics = train_step(
-                stage, state, cn_run, config, cn_config, x, e, s,
+                stage, state, c, config, cn_config, x, e, s,
                 torch.Generator(device=device).manual_seed(SEED + 64), remat=True,
                 use_flash=kernels, shard_ctx=shard)
             if kernels:
-                launched[f"{name}_{stage}"] = dict(_build.launch_counts)
-            out[name] = (float(metrics["loss"]),
-                         {n: p.grad.clone() for n, p in state.trainable.items()},
-                         {n: p.detach().clone() for n, p in state.trainable.items()})
+                launched[f"{name}_{tag}"] = dict(_build.launch_counts)
+            grads = {n: p.grad.clone() for n, p in state.trainable.items()}
+            params = {n: p.detach().clone() for n, p in state.trainable.items()}
+            if shard is not None and shard.tp > 1:
+                grads, params = (full_tensors(v, state.model, shard) for v in (grads, params))
+            out[name] = (float(metrics["loss"]), grads, params)
         # fp32 here: no launch takes a tensor-core body, so no ".tc" count
-        if kernels and not all(launched[f"sharded_{stage}"].get(k)
-                               for k in SHARDED_STAGE1_LAUNCHES):
+        if kernels and not all(launched[f"sharded_{tag}"].get(k) for k in need):
             raise AssertionError(f"the sharded {stage} step skipped a kernel: {launched}")
+        if not same_on_every_rank(torch.cat([p.reshape(-1) for p in out["sharded"][2].values()])):
+            raise AssertionError(f"the ranks' {stage} parameters differ")
         if ctx.rank == 0:
             (ls, gs, ps), (lu, gu, pu) = out["sharded"], out["unsharded"]
             top = max(g.abs().max().item() for g in gu.values())
             gerr = max((gs[n] - gu[n]).abs().max().item() for n in gu) / top
             perr = max((ps[n] - pu[n]).abs().max().item() for n in pu)
-            log(f"[shard-check] {dtype_name} {stage} step over ({ctx.dp}, {ctx.fp}) vs "
+            log(f"[shard-check] {dtype_name} {stage} step ({opt}) over {layout_of(ctx)} vs "
                 f"unsharded{'' if kernels else ' (plain path)'}: loss {ls:.9f} vs {lu:.9f}, "
                 f"grad max err {gerr:.3e} of max |g|, param max err {perr:.3e} "
                 f"({'compared' if compare_grads else 'shown'}); launches "
-                f"{launched.get(f'sharded_{stage}') if kernels else {}}")
+                f"{launched.get(f'sharded_{tag}') if kernels else {}}")
             if abs(ls - lu) > 1e-5 * abs(lu):
                 raise AssertionError(f"the sharded {stage} loss disagrees with the unsharded one")
             if compare_grads and (gerr > 1e-4 or perr > 1e-6):
@@ -4079,7 +4262,7 @@ def check_train(device, ctx, config, cn_config, unet, cn, gen):
 
 
 class KernelCalls:
-    """While active, records each call of K1, K2 and K3's wrappers (the
+    """While active, records each call of K1, K2, K3 and K8's wrappers (the
     names attention sites import at call time) as (name, args, kwargs), and
     with ``plain`` runs their plain versions instead: the plain path of a
     layer, frame by frame, without the score matrix of all frames at once."""
@@ -4088,7 +4271,7 @@ class KernelCalls:
         self.plain, self.calls = plain, []
 
     def __enter__(self):
-        from motioneditor_tpu_torch.ops import temporal_flash, video_flash
+        from motioneditor_tpu_torch.ops import flash_attention, temporal_flash, video_flash
 
         self.saved = []
         for mod, name, plain in (
@@ -4096,7 +4279,8 @@ class KernelCalls:
                 (video_flash, "video_injection_attention",
                  video_flash.video_injection_attention_plain),
                 (temporal_flash, "temporal_flash_attention",
-                 temporal_flash.temporal_flash_attention_plain)):
+                 temporal_flash.temporal_flash_attention_plain),
+                (flash_attention, "flash_attention", flash_attention.flash_attention_plain)):
             fn = getattr(mod, name)
             self.saved.append((mod, name, fn))
 
@@ -4119,7 +4303,10 @@ def tp_sites(levels=TP_LEVELS):
     ``site(layer, x, heads, src, kernel)`` running it on x [rows, F, N, C]
     (``src`` the adapter's source tokens and the masks' key), the kernels on
     or off."""
-    from motioneditor_tpu_torch.control.injection import injected_spatial_attention
+    from motioneditor_tpu_torch.control.injection import (
+        injected_spatial_attention,
+        injected_spatial_attention_auto,
+    )
     from motioneditor_tpu_torch.models.adapter import _per_frame_cross_attention
     from motioneditor_tpu_torch.ops.attention import (
         SPARSE_CAUSAL,
@@ -4133,6 +4320,9 @@ def tp_sites(levels=TP_LEVELS):
         sites += [
             (f"unet attn1 injected C={c}", c, n, 4, lambda p, x, h, e, k: injected_spatial_attention(
                 p, x, h, e["mask"], use_flash=k)),
+            (f"unet attn1 auto C={c}", c, n, 4, lambda p, x, h, e, k:
+             injected_spatial_attention_auto(p, x, h, e["mask"], [e["maps"]], (1,), 0.1,
+                                             use_flash=k)),
             (f"unet attn2 cross C={c}", c, n, 4, lambda p, x, h, e, k: cross_attention(
                 p, x, e["text"], h)),
             (f"unet attn_temp C={c}", c, n, 4, lambda p, x, h, e, k: temporal_self_attention_video(
@@ -4184,7 +4374,9 @@ def phase_tp(device, levels=TP_LEVELS):
         x = torch.randn((rows, FRAMES, n, c), generator=gen, device=device).to(dtype)
         extra = {"text": torch.randn((rows, 77, 768), generator=gen, device=device).to(dtype),
                  "src": torch.randn((rows, FRAMES, n, c), generator=gen, device=device).to(dtype),
-                 "mask": (torch.rand((FRAMES, n, 1), generator=gen, device=device) > 0.5).to(dtype)}
+                 "mask": (torch.rand((FRAMES, n, 1), generator=gen, device=device) > 0.5).to(dtype),
+                 "maps": torch.softmax(4 * torch.randn((4 * FRAMES, 256, 77), generator=gen,
+                                                       device=device), dim=-1)}
         with torch.no_grad():
             _build.reset_launch_counts()
             with KernelCalls() as rec:
@@ -4250,19 +4442,21 @@ def phase_tp(device, levels=TP_LEVELS):
 
 def _build_fn(name: str):
     """The wrapper of kernel ``name``, for timing it alone."""
-    from motioneditor_tpu_torch.ops import temporal_flash, video_flash
+    from motioneditor_tpu_torch.ops import flash_attention, temporal_flash, video_flash
 
-    return getattr(video_flash if "video" in name else temporal_flash, name)
+    mod = (video_flash if "video" in name else temporal_flash if "temporal" in name
+           else flash_attention)
+    return getattr(mod, name)
 
 
 def tp_split(models, ctx):
     """Copies of ``models`` split over ``ctx``'s model group (the models
-    themselves without a layout)."""
+    themselves without a layout or with a one-rank model group)."""
     import copy
 
     from motioneditor_tpu_torch.parallel import tp
 
-    if ctx is None:
+    if ctx is None or ctx.tp == 1:
         return models
     out = [copy.deepcopy(m) for m in models]
     for m in out:
@@ -4468,6 +4662,413 @@ def phase_tp_sharded(device, layouts, barrier, reference=False):
     return paths, metrics
 
 
+TP_GRAD_LEVELS = ((4096, 320), (1024, 640))  # (N, C) of K4-K8's sites at 512 px (d 40, 80)
+TP_GRAD_REPS = 20  # CUDA-event repetitions of a site's forward (and backward)
+
+
+def tp_grad_sites():
+    """(name, rows, K/V tokens per query token, grad, fn(q, k, v, heads,
+    scale)) of K4-K8's call sites at the null-text, training and auto
+    paths' shapes: attn1 under grad (K4 forward, K5 / K6 backward), attn_temp
+    under grad (K3 forward, K7 backward) and the auto mask's fg / bg
+    attention over the source rows' motion-frame K/V (K8, no grad)."""
+    from motioneditor_tpu_torch.ops.attention import merge_heads, split_heads
+    from motioneditor_tpu_torch.ops.flash_attention import flash_attention
+    from motioneditor_tpu_torch.ops.temporal_flash import temporal_flash_attention
+    from motioneditor_tpu_torch.ops.video_flash import video_flash_attention
+
+    return [
+        ("attn1 under grad (K4, K5, K6)", 1, 1, True,
+         lambda q, k, v, h, s: video_flash_attention(q, k, v, "motion_frame", s, h)),
+        ("attn_temp under grad (K3, K7)", 1, 1, True,
+         lambda q, k, v, h, s: temporal_flash_attention(q, k, v, s, h, causal=True)),
+        ("auto fg / bg (K8)", 2, 2, False,
+         lambda q, k, v, h, s: merge_heads(flash_attention(
+             split_heads(q, h), split_heads(k, h), split_heads(v, h), s))),
+    ]
+
+
+def phase_tp_grad(device, levels=TP_GRAD_LEVELS):
+    """Phase 11t, K4-K8: each of ``tp_grad_sites`` at the full SD-1.5 widths
+    of ``levels`` (bf16, 8 frames) and at the head-local widths of a model
+    group of T in TP_SIZES, emulated in this one process: model rank m's
+    call takes channels [m C / T, (m + 1) C / T) of q, k, v and of the
+    output's gradient at H / T heads (d unchanged). Its output and its dq,
+    dk and dv must equal the same channels of the whole call's under
+    TC_ERR_LIMITS, and it must launch what the whole call launches (every
+    K4, K5, K6 and K8 launch on the tensor-core body). Prints the
+    CUDA-event time of each call (forward and backward) at full width,
+    T = 2 and T = 4, with the card's name and power limit."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+
+    dtype, smi = torch.bfloat16, card()
+    gen = torch.Generator(device=device).manual_seed(SEED + 92)
+    results, launched = {}, {}
+    for n, c in levels:
+        scale = (c // HEADS) ** -0.5
+        for name, rows, kv, grad, fn in tp_grad_sites():
+            q = torch.randn((rows, FRAMES, n, c), generator=gen, device=device).to(dtype)
+            k, v = (torch.randn((rows, FRAMES, kv * n, c), generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+            do = torch.randn((rows, FRAMES, n, c), generator=gen, device=device).to(dtype)
+
+            def run(q, k, v, do, heads, fn=fn, grad=grad):
+                if not grad:
+                    with torch.no_grad():
+                        return fn(q, k, v, heads, scale), []
+                xs = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = fn(*xs, heads, scale)
+                out.backward(do)
+                return out.detach(), [x.grad for x in xs]
+
+            _build.reset_launch_counts()
+            out, grads = run(q, k, v, do, HEADS)
+            want = dict(_build.launch_counts)
+            if want != tc(want) or not (want or device.type == "cpu"):
+                raise AssertionError(f"{name} at C = {c}: launches {want} (a launch left the "
+                                     "tensor-core body, or none ran)")
+            r = {"launches": want, "ms": {"full": time_ms(lambda: run(q, k, v, do, HEADS),
+                                                          reps=TP_GRAD_REPS)}}
+            for t in TP_SIZES:
+                w, errs = c // t, []
+                for m in range(t):
+                    part = [x[..., m * w:(m + 1) * w].contiguous() for x in (q, k, v, do)]
+                    _build.reset_launch_counts()
+                    out_m, grads_m = run(*part, HEADS // t)
+                    got = dict(_build.launch_counts)
+                    launched[f"tp{t}_grad_layers"] = add_counts(
+                        launched.get(f"tp{t}_grad_layers", {}), got)
+                    if got != want:
+                        raise AssertionError(f"{name} at C = {c}, T = {t}: model rank {m} "
+                                             f"launched {got}, the whole call {want}")
+                    ref = [out] + grads
+                    errs += [scaled_error(a, b[..., m * w:(m + 1) * w])
+                             for a, b in zip([out_m] + grads_m, ref)]
+                    if m == 0:
+                        r["ms"][f"T={t}"] = time_ms(lambda: run(*part, HEADS // t),
+                                                    reps=TP_GRAD_REPS)
+                r[f"tp{t}"] = {key: max(e[key] for e in errs) for key in TC_ERR_LIMITS}
+            results[f"{name} C={c}"] = r
+            log(f"[tp] {name}, N = {n}, C = {c}, {rows} rows: launches per shard {want}; "
+                + "; ".join(f"T={t} (out, dq, dk, dv) vs the whole call's channels max "
+                            f"{r[f'tp{t}']['max']:.2e} rms {r[f'tp{t}']['rms']:.2e}"
+                            for t in TP_SIZES)
+                + "; ms (forward" + (" + backward" if grad else "") + ") "
+                + ", ".join(f"{k} {v:.4f}" for k, v in r["ms"].items()) + f" | {smi}")
+            del q, k, v, do, out, grads
+            torch.cuda.empty_cache()
+    return results, launched
+
+
+def phase_tp_check_paths(device, ctx):
+    """Tiny fp32 checks of the paths outside the segment and inversion over
+    ``ctx`` (the tiny UNet, its adapter and the ControlNet split over the
+    model group), each against rank 0's unsharded run: null-text with its
+    early stop reached, the pipeline from frames to latents, the auto-mask
+    segment, the p2p segment with LocalBlend, and a stage-1 and a stage-2
+    step with AdamW and with 8-bit AdamW."""
+    config, cn_config, unet, cn, gen = build_tiny_models(device, SEED + 93)
+    models = (config, cn_config, unet, cn, gen)
+    launched = {}
+    for check in (check_null_text, check_pipeline, check_auto_segment, check_p2p_segment):
+        launched.update(check(device, ctx, *models))
+    launched.update(check_train(device, ctx, *models,
+                                optimizers=(("adamw", False), ("8bit", True))))
+    return {f"tp_paths_check_{layout_of(ctx)}": add_counts(*(
+        v for k, v in launched.items() if k.startswith("sharded")))}
+
+
+TP_PATH_STEPS = 2  # the full-width paths' steps over a model group
+# the bf16 outputs of a full-width path over a model group against the same
+# path unsharded, scaled to the unsharded output (scaled_of): the row-parallel
+# partials are summed in another order than the whole product, in bf16. The
+# segments' latents and null-text's embeddings (H100, two gloo ranks: at most
+# max 1.34e-02, rms 7.04e-03); the pipeline's decoded video, whose null-text
+# Adam moves each embedding element by about lr = 1e-2 whatever its
+# gradient's size, so that a gradient sign the rounding flips moves it 2e-2,
+# which the edit's guidance (7.5) then scales (max 0.234, rms 0.0305); and
+# training's loss, relative (6.9e-05), its parameters within 3 lr a step
+# (an Adam update is about lr in size: 1.12e-04 after 2 steps at lr 3e-5)
+TP_BF16_LIMITS = {"max": 0.05, "rms": 0.02}
+TP_PIPELINE_LIMITS = {"max": 0.5, "rms": 0.1}
+TP_LOSS_LIMIT = 1e-3
+
+
+def tp_paths_full_width(device, ctx, barrier):
+    """Phase 11u's (and chip_sharded.py's) full-width runs over ``ctx``:
+    SD-1.5 at full width, bf16, 8 frames, 64x64 latents, random from the
+    seed, the UNet with its adapter and the ControlNet split over the model
+    group, TP_PATH_STEPS steps of each path: null-text (inversion, then the
+    optimization with inner_steps 1), the auto-mask segment, the p2p
+    segment (replace + LocalBlend), MotionEditorPipeline from frames to
+    frames (its null-text inversion, one vanilla and one injected edit
+    step, the decode; the VAE and the text encoder whole) and a stage-1 and
+    a stage-2 run (AdamW, gradient checkpointing, knobs off). Every rank's
+    launches and model-group all-reduces (and null-text's broadcasts) are
+    asserted, and its ms per step logged; rank 0 then runs each path
+    unsharded and holds the outputs to it (TP_BF16_LIMITS, the pipeline's
+    TP_PIPELINE_LIMITS; training: the loss within TP_LOSS_LIMIT, the
+    parameters within 3 lr per step)."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.control.injection import InjectionSpec, prepare_injection_masks
+    from motioneditor_tpu_torch.models.clip_text import StubTokenizer
+    from motioneditor_tpu_torch.models.controlnet import precompute_cond_embedding
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.models.unet import UNet3DConditionModel
+    from motioneditor_tpu_torch.parallel import tp
+    from motioneditor_tpu_torch.parallel.mesh import gather_video
+    from motioneditor_tpu_torch.pipelines.editor import (
+        MotionEditorPipeline,
+        _count_16x16_sites,
+        ddim_invert,
+        null_optimization,
+        denoise_segment,
+    )
+    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+    from motioneditor_tpu_torch.training import stage1, stage2
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    dtype, steps, lr = torch.bfloat16, TP_PATH_STEPS, 3e-5
+    config, cn_config = pipeline_configs()
+    torch.cuda.empty_cache()
+    unet, cn = build_models(config, cn_config, device, dtype, SEED)
+    cn.requires_grad_(False)
+    vae, text = pipeline_models(device, dtype,
+                                torch.Generator(device=device).manual_seed(SEED + 66))
+    gen = torch.Generator(device=device).manual_seed(SEED + 94)
+    size = 8 * LATENT
+    lat = torch.randn((2, FRAMES, LATENT, LATENT, 4), generator=gen, device=device).to(dtype)
+    cond, uncond = (torch.randn((2, 77, 768), generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+    image = torch.rand((2, FRAMES, size, size, 3), generator=gen, device=device).to(dtype)
+    src = torch.zeros((FRAMES, LATENT, LATENT), device=device)
+    src[:, 16:48, 20:44] = 1.0
+    masks = {key: m.to(dtype) for key, m in prepare_injection_masks(src, FRAMES).items()}
+    null_cond, uncond0 = (torch.randn((1, 77, 768), generator=gen, device=device)
+                          for _ in range(2))
+    video = torch.rand((1, FRAMES, size, size, 3), generator=gen, device=device) * 2 - 1
+    skeleton = torch.rand((FRAMES, size, size, 3), generator=gen, device=device)
+    pix_masks = torch.zeros((FRAMES, size, size), device=device)
+    pix_masks[:, size // 4: 3 * size // 4, size // 3: 2 * size // 3] = 1.0
+    train_lat = 0.18215 * torch.randn((1, FRAMES, LATENT, LATENT, 4), generator=gen,
+                                      device=device)
+    train_enc = torch.randn((1, 77, 768), generator=gen, device=device)
+    train_skel = torch.rand((1, FRAMES, size, size, 3), generator=gen, device=device)
+    schedule = DiffusionSchedule()
+    ts = schedule.inference_timesteps(50)[4:4 + steps]
+    controller, _ = p2p_control(StubTokenizer(), 50)
+    blends = []
+
+    def null_text(shard, u, c):
+        _, traj = ddim_invert(u, config, schedule, shard_or_keep(shard)(lat[:1]),
+                              null_cond.to(dtype), steps, normal_infer=False, shard_ctx=shard)
+        return null_optimization(u, config, schedule, traj, null_cond, uncond0, steps, 1, 1e-2,
+                                 7.5, compute_dtype="bfloat16", shard_ctx=shard)
+
+    def segment(spec, p2p):
+        def run(shard, u, c):
+            cut = shard_or_keep(shard)
+            with torch.no_grad():
+                emb = precompute_cond_embedding(c, cut(image, branch_axis=True))
+            extra = {}
+            if p2p:
+                local = FRAMES // (shard.fp if shard else 1)
+                blends.append(recording_blend(p2p_control(StubTokenizer(), 50)[1].alpha_layers,
+                                              0.3))
+                extra = dict(p2p_controller=controller, local_blend=blends[-1], seg_lo=4,
+                             maps_sum=torch.zeros((_count_16x16_sites(LATENT, LATENT), 4 * local,
+                                                   256, 77), device=device))
+            out = denoise_segment(u, config, c, cn_config, schedule, 50, spec, 7.5, 1.0,
+                                  cut(lat, branch_axis=True), ts, cond, uncond, emb,
+                                  {k: cut(m, frame_dim=0) for k, m in masks.items()},
+                                  shard_ctx=shard, **extra)
+            return gather_video(out, shard, branch_axis=True) if shard else out
+        return run
+
+    def pipeline(shard, u, c):
+        pipe = MotionEditorPipeline(unet=u, vae=vae, text_encoder=text, controlnet=c,
+                                    tokenizer=StubTokenizer(), unet_config=config,
+                                    shard_ctx=shard)
+        latents = pipe.encode_video(video.to(dtype), generator=torch.Generator(
+            device=device).manual_seed(SEED + 95))
+        x_t, unc = pipe.null_text_inversion(latents, PIPE_PROMPTS[0], num_steps=steps)
+        return pipe(PIPE_PROMPTS, torch.cat([x_t, x_t]), skeleton, source_masks=pix_masks,
+                    uncond_embeddings=unc, num_inference_steps=steps, start_step=1)
+
+    def train(stage):
+        def run(shard, u, c):
+            module = stage1 if stage == 1 else stage2
+            with torch.device(device):
+                model = UNet3DConditionModel(config)
+            init_params(model, torch.Generator(device=device).manual_seed(SEED + 61))
+            if shard is not None and shard.tp > 1:
+                tp.shard_params_tp(model, shard)
+            state = make_train_state(model, module.TRAINABLE_MODULES, make_optimizer(lr),
+                                     frozen_dtype=dtype)
+            cut = shard_or_keep(shard)
+            x, s = cut(train_lat), cut(train_skel)
+            losses = [train_step(f"stage{stage}", state, c, config, cn_config, x, train_enc, s,
+                                 torch.Generator(device=device).manual_seed(SEED + 62 + i),
+                                 remat=True, compute_dtype=dtype, shard_ctx=shard)[1]["loss"]
+                      for i in range(steps)]
+            params = {n: p.detach() for n, p in state.trainable.items()}
+            if shard is not None and shard.tp > 1:
+                params = full_tensors(params, state.model, shard)
+            return torch.stack(losses), params
+        return run
+
+    expected = tp_expected(route_of(ctx))
+    inv_null = add_counts(expected["inversion"], expected["null_text"])
+    reduces = TP_ALL_REDUCES_PER_STEP
+    null_reduces = reduces["inversion"] + reduces["null_text"]
+    # (run, its launches, its model-group all-reduces), over ``steps`` steps;
+    # the pipeline's edit takes one vanilla step (start_step 1), then injected
+    paths = {
+        "null_text": (null_text, scaled(inv_null, steps), null_reduces * steps),
+        "auto": (segment(InjectionSpec.from_start_layer(10, mask_mode="auto",
+                                                        auto_token_idx=(1,)), False),
+                 scaled(expected["auto"], steps), reduces["auto"] * steps),
+        "p2p": (segment(InjectionSpec.from_start_layer(10), True),
+                scaled(expected["p2p"], steps), reduces["p2p"] * steps),
+        "pipeline": (pipeline, add_counts(scaled(inv_null, steps), expected["vanilla"],
+                                          scaled(expected["denoise"], steps - 1)),
+                     (null_reduces + reduces["denoise"]) * steps),
+        "stage1": (train(1), scaled(expected["stage1"], steps), reduces["stage1"] * steps),
+        "stage2": (train(2), scaled(expected["stage2"], steps), reduces["stage2"] * steps),
+    }
+    layout = layout_of(ctx)
+    u_tp, c_tp = tp_split((unet, cn), ctx)
+    launches, metrics, outs = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for path, (run, want, want_reduces) in paths.items():
+        _build.reset_launch_counts()
+        tp.reset_collective_counts()
+        ms, outs[path] = timed_steps(lambda: run(ctx, u_tp, c_tp), steps, barrier)
+        launches[f"tp_{path}_{layout}"] = got = dict(_build.launch_counts)
+        counted = dict(tp.collective_counts)
+        if got != want:
+            raise AssertionError(f"tp {path} over {layout}: launches {got}, expected {want}")
+        if counted.get("all_reduce", 0) != want_reduces or "all_gather" in counted:
+            raise AssertionError(f"tp {path} over {layout}: model-group collectives {counted}, "
+                                 f"expected {want_reduces} all-reduces")
+        if path in TP_BROADCASTS_PER_STEP and (
+                counted.get("broadcast") != TP_BROADCASTS_PER_STEP[path] * steps):
+            raise AssertionError(f"tp {path} over {layout}: broadcasts {counted}")
+        metrics[f"{path}_ms_per_step"] = ms
+        metrics[f"{path}_model_all_reduce_mb_per_step"] = (
+            counted.get("all_reduce_bytes", 0) / steps / 1e6)
+    metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if blends:
+        metrics["p2p_blend_least_gap"] = min(c["gap"] for b in blends for c in b.calls)
+    log(f"[tp-paths] rank {ctx.rank} over {layout}, {steps} steps each at full width "
+        f"(ms per step; peak): {json.dumps(metrics)} | {card()}")
+    del u_tp, c_tp
+    torch.cuda.empty_cache()
+    if ctx.rank == 0:
+        errors = {}
+        for path, (run, _, _) in paths.items():
+            ms1, ref = timed_steps(lambda: run(None, unet, cn), steps, lambda: None)
+            metrics[f"unsharded_{path}_ms_per_step"] = ms1
+            got = outs[path]
+            if path.startswith("stage"):
+                loss = (got[0] - ref[0]).abs().max().item() / ref[0].abs().max().item()
+                param = max((got[1][n] - p).abs().max().item() for n, p in ref[1].items())
+                errors[path] = {"loss_rel": loss, "param_max": param}
+                if loss > TP_LOSS_LIMIT or param > 3 * lr * steps:
+                    raise AssertionError(f"tp {path} over {layout} vs unsharded: {errors[path]}")
+                continue
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"tp {path} over {layout} is not finite")
+            errors[path] = scaled_of(got, ref)
+            limits = TP_PIPELINE_LIMITS if path == "pipeline" else TP_BF16_LIMITS
+            if any(errors[path][k] > limit for k, limit in limits.items()):
+                raise AssertionError(f"tp {path} over {layout} vs unsharded: {errors[path]}")
+        metrics["vs_unsharded"] = errors
+        log(f"[tp-paths] over {layout} vs the same paths unsharded on rank 0 (bf16, scaled to "
+            f"the unsharded output; limits {TP_BF16_LIMITS}, the pipeline's "
+            f"{TP_PIPELINE_LIMITS}, the loss {TP_LOSS_LIMIT}): {json.dumps(errors)}; unsharded "
+            f"ms per step {json.dumps({k: v for k, v in metrics.items() if k.startswith('unsh')})}")
+    return launches, metrics
+
+
+TP_GLOO_STALL_S = 900  # a rank still running after this dumps its stacks and exits
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def tp_gloo_rank(rank: int, port: int, out_dir: str, stall_s: int):
+    """One of phase 11u's two ranks, both on cuda:0, over gloo. A rank that
+    fails prints its error and exits at once (os._exit), so the spawn stops
+    the other; a rank still running after ``stall_s`` dumps its stacks and
+    exits (ROADMAP C4)."""
+    import datetime
+    import faulthandler
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from motioneditor_tpu_torch.parallel.mesh import init_frame_sharding
+
+    faulthandler.dump_traceback_later(stall_s, exit=True)
+    try:
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=stall_s))
+        ctx = init_frame_sharding(1, 1, device, rank=rank, model=2, backend="gloo")
+        t0 = time.perf_counter()
+        paths = phase_tp_check_paths(device, ctx)
+        check_s = time.perf_counter() - t0
+        full_paths, metrics = tp_paths_full_width(device, ctx, dist.barrier)
+        paths.update(full_paths)
+        metrics.update(check_s=check_s, seconds=time.perf_counter() - t0)
+        if rank == 0:
+            with open(os.path.join(out_dir, "result.json"), "w") as fh:
+                json.dump({"launches": paths, "metrics": metrics}, fh)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+
+
+def phase_tp_gloo(device):
+    """Phase 11u: a (1, 1, 2) layout of two processes on this one card over
+    gloo (NCCL refuses two ranks on one device; gloo all-reduces and
+    broadcasts CUDA tensors through the host): ``phase_tp_check_paths``
+    then ``tp_paths_full_width``. Its times are gloo through the host on one
+    card, not tensor parallelism's speed. Returns (launches by path,
+    metrics)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.spawn(tp_gloo_rank, args=(free_port(), out_dir, TP_GLOO_STALL_S), nprocs=2,
+                 join=True)
+        with open(os.path.join(out_dir, "result.json")) as fh:
+            result = json.load(fh)
+    return result["launches"], result["metrics"]
+
+
 def main() -> int:
     import torch
 
@@ -4593,7 +5194,14 @@ def main() -> int:
     t0 = time.perf_counter()
     tp_metrics, tp_launched = phase_tp(device)
     paths.update({f"{k}_layers": v for k, v in tp_launched.items()})
+    tp_grad_metrics, tp_grad_launched = phase_tp_grad(device)
+    paths.update(tp_grad_launched)
     log(f"[tp] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp_gloo_paths, tp_gloo_metrics = phase_tp_gloo(device)
+    paths.update(tp_gloo_paths)
+    log(f"[tp-gloo] two ranks on one card over gloo done in {time.perf_counter() - t0:.1f} s "
+        f"(gloo through the host, one card: not tensor parallelism's speed)")
     sharded_pipe = shard_metrics["pipeline"]
     beside = {  # (sharded in the one-rank group, unsharded phase of this run)
         "inversion_ms_per_step": (shard_metrics["inversion_ms_per_step"],
@@ -4645,7 +5253,7 @@ def main() -> int:
                       "prep": prep_metrics, "masks": masks_metrics,
                       "train": train_metrics, "norm_yardsticks": yardsticks,
                       "sharded": shard_metrics, "sharded_vs_unsharded": beside,
-                      "tp": tp_metrics,
+                      "tp": tp_metrics, "tp_grad": tp_grad_metrics, "tp_gloo": tp_gloo_metrics,
                       "profiles": {"denoise": slice_profile, "auto": auto_profile,
                                    "p2p": p2p_profiles["p2p"],
                                    "p2p_plain": p2p_profiles["plain"],

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -265,5 +266,19 @@ def check_status(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
 
 
+_bound = threading.local()  # the device indices whose context this thread has made current
+
+
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of ``device``, for a launch. The library links
+    the CUDA runtime statically, and on a thread where no CUDA context is
+    current yet (autograd's device thread before its first PyTorch op, a
+    new Python thread) its launches fail with cudaErrorInvalidValue (seen
+    on the H100). So a thread's first launch on a device first makes that
+    device's context current through PyTorch's runtime (a stream query)."""
+    stream = torch.cuda.current_stream(device)
+    bound = _bound.__dict__.setdefault("devices", set())
+    if stream.device_index not in bound:
+        stream.query()
+        bound.add(stream.device_index)
+    return stream.cuda_stream

@@ -28,7 +28,6 @@ from motioneditor_tpu_torch.ops.attention import (
     select_kv,
     split_heads,
 )
-from motioneditor_tpu_torch.parallel.tp import refuse
 
 NUM_TRANSFORMER_BLOCKS = 16  # SD-1.5
 
@@ -254,12 +253,14 @@ def injected_spatial_attention_auto(p: Attention, x: torch.Tensor, heads: int,
     local frames; the motion-frame K/V and the source mask are built over
     the frame halo. The auto mask is frame-local (each frame's map is
     normalized on its own). The caller passes ``use_flash`` off under a
-    shard, as JAX does (unet.py:333-336)."""
+    shard, as JAX does (unet.py:333-336). Under a model group every sdpa
+    runs on this rank's heads (K8 at H / T heads of C / T channels), and
+    ``cross_maps`` are the full width's (ops/attention.py ``head_mean``)."""
     b, f, n, c = x.shape
     if b != 4:
         raise ValueError("injection requires the 4-row branch axis")
-    refuse("the auto-mask injection", None, p)
     q, k, v = project_qkv(p, x)
+    heads = local_heads(p, heads)
     scale = (q.shape[-1] // heads) ** -0.5
     if shard is not None:
         from motioneditor_tpu_torch.parallel import flash_sharding as fs

@@ -11,8 +11,10 @@ keeps the source latents outside the region where chosen words attend, read
 from the running sum of the 16x16 cross-attention maps.
 
 The editors work on fp32 probabilities (``ops.attention.attention_probs``)
-and the callers cast to the value dtype afterwards. They are frame local:
-a frame-sharded run applies them to its own frames unchanged.
+and the callers cast to the value dtype afterwards. They are frame and head
+local: a frame-sharded run applies them to its own frames unchanged, and a
+model rank to its own heads; LocalBlend reads the full width's maps
+(``ops.attention.head_mean``).
 """
 
 from __future__ import annotations

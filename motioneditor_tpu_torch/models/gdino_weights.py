@@ -67,12 +67,15 @@ def config_for(path: str) -> GroundingDINOConfig:
 
 
 def load_groundingdino_checkpoint(path: str, cfg: GroundingDINOConfig = None,
-                                  device="cpu") -> GroundingDINO:
+                                  device="cuda") -> GroundingDINO:
     """The official ``.pth`` (``groundingdino_swint_ogc.pth``) into a
     ``GroundingDINO`` of ``cfg`` (by default ``config_for(path)``) on
     ``device``, fp32, strictly. The file is read with ``torch.load(...,
     weights_only=True)`` (``weights.load_state_dict``)."""
+    from motioneditor_tpu_torch.inference import resolve_device
     from motioneditor_tpu_torch.models.weights import load_into, load_state_dict
+
+    device = resolve_device(device)  # before any file is read
 
     with torch.device(device):
         model = GroundingDINO(cfg or config_for(path))

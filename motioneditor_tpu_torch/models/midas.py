@@ -157,11 +157,14 @@ class DPTHybrid(nn.Module):
         s.output_conv = head
 
 
-def load_dpt_params(path: str, device="cpu") -> DPTHybrid:
+def load_dpt_params(path: str, device="cuda") -> DPTHybrid:
     """A ``dpt_hybrid-midas-501f0c75.pt`` (a state dict, or one under
     ``state_dict``) into a ``DPTHybrid`` on ``device``; the keys of
     ``UNUSED_KEYS`` are dropped, any other key the module lacks raises."""
+    from motioneditor_tpu_torch.inference import resolve_device
     from motioneditor_tpu_torch.models.weights import load_into, load_state_dict
+
+    device = resolve_device(device)  # before any file is read
 
     sd = load_state_dict(path)
     if "state_dict" in sd and isinstance(sd["state_dict"], dict):

@@ -288,16 +288,25 @@ def _load(cls, convert, path: str, device) -> nn.Module:
     return load_into(model, convert(load_state_dict(path)), path).eval()
 
 
-def load_body_params(path: str, device="cpu") -> BodyPoseModel:
+def load_body_params(path: str, device="cuda") -> BodyPoseModel:
     """A ``body_pose_model.pth`` into a ``BodyPoseModel`` on ``device``."""
+    from motioneditor_tpu_torch.inference import resolve_device
+
+    device = resolve_device(device)  # before any file is read
     return _load(BodyPoseModel, convert_body_state_dict, path, device)
 
 
-def load_hand_params(path: str, device="cpu") -> HandPoseModel:
+def load_hand_params(path: str, device="cuda") -> HandPoseModel:
+    from motioneditor_tpu_torch.inference import resolve_device
+
+    device = resolve_device(device)  # before any file is read
     return _load(HandPoseModel, convert_hand_state_dict, path, device)
 
 
-def load_face_params(path: str, device="cpu") -> FaceModel:
+def load_face_params(path: str, device="cuda") -> FaceModel:
+    from motioneditor_tpu_torch.inference import resolve_device
+
+    device = resolve_device(device)  # before any file is read
     return _load(FaceModel, convert_face_state_dict, path, device)
 
 

@@ -467,11 +467,14 @@ def config_for(path: str) -> SAMConfig:
     return SAM_VIT_B if "vit_b" in osp.basename(path) else SAM_VIT_H
 
 
-def load_sam_checkpoint(path: str, cfg: SAMConfig = None, device="cpu") -> Sam:
+def load_sam_checkpoint(path: str, cfg: SAMConfig = None, device="cuda") -> Sam:
     """An official ``sam_vit_*.pth`` into a ``Sam`` of ``cfg`` (by default
     ``config_for(path)``) on ``device``, fp32, strictly
     (``weights.load_into``; the file read with ``weights_only=True``)."""
+    from motioneditor_tpu_torch.inference import resolve_device
     from motioneditor_tpu_torch.models.weights import load_into, load_state_dict
+
+    device = resolve_device(device)  # before any file is read
 
     with torch.device(device):
         model = Sam(cfg or config_for(path))

@@ -140,15 +140,18 @@ def _video_group(key: str) -> Optional[str]:
 
 
 def load_sd15_unet(pretrained_model_path: str, config=None,
-                   generator: Optional[torch.Generator] = None, device="cpu") -> nn.Module:
+                   generator: Optional[torch.Generator] = None, device="cuda") -> nn.Module:
     """The video UNet of ``config`` (SD-1.5's by default) on ``device``,
     fp32: initialized from ``generator`` (seed 0 without one), then filled
     from ``<path>/unet``. The temporal modules and the adapter keep their
     init where the file has none of their keys; a file with
     ``controlnet_adapter.*`` fills the adapter (JAX weights.py:369-379,
     :205-209)."""
+    from motioneditor_tpu_torch.inference import resolve_device
     from motioneditor_tpu_torch.models.layers import init_params
     from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
+
+    device = resolve_device(device)  # before any file is read
 
     path = find_model_file(osp.join(pretrained_model_path, "unet"))
     with torch.device(device):
@@ -179,9 +182,12 @@ def vae_key_fixups(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_sd15_vae(pretrained_model_path: str, config=None, device="cpu") -> nn.Module:
+def load_sd15_vae(pretrained_model_path: str, config=None, device="cuda") -> nn.Module:
     """The VAE of ``config`` from ``<path>/vae`` on ``device``, fp32."""
+    from motioneditor_tpu_torch.inference import resolve_device
     from motioneditor_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    device = resolve_device(device)  # before any file is read
 
     path = find_model_file(osp.join(pretrained_model_path, "vae"))
     with torch.device(device):
@@ -202,24 +208,30 @@ def text_key_fixups(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_sd15_text_encoder(pretrained_model_path: str, config=None, device="cpu") -> nn.Module:
+def load_sd15_text_encoder(pretrained_model_path: str, config=None, device="cuda") -> nn.Module:
     """The CLIP text encoder from ``<path>/text_encoder`` on ``device``, fp32,
     with ``text_projection`` when the file has one; its widths, depth and
     vocabulary come from the file, the heads and the LayerNorm eps from
     ``config`` (``load_clip_text``)."""
+    from motioneditor_tpu_torch.inference import resolve_device
     from motioneditor_tpu_torch.models.clip_text import CLIPTextConfig, load_clip_text
+
+    device = resolve_device(device)  # before any file is read
 
     path = find_model_file(osp.join(pretrained_model_path, "text_encoder"))
     model = load_clip_text(text_key_fixups(load_state_dict(path)), config or CLIPTextConfig())
     return model.to(device)
 
 
-def load_controlnet(controlnet_path: str, config=None, device="cpu") -> nn.Module:
+def load_controlnet(controlnet_path: str, config=None, device="cuda") -> nn.Module:
     """The ControlNet of ``config`` (sd-controlnet-openpose's by default)
     from the directory ``controlnet_path`` on ``device``, fp32. A diffusers
     ControlNet has no ``conv_norm_out``, ``conv_out`` or ``up_blocks``, and
     neither has the module (JAX weights.py:236-258)."""
+    from motioneditor_tpu_torch.inference import resolve_device
     from motioneditor_tpu_torch.models.controlnet import ControlNetModel, controlnet_config
+
+    device = resolve_device(device)  # before any file is read
 
     path = find_model_file(controlnet_path)
     with torch.device(device):

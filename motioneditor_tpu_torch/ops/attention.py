@@ -19,7 +19,10 @@ Under tensor parallelism (parallel/tp.py) a split Attention holds its
 model rank's heads: every site projects with the column-parallel q / k / v
 (``project_qkv``), computes over ``local_heads`` at width C / T, the kernel
 gates evaluated there, and reduces through the row-parallel
-``project_out``.
+``project_out``. The p2p editors act on the local heads' probabilities,
+and the cross-attention maps, a mean over heads, are the local heads' sum
+summed over the model group and divided by the global head count
+(``head_mean``), so every rank collects the full width's maps.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from motioneditor_tpu_torch.models.layers import linear, zero_init
-from motioneditor_tpu_torch.parallel.tp import copy_to_model, reduce_from_model, refuse
+from motioneditor_tpu_torch.parallel.tp import copy_to_model, reduce_from_model, sum_over_model
 
 NORMAL = "normal"
 SPARSE_CAUSAL = "sparse_causal"
@@ -95,6 +98,15 @@ def project_out(p: Attention, h: torch.Tensor) -> torch.Tensor:
     out = p.to_out[0]
     y = reduce_from_model(F.linear(h, out.weight.to(h.dtype)), p.tp_group)
     return y + out.bias.to(h.dtype)
+
+
+def head_mean(p: Attention, probs: torch.Tensor) -> torch.Tensor:
+    """The mean over every head of site ``p`` of ``probs`` [..., H, N, L]
+    holding this rank's heads: under a model group the local heads' sum,
+    summed over the group, over the global head count."""
+    if p.tp_size == 1:
+        return probs.mean(dim=-3)
+    return sum_over_model(probs.sum(dim=-3), p.tp_group) / p.heads
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -180,7 +192,6 @@ def spatial_self_attention(p: Attention, x: torch.Tensor, mode: str, heads: int,
     inner = q.shape[-1]
     scale = (inner // heads) ** -0.5
     if prob_editor is not None and n <= 256:
-        refuse("the p2p self-attention editor", None, p)
         vh = split_heads(select_kv(v, mode), heads)
         probs = attention_probs(split_heads(q, heads), split_heads(select_kv(k, mode), heads),
                                 scale)  # [B, F, H, N, KV]
@@ -207,9 +218,11 @@ def cross_attention(p: Attention, x: torch.Tensor, encoder_states: torch.Tensor,
     """Text cross-attention. x: [B, F, N, C]; encoder_states: [B, L, D_text]
     (the same text for every frame). ``collect_maps_into``: when given,
     appends the mean-over-heads probabilities [(B F), N, L], the maps the
-    auto-mask injection and LocalBlend read. ``prob_editor``: a (probs,
-    is_cross=True) -> probs hook over [B, F, H, N, L], the p2p controller;
-    the maps are collected before it edits them (JAX attention.py:251-258)."""
+    auto-mask injection and LocalBlend read (``head_mean``: the full
+    width's under a model group). ``prob_editor``: a (probs,
+    is_cross=True) -> probs hook over [B, F, H, N, L] (this rank's heads),
+    the p2p controller; the maps are collected before it edits them (JAX
+    attention.py:251-258)."""
     b, f, n, _ = x.shape
     q, k, v = project_qkv(p, x, encoder_states)
     heads = local_heads(p, heads)
@@ -219,10 +232,9 @@ def cross_attention(p: Attention, x: torch.Tensor, encoder_states: torch.Tensor,
     vh = split_heads(v, heads)[:, None]
     if collect_maps_into is None and prob_editor is None:
         return project_out(p, merge_heads(sdpa(qh, kh, vh, scale)))
-    refuse("the cross-attention map collection and the p2p editor", None, p)
     probs = attention_probs(qh, kh, scale)  # [B, F, H, N, L]
     if collect_maps_into is not None:
-        collect_maps_into.append(probs.mean(dim=2).reshape(b * f, n, probs.shape[-1]))
+        collect_maps_into.append(head_mean(p, probs).reshape(b * f, n, probs.shape[-1]))
     if prob_editor is not None:
         probs = prob_editor(probs, True)
     out = torch.matmul(probs.to(vh.dtype), vh)

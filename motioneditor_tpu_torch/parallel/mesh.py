@@ -13,11 +13,15 @@ out data-major and model-minor, as JAX's mesh reshapes its device list:
 rank = (d * fp + f) * tp + m.
 
 The backend follows the device: NCCL for CUDA tensors, gloo only when the
-caller asks for the CPU. A one-rank world needs no network (a HashStore).
-Parameters are replicated on every rank but for the attention projections
-that parallel/tp.py splits over the model group; training sums the
-gradients over the world (training/stage1.py) and so runs only with a
-one-rank model group.
+caller asks for the CPU, or when it names gloo explicitly (two ranks that
+share one card, which NCCL refuses). A one-rank world needs no network (a
+HashStore). Parameters are replicated on every rank but for the attention
+projections that parallel/tp.py splits over the model group. A sum over
+tokens (a loss share, a replicated parameter's gradient) runs over the
+``shard`` group, the frame x data ranks of one model rank, and never over
+the model group, whose ranks hold the same tokens; a split quantity (a
+reduction over heads, a split gradient's squares) is summed over the model
+group.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ class FrameShardingCtx:
     device: torch.device
     model_group: object = None
     model_ranks: Tuple[int, ...] = ()
+    shard_group: object = None
+    shard_ranks: Tuple[int, ...] = ()
 
     @property
     def fp(self) -> int:
@@ -76,6 +82,12 @@ class FrameShardingCtx:
     @property
     def world_size(self) -> int:
         return self.fp * self.dp * self.tp
+
+    @property
+    def shards(self) -> int:
+        """The ranks that hold different tokens of the same parameters:
+        frames x data."""
+        return self.fp * self.dp
 
     @property
     def shards_frames(self) -> bool:
@@ -111,15 +123,19 @@ def backend_for(device: torch.device) -> str:
 
 
 def init_frame_sharding(data: int, frames: int, device, rank: int = 0,
-                        init_method: Optional[str] = None, model: int = 1) -> FrameShardingCtx:
+                        init_method: Optional[str] = None, model: int = 1,
+                        backend: Optional[str] = None) -> FrameShardingCtx:
     """Initialize the default process group (world size ``data * frames *
-    model``) if it is not yet, and build the frame, data and (``model`` > 1)
-    model groups for ``rank``. ``init_method`` (e.g.
+    model``) if it is not yet, and build the frame, data, (``model`` > 1)
+    model and shard groups for ``rank``. ``init_method`` (e.g.
     ``tcp://localhost:<port>``) is needed unless the world has one rank,
-    which rides a HashStore and needs no network. Every rank must call it
-    with the same sizes: every rank creates every group."""
+    which rides a HashStore and needs no network. ``backend`` None follows
+    the device (``backend_for``); "gloo" with CUDA tensors lets ranks share
+    one card (gloo all-reduces and broadcasts CUDA tensors through the
+    host, but gathers none). Every rank must call it with the same sizes:
+    every rank creates every group."""
     device = torch.device(device)
-    backend = backend_for(device)
+    backend = backend or backend_for(device)
     world = data * frames * model
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
@@ -142,13 +158,26 @@ def init_frame_sharding(data: int, frames: int, device, rank: int = 0,
     # group is none
     for kind, lines in (("frame", grid.permute(0, 2, 1).reshape(-1, frames)),
                         ("data", grid.permute(1, 2, 0).reshape(-1, data)),
-                        ("model", grid.reshape(-1, model) if model > 1 else [])):
+                        ("model", grid.reshape(-1, model) if model > 1 else []),
+                        ("shard", grid.permute(2, 0, 1).reshape(model, -1))):
         for line in [tuple(x.tolist()) for x in lines]:
             g = dist.group.WORLD if len(line) == world else dist.new_group(list(line))
             if me in line:
                 found[kind] = (g, line)
     model_group, model_ranks = found.get("model", (None, ()))
-    return FrameShardingCtx(*found["frame"], *found["data"], device, model_group, model_ranks)
+    return FrameShardingCtx(*found["frame"], *found["data"], device, model_group, model_ranks,
+                            *found["shard"])
+
+
+@torch.no_grad()
+def sum_over_shards(tensors, ctx: FrameShardingCtx) -> None:
+    """All-reduce (sum) each tensor in place over ``ctx``'s shard group,
+    the frame x data ranks of this model rank: a sum over the tokens of a
+    quantity every model rank holds whole (a loss share, a gradient)."""
+    if ctx.shards == 1:
+        return
+    for t in tensors:
+        dist.all_reduce(t, group=ctx.shard_group)
 
 
 def local_block(x: torch.Tensor, dim: int, parts: int, index: int) -> torch.Tensor:
@@ -175,6 +204,8 @@ def shard_video(x: torch.Tensor, ctx: FrameShardingCtx, branch_axis: bool = Fals
 
 
 def _all_gather_cat(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
+    if size == 1:
+        return x
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)

@@ -28,6 +28,15 @@ at the column-parallel input (identity forward, the gradient all-reduced
 backward), ``reduce_from_model`` at the row-parallel output (all-reduce
 forward, identity backward). A model group of one rank communicates
 nothing.
+
+Every other reduction says which group it runs over. A split quantity is
+summed over the model group: the cross-attention maps' sum over heads
+(``sum_over_model``, then divided by the global head count), the split
+parameters' squares in the gradient clip, and the 8-bit moments' block
+maxima (``max_over_model``, training/adam8bit.py). A replicated quantity
+(a loss, a replicated parameter's gradient) is summed over the frame x
+data ranks of one model rank (parallel/mesh.py ``sum_over_shards``) and
+never over the model group.
 """
 
 from __future__ import annotations
@@ -42,9 +51,9 @@ from torch import nn
 COLUMN = ("to_q", "to_k", "to_v")
 ROW = ("to_out.0",)
 
-# the model group's collectives since the last reset: "all_reduce" (calls)
-# and "all_reduce_bytes" (bytes reduced); "all_gather" stays absent, since
-# nothing here gathers over the model group
+# the model group's collectives since the last reset: "all_reduce" (calls),
+# "all_reduce_bytes" (bytes reduced) and "broadcast" (calls); "all_gather"
+# stays absent, since nothing on a path gathers over the model group
 collective_counts: collections.Counter = collections.Counter()
 
 
@@ -52,9 +61,9 @@ def reset_collective_counts() -> None:
     collective_counts.clear()
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, group=group)
+    dist.all_reduce(y, op=op, group=group)
     collective_counts["all_reduce"] += 1
     collective_counts["all_reduce_bytes"] += y.numel() * y.element_size()
     return y
@@ -97,6 +106,30 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceFromModel.apply(x, group)
 
 
+@torch.no_grad()
+def sum_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of a split quantity over the model group (not
+    differentiable); ``group`` None is the identity."""
+    return x if group is None else _all_reduce(x, group)
+
+
+@torch.no_grad()
+def max_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the model group (not differentiable)."""
+    return x if group is None else _all_reduce(x, group, dist.ReduceOp.MAX)
+
+
+@torch.no_grad()
+def broadcast_from_model(x: torch.Tensor, ctx) -> torch.Tensor:
+    """``x`` from model rank 0 on every rank of ``ctx``'s model group, in
+    place: a replicated value whose bits must agree (an early-stop test);
+    a one-rank model group is the identity."""
+    if ctx.tp > 1:
+        dist.broadcast(x, ctx.model_ranks[0], group=ctx.model_group)
+        collective_counts["broadcast"] += 1
+    return x
+
+
 def split_sites(module: nn.Module, tp: int) -> List[Tuple[str, nn.Module]]:
     """The Attention modules of ``module`` a model group of ``tp`` splits:
     those whose heads ``tp`` divides."""
@@ -134,8 +167,7 @@ def narrow_params(module: nn.Module, plan: Dict[str, int], tp: int, index: int) 
         if w.shape[dim] % tp:
             raise ValueError(f"{name}: dim {dim} of size {w.shape[dim]} does not split "
                              f"{tp} ways")
-        step = w.shape[dim] // tp
-        _set_param(module, name, w.narrow(dim, index * step, step).clone())
+        _set_param(module, name, narrow_tensor(w, dim, tp, index).clone())
 
 
 def shard_params_tp(module: nn.Module, ctx) -> Dict[str, int]:
@@ -163,25 +195,35 @@ def gather_params_tp(module: nn.Module, ctx) -> nn.Module:
         return module
     plan = tp_split_plan(module, ctx.tp)
     for name, dim in plan.items():
-        w = module.get_parameter(name).contiguous()
-        parts = [torch.empty_like(w) for _ in range(ctx.tp)]
-        dist.all_gather(parts, w, group=ctx.model_group)
-        _set_param(module, name, torch.cat(parts, dim=dim))
+        _set_param(module, name, gather_tensor(module.get_parameter(name), dim, ctx))
     for _, m in split_sites(module, ctx.tp):
         m.tp_group, m.tp_size = None, 1
     return module
 
 
-def is_split(*modules: nn.Module) -> bool:
-    """Whether any Attention of ``modules`` is split over a model group."""
-    return any(getattr(m, "tp_size", 1) > 1 for module in modules if module is not None
-               for m in module.modules())
+def split_parameters(module: nn.Module) -> Dict[str, int]:
+    """{parameter name: its split dim} of the parameters of ``module`` split
+    now, read from the marks ``shard_params_tp`` left."""
+    from motioneditor_tpu_torch.ops.attention import Attention
+
+    out = {}
+    for name, m in module.named_modules():
+        if isinstance(m, Attention) and m.tp_size > 1:
+            pre = f"{name}." if name else ""
+            out.update({f"{pre}{proj}.weight": 0 for proj in COLUMN})
+            out.update({f"{pre}{proj}.weight": 1 for proj in ROW})
+    return out
 
 
-def refuse(what: str, shard_ctx=None, *modules: nn.Module) -> None:
-    """Raise for a path tensor parallelism does not cover yet, when the
-    layout has a model group of more than one rank or a module is split."""
-    if (shard_ctx is not None and shard_ctx.tp > 1) or is_split(*modules):
-        raise NotImplementedError(
-            f"{what} does not run under tensor parallelism yet (a model group of more than "
-            "one rank); it comes with the next slice of ROADMAP A15")
+def gather_tensor(x: torch.Tensor, dim: int, ctx) -> torch.Tensor:
+    """The full tensor from every model rank's block of ``x`` along
+    ``dim`` (not differentiable)."""
+    parts = [torch.empty_like(x) for _ in range(ctx.tp)]
+    dist.all_gather(parts, x.contiguous(), group=ctx.model_group)
+    return torch.cat(parts, dim=dim)
+
+
+def narrow_tensor(x: torch.Tensor, dim: int, tp: int, index: int) -> torch.Tensor:
+    """Block ``index`` of ``tp`` equal blocks of ``x`` along ``dim``."""
+    step = x.shape[dim] // tp
+    return x.narrow(dim, index * step, step).contiguous()

@@ -23,11 +23,13 @@ Every phase also runs frame sharded over a process group (``shard_ctx``,
 parallel/mesh.FrameShardingCtx): the functions take this rank's frames and
 return them; ``MotionEditorPipeline`` with a ``shard_ctx`` takes whole
 clips on every rank, works on this rank's frames and gathers the results.
-``ddim_invert`` and ``denoise_segment`` also run under tensor parallelism
-(a model group of T > 1, the UNet, its adapter and the ControlNet split by
-parallel/tp.py ``shard_params_tp``): latents, masks and text embeddings
-are replicated over the model group. Null-text, the pipeline class, the
-p2p controller and LocalBlend raise there for now.
+Every phase also runs under tensor parallelism (a model group of T > 1,
+the UNet, its adapter and the ControlNet split by parallel/tp.py
+``shard_params_tp``; the VAE and the text encoder stay whole, as JAX never
+passes them to ``tp_param_shardings``): latents, masks, text embeddings
+and the null-text embedding are replicated over the model group, and the
+16x16 cross-attention maps that LocalBlend and the auto mask read are the
+full width's (ops/attention.py ``head_mean``).
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from motioneditor_tpu_torch.models.vae import (
     vae_encode_video,
 )
 from motioneditor_tpu_torch.parallel.mesh import FrameShardingCtx, gather_video, shard_video
-from motioneditor_tpu_torch.parallel.tp import refuse
+from motioneditor_tpu_torch.parallel.tp import broadcast_from_model
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule, ddim_inverse_step, ddim_step
 from motioneditor_tpu_torch.training.common import mse
 
@@ -130,10 +132,14 @@ def null_text_loss(unet, unet_config, schedule, num_steps: int, guidance_scale: 
 
 def _sum_over_frames(loss: torch.Tensor, grad: torch.Tensor, shard_ctx):
     """The frame group's sums of a loss share and its gradient, in one
-    all-reduce: every rank gets the same bits, so every rank takes the same
-    early-stop decision and the same Adam update."""
+    all-reduce, then model rank 0's sums on every model rank (the model
+    group holds the same frames and embedding): every rank gets the same
+    bits, so every rank takes the same early-stop decision and the same
+    Adam update."""
     buf = torch.cat([loss.reshape(1), grad.reshape(-1)])
-    dist.all_reduce(buf, group=shard_ctx.frame_group)
+    if shard_ctx.fp > 1:
+        dist.all_reduce(buf, group=shard_ctx.frame_group)
+    broadcast_from_model(buf, shard_ctx)
     return buf[0], buf[1:].view_as(grad)
 
 
@@ -172,14 +178,16 @@ def null_optimization(
     Freezes the UNet's parameters (requires_grad False): the gradient is
     taken with respect to the embedding only.
 
-    ``shard_ctx`` (a frame-only layout): ``all_latents`` holds this rank's
+    ``shard_ctx`` (a layout of data 1): ``all_latents`` holds this rank's
     frames. Each rank's loss is its share of the global mean; the shares
     and the embedding's gradients are summed over the frame group before
     the early-stop test and the Adam update, so the embeddings that come
-    out are the same bits on every rank."""
+    out are the same bits on every rank. Under a model group the
+    embedding's gradient arrives summed over it (the key / value inputs
+    pass Megatron's f, parallel/tp.py ``copy_to_model``), and model rank
+    0's loss and gradient are broadcast over it."""
     if shard_ctx is not None and shard_ctx.dp > 1:
         raise ValueError("null-text optimization shards frames only, not the data axis")
-    refuse("null-text optimization", shard_ctx, unet)
     cdt = _DTYPES[compute_dtype]
     param_dtype = next(unet.parameters()).dtype
     if param_dtype != cdt:
@@ -254,7 +262,6 @@ def null_text_inversion(
     trajectory. cond / uncond0: [1, L, D] text embeddings. Returns
     (x_T, uncond embeddings [num_steps, 1, L, D]). ``shard_ctx``: both
     phases run frame sharded; ``latents`` and x_T hold this rank's frames."""
-    refuse("null-text inversion", shard_ctx, unet)
     x_t, all_latents = ddim_invert(unet, unet_config, schedule, latents, cond, num_steps,
                                    normal_infer=null_normal_infer, use_flash=use_flash,
                                    shard_ctx=shard_ctx)
@@ -316,11 +323,10 @@ def denoise_segment(
     maps [n_sites, 4 F, 256, L] fp32 (``_count_16x16_sites``), the carry
     of JAX ``_jit_denoise_segment``: each step adds its maps to it in place
     after the UNet, and the blend reads its conditional rows after the
-    DDIM step. Both are frame local."""
+    DDIM step. Both are frame local, and the editor acts on each rank's
+    heads under a model group."""
     if local_blend is not None and maps_sum is None:
         raise ValueError("LocalBlend needs the running map sum maps_sum")
-    if p2p_controller is not None or local_blend is not None:
-        refuse("the p2p controller and LocalBlend", shard_ctx, unet, controlnet)
     f = latents.shape[1]
     lat = latents
     for idx, t in enumerate(seg_ts):
@@ -377,10 +383,13 @@ class MotionEditorPipeline:
     dtype is the compute dtype of every phase (null-text keeps its embedding,
     Adam state and DDIM math in fp32); text embeddings are cast to it.
 
-    ``shard_ctx`` (a frame-only layout, parallel/mesh.FrameShardingCtx):
+    ``shard_ctx`` (a layout of data 1, parallel/mesh.FrameShardingCtx):
     every entry takes whole clips on every rank and returns whole results,
     as JAX's global arrays; inside, each phase works on this rank's frames
-    and the results are gathered at its end (JAX editor.py:68-71)."""
+    and the results are gathered at its end (JAX editor.py:68-71). With a
+    model group the UNet (with its adapter) and the ControlNet must come
+    split by parallel/tp.py ``shard_params_tp``; the VAE and the text
+    encoder stay whole."""
 
     unet: UNet3DConditionModel
     vae: AutoencoderKL
@@ -401,7 +410,6 @@ class MotionEditorPipeline:
         if self.shard_ctx is not None and self.shard_ctx.dp > 1:
             raise ValueError("the pipeline shards frames only: its layout needs data = 1, "
                              f"got {self.shard_ctx.dp}")
-        refuse("MotionEditorPipeline", self.shard_ctx, self.unet, self.controlnet)
 
     def _frames(self, x: torch.Tensor, frame_dim: int = 1) -> torch.Tensor:
         """This rank's frames of a whole clip (the clip itself unsharded);
@@ -427,14 +435,18 @@ class MotionEditorPipeline:
     @torch.no_grad()
     def encode_prompt(self, prompts: Sequence[str]) -> torch.Tensor:
         """[len(prompts), 77, 768] text embeddings in the UNet's dtype.
-        Sharded, frame rank 0's embeddings go to every rank: the ranks must
-        condition on the same text, and a tokenizer need not give every
-        process the same ids (``StubTokenizer``'s are salted per process)."""
+        Sharded, frame rank 0's embeddings go to every rank (and model rank
+        0's over the model group): the ranks must condition on the same
+        text, and a tokenizer need not give every process the same ids
+        (``StubTokenizer``'s are salted per process)."""
         ids = tokenize(self.tokenizer, prompts, self.text_config.max_position_embeddings)
         emb = clip_text_apply(self.text_encoder, ids.to(self.device), self.text_config)
         emb = emb.to(self.dtype).contiguous()
         if self.shard_ctx is not None:
-            dist.broadcast(emb, self.shard_ctx.frame_ranks[0], group=self.shard_ctx.frame_group)
+            if self.shard_ctx.fp > 1:
+                dist.broadcast(emb, self.shard_ctx.frame_ranks[0],
+                               group=self.shard_ctx.frame_group)
+            broadcast_from_model(emb, self.shard_ctx)
         return emb
 
     @torch.no_grad()

@@ -13,6 +13,14 @@ max_norm / norm when norm >= max_norm, with no epsilon), then stepped by
 ``torch.optim.AdamW``, whose weight decay is decoupled and applies to every
 trainable parameter, biases included, as optax's does; or by the 8-bit
 AdamW of training/adam8bit.py.
+
+Sharded (parallel/mesh.py), a step's loss shares and gradients are summed
+over the shard group (the frame x data ranks of one model rank). Under a
+model group (parallel/tp.py) a split trainable's gradient is the gradient
+of this rank's block and stays local, and model rank 0's replicated
+gradients are broadcast; the global norm is the model group's sum of the
+split gradients' squares plus the replicated ones', counted once, so
+every rank clips alike, as optax's norm over the logical arrays.
 """
 
 from __future__ import annotations
@@ -50,13 +58,26 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float,
+                         split: Sequence[torch.Tensor] = (), model_group=None) -> torch.Tensor:
     """Scale the gradients in place as ``optax.clip_by_global_norm`` does:
     unchanged when their global norm is below ``max_norm``, else each
     ``g / norm * max_norm``. Returns the norm before clipping. Runs on the
-    device without a host synchronization."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = global_norm(grads)
+    device without a host synchronization. ``split``: the parameters of
+    ``params`` that hold a block of a tensor split over ``model_group``,
+    whose squares are summed over it."""
+    from motioneditor_tpu_torch.parallel.tp import sum_over_model
+
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    if not split:
+        norm = global_norm(grads)
+    else:
+        ids = {id(p) for p in split}
+        sq = [torch.zeros((), device=grads[0].device) for _ in range(2)]
+        for p in params:
+            sq[id(p) in ids] = sq[id(p) in ids] + (p.grad.float() ** 2).sum()
+        norm = torch.sqrt(sq[0] + sum_over_model(sq[1], model_group))
     clip = norm >= max_norm
     for g in grads:
         g.copy_(torch.where(clip, g / norm * max_norm, g))
@@ -70,19 +91,34 @@ class ClippedOptimizer:
     def __init__(self, inner: torch.optim.Optimizer, max_grad_norm: float):
         self.inner = inner
         self.max_grad_norm = max_grad_norm
+        # {parameter: its split dim} of the parameters that hold a block of
+        # a tensor split over a model group (``make_train_state``)
+        self.split: Dict[torch.Tensor, int] = {}
 
     def params(self) -> List[torch.Tensor]:
         return [p for g in self.inner.param_groups for p in g["params"]]
 
-    def step(self) -> torch.Tensor:
+    def step(self, shard_ctx=None) -> torch.Tensor:
         """Clip and step; returns the gradients' global norm before clipping.
         A trainable that the loss does not reach gets a zero gradient, so it
         still takes the weight decay, as every leaf of an optax update does
-        (e.g. the adapter's ``attn_temp`` in stage 1)."""
+        (e.g. the adapter's ``attn_temp`` in stage 1). With split
+        parameters ``shard_ctx`` is the layout whose model group split them:
+        the norm sums their squares over it, and the 8-bit moments take the
+        full tensor's block scales (training/adam8bit.py)."""
         for p in self.params():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm_(self.params(), self.max_grad_norm)
+        group = None
+        if self.split:
+            if shard_ctx is None or shard_ctx.tp == 1:
+                raise ValueError("the optimizer holds split parameters: its step needs the "
+                                 "layout of their model group")
+            group = shard_ctx.model_group
+            if hasattr(self.inner, "layout"):
+                self.inner.layout = {p: (dim, shard_ctx.tp, shard_ctx.model_rank, group)
+                                     for p, dim in self.split.items()}
+        norm = clip_by_global_norm_(self.params(), self.max_grad_norm, list(self.split), group)
         self.inner.step()
         return norm
 
@@ -147,7 +183,11 @@ def make_train_state(model: nn.Module, trainable_modules: Sequence[str],
     masters, store the frozen ones in ``frozen_dtype`` (e.g. bf16: the
     memory half of mixed-precision training), and build the optimizer over
     the trainables. The layers cast parameters to the activation dtype at
-    use, so gradients reach the fp32 masters through those casts."""
+    use, so gradients reach the fp32 masters through those casts. A model
+    split by parallel/tp.py ``shard_params_tp`` (split before this call)
+    marks its split trainables in the optimizer (``ClippedOptimizer.split``)."""
+    from motioneditor_tpu_torch.parallel.tp import split_parameters
+
     mask = trainable_mask(model, trainable_modules)
     trainable = {}
     for name, p in model.named_parameters():
@@ -157,8 +197,10 @@ def make_train_state(model: nn.Module, trainable_modules: Sequence[str],
         elif frozen_dtype is not None:
             p.data = p.data.to(frozen_dtype)
         p.requires_grad_(mask[name])
-    return TrainState(step=0, model=model, optimizer=optimizer(trainable.values()),
-                      trainable=trainable)
+    opt = optimizer(trainable.values())
+    opt.split = {trainable[name]: dim for name, dim in split_parameters(model).items()
+                 if name in trainable}
+    return TrainState(step=0, model=model, optimizer=opt, trainable=trainable)
 
 
 def draw_noise(latents: torch.Tensor, generator: torch.Generator, num_train_timesteps: int,
@@ -187,25 +229,36 @@ def draw_noise_sharded(latents: torch.Tensor, generator: torch.Generator,
     return shard_video(noise, shard_ctx), local_block(t, 0, shard_ctx.dp, shard_ctx.data_rank)
 
 
-@torch.no_grad()
-def sum_over_world(tensors: Iterable[torch.Tensor]) -> None:
-    """All-reduce (sum) each tensor in place over every rank."""
-    import torch.distributed as dist
+def sum_step_over_shards(loss: torch.Tensor, optimizer: "ClippedOptimizer",
+                         shard_ctx) -> torch.Tensor:
+    """A sharded step's sums before its optimizer step, over the shard group
+    (the frame x data ranks of this model rank, parallel/mesh.py
+    ``sum_over_shards``): the trainables' gradients in place (a trainable
+    the loss does not reach sums zeros) and the loss shares, whose sum it
+    returns. A split trainable's gradient is its block's on each model
+    rank, and a replicated one's is whole on each: neither is summed over
+    the model group. The model ranks compute a replicated gradient alike,
+    but their kernels need not round alike (cuDNN, for one, picks its
+    algorithms by the memory free), so model rank 0's replicated gradients
+    and loss go to every model rank, one broadcast: every rank then takes
+    the same step."""
+    from motioneditor_tpu_torch.parallel.mesh import sum_over_shards
+    from motioneditor_tpu_torch.parallel.tp import broadcast_from_model
 
-    for t in tensors:
-        dist.all_reduce(t)
-
-
-def sum_step_over_world(loss: torch.Tensor, params: Iterable[torch.Tensor]) -> torch.Tensor:
-    """A sharded step's sums over every rank before its optimizer step: the
-    trainables' gradients in place (a trainable the loss does not reach
-    sums zeros) and the loss shares, whose sum it returns."""
-    params = list(params)
+    params = optimizer.params()
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     loss = loss.detach().clone()
-    sum_over_world([loss] + [p.grad for p in params])
+    sum_over_shards([loss] + [p.grad for p in params], shard_ctx)
+    if shard_ctx.tp > 1:
+        split = {id(p) for p in optimizer.split}
+        whole = [loss] + [p.grad for p in params if id(p) not in split]
+        dtype = functools.reduce(torch.promote_types, (t.dtype for t in whole))
+        buf = broadcast_from_model(torch.cat([t.reshape(-1).to(dtype) for t in whole]),
+                                   shard_ctx)
+        for t, part in zip(whole, buf.split([t.numel() for t in whole])):
+            t.copy_(part.view_as(t))
     return loss
 
 
@@ -222,8 +275,9 @@ def diffusion_target(schedule, latents, noise, timesteps, prediction_type: str):
 
 def mse(pred: torch.Tensor, target: torch.Tensor, shard_ctx=None) -> torch.Tensor:
     """The fp32 mean squared error; with ``shard_ctx``, this rank's share of
-    the global mean (the local sum over the global element count), so the
-    world's shares sum to it."""
+    the global mean (the local sum over the global element count: the
+    frame x data ranks hold different elements, the model ranks the same),
+    so the shard group's shares sum to it."""
     if shard_ctx is None:
         return ((pred.float() - target.float()) ** 2).mean()
-    return ((pred.float() - target.float()) ** 2).sum() / (pred.numel() * shard_ctx.world_size)
+    return ((pred.float() - target.float()) ** 2).sum() / (pred.numel() * shard_ctx.shards)

@@ -8,10 +8,14 @@ clipping (:202-208, :347-352).
 Frame-sharded (``shard_ctx``, parallel/mesh.py): each rank holds its block
 of the latents' batch and frames. The noise and timesteps are drawn at the
 global shape from the shared generator and sliced, each rank's loss is its
-share of the global mean, the reported loss is their sum over the world,
-and the trainables' gradients are summed over the world before the
-global-norm clip, so every rank takes the same optimizer step (JAX's
-GSPMD psum, stage1.py:31-75).
+share of the global mean, the reported loss is their sum over the shard
+group (the frame x data ranks of one model rank), and the trainables'
+gradients are summed over it before the global-norm clip, so every rank
+takes the same optimizer step (JAX's GSPMD psum, stage1.py:31-75). Under a
+model group (parallel/tp.py) the model ranks hold the same tokens: a split
+trainable's gradient stays its block's, and the clip's norm and the 8-bit
+moments' scales are reduced over the model group
+(training/common.py, training/adam8bit.py).
 """
 
 from __future__ import annotations
@@ -21,7 +25,6 @@ from typing import Optional, Tuple
 import torch
 
 from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig, unet_apply
-from motioneditor_tpu_torch.parallel.tp import refuse
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule, ddpm_add_noise
 from motioneditor_tpu_torch.training.common import (
     TrainState,
@@ -29,7 +32,7 @@ from motioneditor_tpu_torch.training.common import (
     draw_noise,
     draw_noise_sharded,
     mse,
-    sum_step_over_world,
+    sum_step_over_shards,
 )
 
 TRAINABLE_MODULES = ("attn1.to_q", "attn2.to_q", "attn_temp")
@@ -76,9 +79,9 @@ def train_step_stage1(
     averaged (accelerator.accumulate, train_bg.py:312). Returns the mean
     loss as a 0-d tensor on the device (no host synchronization).
     ``shard_ctx``: latents and encoder_hidden_states are this rank's blocks
-    (see the module docstring). Raises under tensor parallelism: the world
-    sum would add up the split parameters' blocks."""
-    refuse("stage-1 training", shard_ctx, state.model)
+    (see the module docstring); under a model group ``state.model`` comes
+    split by parallel/tp.py ``shard_params_tp`` before ``make_train_state``,
+    and every model rank passes the same blocks and generator state."""
     state.optimizer.zero_grad()
     total = 0.0
     for _ in range(accum_steps):
@@ -93,7 +96,7 @@ def train_step_stage1(
         (loss / accum_steps).backward()
         total = total + loss.detach()
     if shard_ctx is not None:
-        total = sum_step_over_world(total, state.optimizer.params())
-    state.optimizer.step()
+        total = sum_step_over_shards(total, state.optimizer, shard_ctx)
+    state.optimizer.step(shard_ctx)
     state.step += 1
     return state, {"loss": total / accum_steps}

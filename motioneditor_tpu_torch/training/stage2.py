@@ -12,7 +12,10 @@ of the frames; the noise and timesteps are drawn at the global shape and
 sliced, the frozen ControlNet is per frame and runs on the local frames,
 the UNet and its adapter communicate over the frame group, each rank's
 loss is its share of the global mean, and the adapter's gradients are
-summed over the world before the optimizer step (JAX stage2.py:31-98).
+summed over the shard group (the frame x data ranks of one model rank)
+before the optimizer step (JAX stage2.py:31-98); under a model group the
+adapter's split attention projections keep their blocks' gradients, as
+in stage 1.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ from motioneditor_tpu_torch.models.controlnet import (
     precompute_cond_embedding,
 )
 from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig, unet_apply
-from motioneditor_tpu_torch.parallel.tp import refuse
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule, ddpm_add_noise
 from motioneditor_tpu_torch.training.common import (
     TrainState,
@@ -35,7 +37,7 @@ from motioneditor_tpu_torch.training.common import (
     draw_noise,
     draw_noise_sharded,
     mse,
-    sum_step_over_world,
+    sum_step_over_shards,
 )
 
 TRAINABLE_MODULES = ("controlnet_adapter",)
@@ -88,9 +90,9 @@ def train_step_stage2(
     returned); the noise and timesteps come from ``generator``. Returns the
     loss as a 0-d tensor on the device. ``shard_ctx``: latents,
     source_skeleton and encoder_hidden_states are this rank's blocks (see
-    the module docstring). Raises under tensor parallelism: the world sum
-    would add up the split parameters' blocks."""
-    refuse("stage-2 training", shard_ctx, state.model, controlnet)
+    the module docstring); under a model group ``state.model`` and
+    ``controlnet`` come split by parallel/tp.py ``shard_params_tp``, and every
+    model rank passes the same blocks and generator state."""
     state.optimizer.zero_grad()
     if shard_ctx is None:
         noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)
@@ -103,7 +105,7 @@ def train_step_stage2(
     loss.backward()
     loss = loss.detach()
     if shard_ctx is not None:
-        loss = sum_step_over_world(loss, state.optimizer.params())
-    state.optimizer.step()
+        loss = sum_step_over_shards(loss, state.optimizer, shard_ctx)
+    state.optimizer.step(shard_ctx)
     state.step += 1
     return state, {"loss": loss}

@@ -1108,3 +1108,31 @@ def test_kv_wrappers_reject_bad_operands(device):
         temporal_flash_attention_global(q, kv, kv, 0.35, 4, True, 0)
     with pytest.raises(TypeError):
         temporal_flash_attention_global(q.half(), q.half(), q.half(), 0.35, 4, True, 0)
+
+
+def test_launch_from_a_new_thread(device):
+    """A thread on which PyTorch has made no CUDA call yet has no current
+    context for the library's statically linked runtime: before
+    ``_build.stream_handle`` made the context current, K1's and K4's first
+    launch there failed with cudaErrorInvalidValue (as K5's did on
+    autograd's device thread)."""
+    import threading
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    q, k, v = (_rand((1, 2, 1024, 320), torch.bfloat16, device, gen) for _ in range(3))
+    ref = video_flash_attention(q, k, v, "motion_frame", 40 ** -0.5, 8)
+    got = {}
+
+    def run():
+        try:
+            got["out"] = video_flash_attention(q, k, v, "motion_frame", 40 ** -0.5, 8)
+            got["res"] = video_flash_fwd_res(q, k, v, "motion_frame", 40 ** -0.5, 8)[0]
+        except Exception as e:  # reported below, in the test's thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    torch.testing.assert_close(got["out"], ref, atol=0, rtol=0)
+    torch.testing.assert_close(got["res"], ref, **TOL[torch.bfloat16])

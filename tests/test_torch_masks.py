@@ -214,10 +214,10 @@ def test_loaders_are_strict(models, tmp_path, monkeypatch):
     _, gdino, _, sam = models
     _tiny_configs(monkeypatch, models)
     dino_ckpt, sam_ckpt = _checkpoints(tmp_path, models)
-    loaded = TW.load_groundingdino_checkpoint(dino_ckpt)
+    loaded = TW.load_groundingdino_checkpoint(dino_ckpt, device="cpu")
     for k, v in gdino.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
-    loaded = TM.load_sam_checkpoint(sam_ckpt)
+    loaded = TM.load_sam_checkpoint(sam_ckpt, device="cpu")
     for k, v in sam.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
 
@@ -225,23 +225,23 @@ def test_loaders_are_strict(models, tmp_path, monkeypatch):
     bad = tmp_path / "bad.pth"
     torch.save({"model": dict(full, **{"transformer.stray.weight": torch.zeros(1)})}, bad)
     with pytest.raises(KeyError, match="stray"):
-        TW.load_groundingdino_checkpoint(str(bad))
+        TW.load_groundingdino_checkpoint(str(bad), device="cpu")
     torch.save({"model": {k: v for k, v in full.items() if k != "feat_map.bias"}}, bad)
     with pytest.raises(KeyError, match="missing"):
-        TW.load_groundingdino_checkpoint(str(bad))
+        TW.load_groundingdino_checkpoint(str(bad), device="cpu")
     copy = dict(full)
     copy["bbox_embed.3.layers.0.bias"] = full["bbox_embed.0.layers.0.bias"] + 1.0
     torch.save({"model": copy}, bad)
     with pytest.raises(ValueError, match="bbox_embed.3"):
-        TW.load_groundingdino_checkpoint(str(bad))
+        TW.load_groundingdino_checkpoint(str(bad), device="cpu")
 
     full = TM.released_state_dict(sam)
     torch.save(dict(full, **{"mask_decoder.stray": torch.zeros(1)}), bad)
     with pytest.raises(KeyError, match="stray"):
-        TM.load_sam_checkpoint(str(bad))
+        TM.load_sam_checkpoint(str(bad), device="cpu")
     torch.save({k: v for k, v in full.items() if k != "mask_decoder.iou_token.weight"}, bad)
     with pytest.raises(KeyError, match="missing"):
-        TM.load_sam_checkpoint(str(bad))
+        TM.load_sam_checkpoint(str(bad), device="cpu")
 
 
 def test_masks_cli_refusals(models, tmp_path, monkeypatch):

@@ -83,7 +83,7 @@ def test_both_key_layouts_load(tmp_path, name):
     for i, layout in enumerate((sd, stripped)):
         path = str(tmp_path / f"{i}.pth")
         torch.save(layout, path)
-        loaded.append(NETS[name][5](path).state_dict())
+        loaded.append(NETS[name][5](path, device="cpu").state_dict())
     for k, v in sd.items():
         assert torch.equal(loaded[0][k], v) and torch.equal(loaded[1][k], v), k
 

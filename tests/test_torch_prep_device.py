@@ -8,6 +8,10 @@ at once (the files named here do not exist: a function that read one
 first would raise FileNotFoundError instead), and with CUDA present the
 networks are loaded onto the card (the loaders stubbed, recording the
 device they were given). ROADMAP C6.
+
+The public loaders of the models' checkpoints (models/weights.py,
+openpose.py, midas.py, sam.py, gdino_weights.py) default to ``cuda`` the
+same way, resolved before the file is read. ROADMAP C7.
 """
 
 import inspect
@@ -15,6 +19,7 @@ import inspect
 import pytest
 import torch
 
+from motioneditor_tpu_torch.models import gdino_weights, midas, openpose, sam, weights
 from motioneditor_tpu_torch.prep import masks, skeletons
 
 MISSING = "/nonexistent/file"
@@ -49,3 +54,20 @@ def test_prep_detectors_load_onto_the_card(name, monkeypatch):
     monkeypatch.setattr(midas, "load_dpt_params", lambda path, device: seen.append(device))
     CALLS[name]()
     assert seen == [torch.device("cuda")]
+
+
+LOADERS = {
+    "load_sd15_unet": weights, "load_sd15_vae": weights, "load_sd15_text_encoder": weights,
+    "load_controlnet": weights, "load_body_params": openpose, "load_hand_params": openpose,
+    "load_face_params": openpose, "load_dpt_params": midas, "load_sam_checkpoint": sam,
+    "load_groundingdino_checkpoint": gdino_weights,
+}
+
+
+@pytest.mark.parametrize("name", list(LOADERS))
+def test_loaders_default_to_the_card(name, monkeypatch):
+    fn = getattr(LOADERS[name], name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        fn(MISSING)

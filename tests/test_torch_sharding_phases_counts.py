@@ -82,6 +82,7 @@ def sd15():
                        ctx=dataclasses.replace(ctx, device=META))
         finally:
             dist.destroy_process_group()
+            _build.reset_launch_counts()  # leave no stand-in launch for later tests
 
 
 def _shard(m, sharded):

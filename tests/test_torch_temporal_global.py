@@ -76,6 +76,7 @@ def test_shards_together_equal_the_unsharded_attention():
     the unsharded causal temporal attention (K3's plain version)."""
     rng = np.random.default_rng(20)
     q, k, v = (torch.from_numpy(normal(rng, (B, FK, N, C))) for _ in range(3))
+    _build.reset_launch_counts()  # another file's launches in this process do not count
     whole = temporal_flash_attention(q, k, v, SCALE, HEADS, causal=True)
     parts = [temporal_flash_attention_global(q[:, o:o + FQ], k, v, SCALE, HEADS, True, o)
              for o in range(0, FK, FQ)]

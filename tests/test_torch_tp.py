@@ -19,12 +19,10 @@ the model group of parallel/mesh.py) on the CPU:
   ``tensor_core_body`` as at full width, and the ``temporal_tile`` of K3
   and of K14's 4-of-8-frame shard, pinned;
 - the rank layout and groups of (1, 2, 2) and of (2, 2, 1) (rank = (d fp
-  + f) tp + m; the (2, 2, 1) groups as before the model axis);
-- each path tensor parallelism does not cover yet raises under T > 1.
+  + f) tp + m; the (2, 2, 1) groups as before the model axis).
 """
 
 import dataclasses
-import types
 
 import jax
 import numpy as np
@@ -45,7 +43,7 @@ from motioneditor_tpu_torch.models.from_jax import (
     unet_state_dict,
 )
 from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
-from motioneditor_tpu_torch.ops.attention import Attention, split_heads
+from motioneditor_tpu_torch.ops.attention import split_heads
 from motioneditor_tpu_torch.ops.temporal_flash import SMEM_LIMIT, temporal_tile
 from motioneditor_tpu_torch.ops.video_flash import rows_aligned, tensor_core_body
 from motioneditor_tpu_torch.parallel import tp
@@ -214,65 +212,6 @@ def test_model_minor_rank_layout(layouts):
 
 
 # ---------------------------------------------------------------------------
-# what does not run under T > 1 yet
-# ---------------------------------------------------------------------------
-
-
-def _split(module, t=2):
-    """``module`` narrowed to model rank 0's blocks and marked split over
-    a group of ``t``, without a process group (every case below raises
-    before it communicates)."""
-    tp.narrow_params(module, tp.tp_split_plan(module, t), t, 0)
-    for _, m in tp.split_sites(module, t):
-        m.tp_size = t
-    return module
-
-
-def test_uncovered_paths_raise_under_tp():
-    from motioneditor_tpu_torch.control.injection import injected_spatial_attention_auto
-    from motioneditor_tpu_torch.models.clip_text import StubTokenizer
-    from motioneditor_tpu_torch.ops.attention import cross_attention, spatial_self_attention
-    from motioneditor_tpu_torch.pipelines import editor
-    from motioneditor_tpu_torch.schedulers import DiffusionSchedule
-    from motioneditor_tpu_torch.training import stage1, stage2
-
-    attn = _split(Attention(32, heads=4))
-    x4, x = torch.zeros(4, 2, 16, 32), torch.zeros(1, 2, 16, 32)
-    msg = "tensor parallelism"
-    with pytest.raises(NotImplementedError, match=msg):
-        injected_spatial_attention_auto(attn, x4, 4, None, [], (1,), 0.1)
-    with pytest.raises(NotImplementedError, match=msg):
-        cross_attention(_split(Attention(32, 16, heads=4)), x, torch.zeros(1, 5, 16), 4,
-                        collect_maps_into=[])
-    with pytest.raises(NotImplementedError, match=msg):
-        spatial_self_attention(attn, x, "normal", 4, prob_editor=lambda p, c: p)
-
-    with META:
-        unet = _split(UNet3DConditionModel(TINY))
-        cn = ControlNetModel(controlnet_config(TINY))
-    lay = types.SimpleNamespace(tp=2, dp=1)
-    sched = DiffusionSchedule()
-    empty = torch.empty((1, 1, 7, 16), device=META)
-    with pytest.raises(NotImplementedError, match=msg):
-        editor.null_optimization(unet, TINY, sched, empty, empty[0], empty[0], 1, 1, 1e-2, 7.5)
-    with pytest.raises(NotImplementedError, match=msg):
-        editor.null_text_inversion(UNet3DConditionModel(TINY).to(META), TINY, sched, empty,
-                                   empty[0], empty[0], shard_ctx=lay)
-    with pytest.raises(NotImplementedError, match=msg):
-        editor.MotionEditorPipeline(unet=unet, vae=None, text_encoder=None, controlnet=cn,
-                                    tokenizer=StubTokenizer(), unet_config=TINY)
-    with pytest.raises(NotImplementedError, match=msg):
-        editor.denoise_segment(unet, TINY, cn, controlnet_config(TINY), sched, 50, None, 7.5,
-                               1.0, None, [], None, None, None, None, p2p_controller=object())
-    state = types.SimpleNamespace(model=unet)
-    with pytest.raises(NotImplementedError, match=msg):
-        stage1.train_step_stage1(state, None, None, None, TINY)
-    with pytest.raises(NotImplementedError, match=msg):
-        stage2.train_step_stage2(types.SimpleNamespace(model=UNet3DConditionModel(TINY).to(META)),
-                                 cn, None, None, None, None, TINY, None, shard_ctx=lay)
-
-
-# ---------------------------------------------------------------------------
 # chip_smoke.py phase 11t's emulation of a model group, at a small size
 # ---------------------------------------------------------------------------
 
@@ -281,15 +220,23 @@ def test_phase_11t_emulation_on_cpu(monkeypatch):
     """Phase 11t on the CPU at two small levels (N = 1024, C = 64, where the
     sites take the kernels' routes and their plain versions run; and
     N = 64, C = 128), 2 frames: every site's T shards, summed, agree with
-    the whole layer within TC_ERR_LIMITS (bf16)."""
+    the whole layer within TC_ERR_LIMITS (bf16); and K4-K8's sites at
+    N = 1024, C = 64: each model rank's output and dq, dk, dv equal the same
+    channels of the whole call's within TC_ERR_LIMITS."""
     import chip_smoke as cs
 
     setup_torch()
     monkeypatch.setattr(cs, "time_ms", lambda fn, reps=3: 0.0)
     monkeypatch.setattr(cs, "card", lambda: "cpu")
     monkeypatch.setattr(cs, "FRAMES", 2)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     results, launched = cs.phase_tp(torch.device("cpu"), levels=((1024, 64), (64, 128)))
-    assert len(results) == 12 and launched == {"tp2": {}, "tp4": {}}
+    assert len(results) == 14 and launched == {"tp2": {}, "tp4": {}}
     for name, r in results.items():
         for t in cs.TP_SIZES:
             assert r[f"tp{t}"]["vs_kernel"]["max"] <= cs.TC_ERR_LIMITS["max"], name
+    results, launched = cs.phase_tp_grad(torch.device("cpu"), levels=((1024, 64),))
+    assert len(results) == 3 and launched == {"tp2_grad_layers": {}, "tp4_grad_layers": {}}
+    for name, r in results.items():
+        for t in cs.TP_SIZES:
+            assert r[f"tp{t}"]["max"] <= cs.TC_ERR_LIMITS["max"], name

@@ -1,6 +1,7 @@
 """The kernel launches and model-group all-reduces per step and rank that
-chip_sharded.py asserts for its tensor-parallel layouts, derived on the
-CPU as tests/test_torch_sharding_phases_counts.py derives the frame-sharded
+chip_sharded.py and chip_smoke.py's phase 11u assert for their
+tensor-parallel layouts, derived on the CPU as
+tests/test_torch_sharding_phases_counts.py derives the frame-sharded
 ones: SD-1.5 at full width in bf16 on the meta device (shapes, no data), 8
 frames of 64x64 latents, a one-rank process group whose collectives are
 identities, every attention wrapper's CUDA dispatch down to a stand-in
@@ -15,6 +16,17 @@ launch what the full width launches (chip_smoke.tp_expected), every K1,
 K2, K12 and K13 launch on the tensor-core body at the head-local width,
 and all-reduce over the model group once per split attention module
 called (chip_smoke.TP_ALL_REDUCES_PER_STEP).
+
+The other paths likewise, one step each: null-text (one inner step; one
+broadcast of model rank 0's loss and gradient), the auto-mask segment and
+the p2p segment with LocalBlend (each 16x16 map site all-reduces its maps'
+head sum once more), and a stage-1 and a stage-2 step with gradient
+checkpointing, knobs off, AdamW and 8-bit AdamW (the recomputed forwards
+all-reduce again, the backward all-reduces at each Megatron f whose input
+needs a gradient, the clip once, 8-bit AdamW twice per split trainable;
+one broadcast of model rank 0's replicated gradients).
+On the frame route the layout stands for a (1, 2, T) rank: its frame
+group's collectives, identities here, carry no data.
 """
 
 import copy
@@ -35,8 +47,15 @@ from motioneditor_tpu_torch.models.controlnet import (
 from motioneditor_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
 from motioneditor_tpu_torch.parallel import tp
 from motioneditor_tpu_torch.parallel.mesh import init_frame_sharding
-from motioneditor_tpu_torch.pipelines.editor import ddim_invert, denoise_segment
+from motioneditor_tpu_torch.pipelines.editor import (
+    _count_16x16_sites,
+    ddim_invert,
+    denoise_segment,
+    null_optimization,
+)
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule
+from motioneditor_tpu_torch.training import stage1, stage2
+from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
 
 META, BF16 = torch.device("meta"), torch.bfloat16
 F, LAT = cs.FRAMES, cs.LATENT
@@ -76,6 +95,8 @@ def sd15():
                        ctx=dataclasses.replace(ctx, device=META))
         finally:
             dist.destroy_process_group()
+            _build.reset_launch_counts()  # leave no stand-in launch for later tests
+            tp.reset_collective_counts()
 
 
 def split(sd15, t):
@@ -120,3 +141,91 @@ def test_tp_launches_and_all_reduces_per_step(sd15, t, frames, path):
     assert "all_gather" not in tp.collective_counts
     assert unet.down_blocks[0].attentions[0].transformer_blocks[0].attn1.to_q.weight.shape == (
         320 // t, 320)
+
+
+def frame_route(sd15, t):
+    """A (1, 2, t) rank's layout on the one-rank group: two frame ranks
+    (the other a stand-in), the model group of t."""
+    return dataclasses.replace(sd15["ctx"], frame_ranks=(0, 1), model_group=object(),
+                               model_ranks=tuple(range(t)))
+
+
+def null_text(unet, cn, shard):
+    null_optimization(unet, CONFIG, SCHEDULE, empty(2, 1, F, LAT, LAT, 4), empty(1, 77, 768),
+                      empty(1, 77, 768), 1, 1, 1e-2, 7.5, compute_dtype="bfloat16",
+                      shard_ctx=shard)
+
+
+def auto_step(unet, cn, shard):
+    masks = prepare_injection_masks(empty(F, LAT, LAT), F)
+    denoise_segment(
+        unet, CONFIG, cn, CN_CONFIG, SCHEDULE, 50,
+        InjectionSpec.from_start_layer(10, mask_mode="auto", auto_token_idx=(1,)), 7.5, 1.0,
+        empty(2, F, LAT, LAT, 4), SCHEDULE.inference_timesteps(50)[4:5], empty(2, 77, 768),
+        empty(2, 77, 768), precompute_cond_embedding(cn, empty(2, F, 8 * LAT, 8 * LAT, 3)),
+        masks, shard_ctx=shard)
+
+
+def p2p_step(unet, cn, shard):
+    """An injected mask-mode step under the replace controller with
+    LocalBlend (phase 12's)."""
+    from motioneditor_tpu_torch.control.p2p import make_controller, make_local_blend
+    from motioneditor_tpu_torch.models.clip_text import StubTokenizer
+
+    prompts, tok = ["a girl is dancing", "a man is dancing"], StubTokenizer()
+    masks = prepare_injection_masks(empty(F, LAT, LAT), F)
+    maps = empty(_count_16x16_sites(LAT, LAT), 4 * F, 256, 77, dtype=torch.float32)
+    denoise_segment(
+        unet, CONFIG, cn, CN_CONFIG, SCHEDULE, 50, InjectionSpec.from_start_layer(10), 7.5, 1.0,
+        empty(2, F, LAT, LAT, 4), SCHEDULE.inference_timesteps(50)[4:5], empty(2, 77, 768),
+        empty(2, 77, 768), precompute_cond_embedding(cn, empty(2, F, 8 * LAT, 8 * LAT, 3)),
+        masks, shard_ctx=shard, p2p_controller=make_controller(prompts, tok, 50),
+        local_blend=make_local_blend(prompts, [["man"]] * 2, tok), seg_lo=4, maps_sum=maps)
+
+
+def train_step(stage, use_8bit):
+    def run(unet, cn, shard):
+        module = stage1 if stage == 1 else stage2
+        state = make_train_state(unet, module.TRAINABLE_MODULES,
+                                 make_optimizer(3e-5, use_8bit=use_8bit), frozen_dtype=BF16)
+        lat = empty(1, F, LAT, LAT, 4, dtype=torch.float32)
+        enc = empty(1, 77, 768, dtype=torch.float32)
+        kw = dict(remat=True, compute_dtype=BF16, shard_ctx=shard)
+        if stage == 1:
+            stage1.train_step_stage1(state, lat, enc, None, CONFIG, **kw)
+        else:
+            stage2.train_step_stage2(state, cn, lat, empty(1, F, 8 * LAT, 8 * LAT, 3), enc,
+                                     None, CONFIG, CN_CONFIG, **kw)
+    return run
+
+
+PATHS = {"null_text": null_text, "auto": auto_step, "p2p": p2p_step,
+         "stage1": train_step(1, False), "stage2": train_step(2, False),
+         "stage1_8bit": train_step(1, True), "stage2_8bit": train_step(2, True)}
+# 8-bit AdamW changes no launch and adds the same all-reduces on every
+# layout: one layout each
+CASES = [(t, frames, path) for t in (2, 4) for frames in (1, 2) for path in PATHS
+         if not path.endswith("_8bit") or (t, frames) == ((2, 1) if "1" in path else (4, 2))]
+
+
+@pytest.mark.parametrize("t,frames,path", CASES,
+                         ids=[f"{t}-{'1xT' if f == 1 else 'FxT'}-{p}" for t, f, p in CASES])
+def test_tp_paths_launches_and_all_reduces_per_step(sd15, t, frames, path, monkeypatch):
+    # the frame route's halo exchange, to a stand-in frame rank: no data
+    monkeypatch.setattr(dist, "P2POp", lambda *args: None)
+    monkeypatch.setattr(dist, "batch_isend_irecv", lambda ops: [])
+    unet, cn, tp_ctx = split(sd15, t)
+    shard = tp_ctx if frames == 1 else frame_route(sd15, t)
+    assert shard.shards_frames == (frames > 1)
+    if path.startswith("stage"):
+        with META:
+            unet = UNet3DConditionModel(CONFIG).to(BF16)
+        tp.shard_params_tp(unet, tp_ctx)
+    _build.reset_launch_counts()
+    tp.reset_collective_counts()
+    PATHS[path](unet, cn, shard)
+    assert dict(_build.launch_counts) == cs.tp_expected((1, frames, t))[path.split("_8")[0]]
+    assert tp.collective_counts["all_reduce"] == cs.TP_ALL_REDUCES_PER_STEP[path]
+    assert tp.collective_counts.get("broadcast", 0) == cs.TP_BROADCASTS_PER_STEP.get(
+        path.split("_8")[0], 0)
+    assert "all_gather" not in tp.collective_counts

@@ -162,10 +162,10 @@ def test_loaders_match_jax_bitwise(tmp_path, trees, fmt, variant):
     j_cn = JW.load_controlnet(osp.join(path, "controlnet"))
     j_adapter = JW.load_adapter_checkpoint(osp.join(path, "adapter.pth"))
     # the port
-    unet = W.load_sd15_unet(path, TINY)
-    vae = W.load_sd15_vae(path, VAEConfig(**VAE_KW))
-    text = W.load_sd15_text_encoder(path, CLIPTextConfig(**TEXT_KW))
-    cn = W.load_controlnet(osp.join(path, "controlnet"), controlnet_config(TINY))
+    unet = W.load_sd15_unet(path, TINY, device="cpu")
+    vae = W.load_sd15_vae(path, VAEConfig(**VAE_KW), device="cpu")
+    text = W.load_sd15_text_encoder(path, CLIPTextConfig(**TEXT_KW), device="cpu")
+    cn = W.load_controlnet(osp.join(path, "controlnet"), controlnet_config(TINY), device="cpu")
     W.load_adapter_checkpoint(osp.join(path, "adapter.pth"), unet.controlnet_adapter)
 
     in_file = _sd15_unet(unet_state_dict(trees["unet"]), with_adapter=variant == 1)
@@ -193,7 +193,7 @@ def test_loaded_unet_forward_matches_jax(tmp_path, trees):
     so the two forwards are the same function."""
     path = write_weights(tmp_path, trees, "safetensors", 0)
     j_unet = JW.load_sd15_unet(path, JAX_TINY)
-    unet = W.load_sd15_unet(path, TINY).eval()
+    unet = W.load_sd15_unet(path, TINY, device="cpu").eval()
     file_keys = set(_sd15_unet(unet_state_dict(trees["unet"])))
     carried = {k: v for k, v in unet_state_dict(j_unet).items() if k not in file_keys}
     assert carried and all(k.startswith("controlnet_adapter.") for k in carried)
@@ -238,7 +238,7 @@ def test_unet_loader_refuses(tmp_path, trees, fault):
            "partial_temporal": temporal + ".bias",
            "partial_adapter": "controlnet_adapter.body.0.ff_norm.bias"}[fault]
     with pytest.raises((KeyError, ValueError), match=key.replace(".", r"\.")):
-        W.load_sd15_unet(path, TINY)
+        W.load_sd15_unet(path, TINY, device="cpu")
 
 
 @pytest.mark.parametrize("which", ["vae", "controlnet", "adapter", "text"])
@@ -249,12 +249,13 @@ def test_other_loaders_refuse_an_unexpected_key(tmp_path, trees, which):
              "adapter": osp.join(path, "adapter.pth"),
              "text": osp.join(path, "text_encoder", "pytorch_model.bin")}
     _mutate(files[which], lambda sd: {**sd, "stray.weight": torch.zeros(2)})
-    load = {"vae": lambda: W.load_sd15_vae(path, VAEConfig(**VAE_KW)),
+    load = {"vae": lambda: W.load_sd15_vae(path, VAEConfig(**VAE_KW), device="cpu"),
             "controlnet": lambda: W.load_controlnet(osp.join(path, "controlnet"),
-                                                    controlnet_config(TINY)),
+                                                    controlnet_config(TINY), device="cpu"),
             "adapter": lambda: W.load_adapter_checkpoint(
                 files["adapter"], UNet3DConditionModel(TINY).controlnet_adapter),
-            "text": lambda: W.load_sd15_text_encoder(path, CLIPTextConfig(**TEXT_KW))}
+            "text": lambda: W.load_sd15_text_encoder(path, CLIPTextConfig(**TEXT_KW),
+                                                     device="cpu")}
     with pytest.raises((KeyError, RuntimeError), match="stray"):
         load[which]()
 
