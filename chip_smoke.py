@@ -56,6 +56,21 @@ Phases, each raising on failure:
               launch counts (every K1 and K2 launch on the tensor-core body),
               prints ms per step; then one more step under torch.profiler:
               the device's busy share and kernel time per bucket
+  4b. flops   one more step of phase 4 under ops/flop_count.py's
+              kernel_flop_counter and torch.utils.flop_counter's
+              FlopCounterMode (the cuBLAS / cuDNN part; it sees no ctypes
+              launch): the kernel flops must equal, as integers, the closed
+              form denoise_step_kernel_flops derives from the configuration,
+              entry by entry, and name the entries that launched (K1, K2,
+              K3); prints kernel and FlopCounterMode GFLOP/step, their sum
+              in TFLOP/step, TFLOP/s at phase 4's ms/step and the share of
+              the bf16 peak, each with the card's name and power limit
+              ("[flops]"); one step under utils/profiling.py's trace, whose
+              summarize_trace must list the tensor-core attention and the
+              TMA temporal families. The host frame loader
+              (data/native_loader.py) is not driven here: it needs the
+              libpng and libjpeg headers, which a GPU host may lack (the
+              dataset then takes its PIL + F.interpolate path)
   5. check    a tiny fp32 segment whose level-0 attention reaches the
               kernels, kernel path against the plain path on the card
   5b. check   a tiny fp32 null-text inversion (32x32 latents, 2 steps, 2
@@ -276,6 +291,8 @@ import subprocess
 import sys
 import time
 
+from motioneditor_tpu_torch.utils.profiling import K10_BUCKET, profile_step, union_seconds
+
 SEED = 0
 FRAMES = 8
 LATENT = 64  # 512 px
@@ -284,6 +301,7 @@ KERNEL_SHAPES = ((4096, 320), (1024, 640))  # (N, C) at 64x64 and 32x32 latents
 MODES = ("normal", "sparse_causal", "motion_frame", "dense")
 BWD_MODES = ("normal", "sparse_causal", "motion_frame")
 NULL_STEPS = 5  # phase 6's schedule
+INJECTION_START = 10  # the first injected transformer block of the edit
 LOGIT_CAP = 60.0  # the JAX bf16 kernels' score clamp (ops/video_flash.py _CAP)
 # K1, K2, K8, K9, K12, K13 and K4 launches in bf16 take the tensor-core body
 # (csrc/attention_tc.cu; K2, K9 and K13 its injection instantiation), K5's and
@@ -1337,7 +1355,7 @@ def phase_slice(device):
         torch.ones((FRAMES, LATENT, LATENT), device=device), FRAMES).items()}
     schedule = DiffusionSchedule()
     all_ts = schedule.inference_timesteps(50)
-    spec = InjectionSpec.from_start_layer(10)
+    spec = InjectionSpec.from_start_layer(INJECTION_START)
     torch.cuda.synchronize()
     log(f"[slice] models + inputs ready in {time.perf_counter() - t0:.1f} s")
 
@@ -1365,9 +1383,128 @@ def phase_slice(device):
                                  f"{per_step} per step x {len(steps)}")
     prof = profile_step(lambda: run(all_ts[4:5]))
     log(f"[slice] one more step under torch.profiler: {json.dumps(prof)}")
-    del unet, cn, out
-    torch.cuda.empty_cache()
-    return launches, ms_per_step, prof
+    del out
+    return launches, ms_per_step, prof, lambda: run(all_ts[4:5])
+
+
+def denoise_step_kernel_flops(config, frames: int, latent: int, start_layer: int) -> dict:
+    """The kernel flops of one injected denoise step of the SD-1.5 layout,
+    by entry, in closed form from the configuration: every attention site
+    that ops/attention.py routes to a kernel (N >= _FLASH_MIN_Q tokens for
+    K1 / K2, N >= _TEMPORAL_MIN_N for K3) at the JAX package's formula of
+    its kernel (ops/flop_count.py's table). The UNet runs the 4 rows
+    [ru, eu, rc, ec], motion-frame attn1 (K/V over 2N), from ``start_layer``
+    on the source rows' K1 and the edit rows' injection over 3N keys (K2),
+    and K3 on all 4 rows at every video block; the ControlNet runs the 2
+    edit rows, normal attn1; the adapter's 12 blocks, one per ControlNet
+    residual, run the 2 edit rows: sparse-causal attn (2N), the per-frame
+    cross-attention (N) and the causal temporal attention."""
+    from motioneditor_tpu_torch.ops.attention import _FLASH_MIN_Q, _TEMPORAL_MIN_N
+
+    f, ch, per = frames, config.block_out_channels, config.layers_per_block
+
+    def tokens(level):
+        return (latent >> level) ** 2
+
+    def k1(b, n, c, kv):
+        return 4 * b * f * n * kv * c  # score + P.V
+
+    flops = {"video_flash_attention": 0, "video_injection_attention": 0,
+             "temporal_flash_attention": 0}
+    # the UNet's transformer blocks in forward order: down levels 0-2, mid,
+    # up levels 2-0 (one block more per up level)
+    levels = [lvl for lvl in range(3) for _ in range(per)] + [3]
+    levels += [lvl for lvl in (2, 1, 0) for _ in range(per + 1)]
+    for layer, lvl in enumerate(levels):
+        n, c = tokens(lvl), ch[lvl]
+        if n >= _FLASH_MIN_Q:
+            if layer >= start_layer:
+                flops["video_flash_attention"] += k1(2, n, c, 2 * n)
+                flops["video_injection_attention"] += 4 * 2 * f * n * (3 * n) * c
+            else:
+                flops["video_flash_attention"] += k1(4, n, c, 2 * n)
+        if n >= _TEMPORAL_MIN_N:
+            flops["temporal_flash_attention"] += 4 * 4 * n * f * f * c
+    for lvl in range(3):  # the ControlNet's down blocks
+        if tokens(lvl) >= _FLASH_MIN_Q:
+            flops["video_flash_attention"] += per * k1(2, tokens(lvl), ch[lvl], tokens(lvl))
+    # the ControlNet's residuals: conv_in, then per down block its resnets'
+    # outputs and its downsampler's (at the next level, same channels)
+    residuals = [(0, ch[0])]
+    for i in range(4):
+        residuals += [(i, ch[i])] * per + ([(i + 1, ch[i])] if i < 3 else [])
+    for lvl, c in residuals:
+        n = tokens(lvl)
+        if n >= _FLASH_MIN_Q:
+            flops["video_flash_attention"] += k1(2, n, c, 2 * n) + k1(2, n, c, n)
+        if n >= _TEMPORAL_MIN_N:
+            flops["temporal_flash_attention"] += 4 * 2 * n * f * f * c
+    return flops
+
+
+def phase_flops(device, step, ms_per_step: float, smi: str) -> dict:
+    """Phase 4b: ``step()`` (one step of phase 4) under the kernel flop
+    counter and FlopCounterMode, then under utils/profiling.trace (see the
+    module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.models.unet import UNetConfig
+    from motioneditor_tpu_torch.ops.flop_count import kernel_flop_counter
+    from motioneditor_tpu_torch.utils.profiling import summarize_trace, trace
+
+    expected = denoise_step_kernel_flops(UNetConfig(), FRAMES, LATENT, INJECTION_START)
+    _build.reset_launch_counts()
+    with kernel_flop_counter() as kc, FlopCounterMode(display=False) as fc:
+        step()
+    torch.cuda.synchronize()
+    launched = {k for k, v in _build.launch_counts.items() if v and not k.endswith(".tc")}
+    if dict(kc.by_entry) != expected or kc.flops != sum(expected.values()):
+        raise AssertionError(f"kernel flops {dict(kc.by_entry)} (total {kc.flops}) != the "
+                             f"closed form {expected}")
+    if set(kc.by_entry) != launched:
+        raise AssertionError(f"counted entries {sorted(kc.by_entry)} != launched "
+                             f"{sorted(launched)}")
+    library = fc.get_total_flops()
+    total = kc.flops + library
+    rate = total / (ms_per_step / 1e3)
+    out = {"kernel_gflop_per_step": kc.flops / 1e9, "kernel_gflop_by_entry":
+           {k: v / 1e9 for k, v in kc.by_entry.items()},
+           "flop_counter_mode_gflop_per_step": library / 1e9,
+           "tflop_per_step": total / 1e12, "ms_per_step": ms_per_step,
+           "tflops": rate / 1e12, "mfu": rate / PEAK_FLOPS["bfloat16"], "card": smi}
+    log(f"[flops] kernel GFLOP/step {out['kernel_gflop_per_step']:.3f} (the closed form's, "
+        f"{json.dumps(out['kernel_gflop_by_entry'])}) | {smi}")
+    log(f"[flops] FlopCounterMode GFLOP/step {out['flop_counter_mode_gflop_per_step']:.3f} "
+        f"(cuBLAS / cuDNN and eager attention; no ctypes launch) | {smi}")
+    log(f"[flops] together {out['tflop_per_step']:.4f} TFLOP/step | {smi}")
+    log(f"[flops] {out['tflops']:.2f} TFLOP/s at phase 4's {ms_per_step:.1f} ms/step | {smi}")
+    log(f"[flops] {100 * out['mfu']:.2f}% of the {PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s "
+        f"bf16 peak | {smi}")
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    log_dir = tempfile.mkdtemp(prefix="phase4b_trace_", dir=os.path.join(REPO, "build"))
+    try:
+        with trace(log_dir):
+            step()
+        summary = summarize_trace(log_dir, top=10 ** 6).splitlines()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    log("[flops] summarize_trace of one more step, the first 12 families (names cut):\n"
+        + "\n".join(line[:120] for line in summary[:13]))
+    families = {line.split(None, 1)[1]: float(line.split(None, 1)[0]) for line in summary[1:]}
+    for family in ("attention_tc", "temporal_attention_tma"):
+        found = {k: v for k, v in families.items() if family in k}
+        if not found:
+            raise AssertionError(f"summarize_trace lists no {family} family")
+        log(f"[flops] summarize_trace's {family} families (ms): {json.dumps(found)}")
+        out[f"trace_ms_{family}"] = sum(found.values())
+    out["trace_families"] = len(families)
+    return out
 
 
 def build_tiny_models(device, seed: int):
@@ -3366,16 +3503,6 @@ def timed_steps(fn, steps: int, barrier):
     return (time.perf_counter() - t0) * 1e3 / steps, out
 
 
-def union_seconds(intervals) -> float:
-    """Length of the union of (start, end) intervals given in microseconds."""
-    total, reach = 0.0, float("-inf")
-    for start, end in sorted(intervals):
-        if end > reach:
-            total += end - max(start, reach)
-            reach = end
-    return total / 1e6
-
-
 def device_busy_share(fn) -> dict:
     """The shares of the wall time of one call of ``fn`` (which ends in a
     synchronize) in which the device ran a compute kernel, and an NCCL
@@ -3396,68 +3523,6 @@ def device_busy_share(fn) -> dict:
     compute = [(e.time_range.start, e.time_range.end) for e in kernels
                if "nccl" not in e.name.lower()]
     return {"compute": union_seconds(compute) / wall, "nccl": union_seconds(nccl) / wall}
-
-
-# device-time buckets of a profiled step: the first whose substrings the
-# kernel's name contains (lower case)
-K10_BUCKET = "K10 GroupNorm pair statistics (pair_stats)"
-PROFILE_BUCKETS = (
-    ("K4 forward with lse (attention_tc_lse)", ("attention_tc_lse",)),
-    ("K5 dq (attention_tc_dq)", ("attention_tc_dq",)),
-    ("K6 dk/dv (attention_tc_dkv)", ("attention_tc_dkv",)),
-    ("K7 temporal backward (temporal_bwd)", ("temporal_bwd",)),
-    ("K2/K13 injection (attention_tc_inj)", ("attention_tc_inj",)),
-    ("tensor-core attention, K1/K8/K12 (attention_tc)", ("attention_tc",)),
-    ("CUDA-core K1/K2/K4/K12/K13, fp32 (video_attention_kernel)", ("video_attention_kernel",)),
-    ("K3/K14 temporal forward (temporal_attention_tma)", ("temporal_attention",)),
-    ("K8/K9 CUDA-core body (split_attention_kernel)", ("split_attention",)),
-    ("cuBLAS / CUTLASS matmuls", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
-    ("cuDNN convs (+ layout kernels)", ("conv", "cudnn", "implicit", "nchw", "nhwc")),
-    ("copies / cat / index", ("copy", "cat", "index", "gather", "scatter")),
-    (K10_BUCKET, ("pair_stats",)),
-    ("K11 add + LayerNorm (add_layer_norm)", ("add_layer_norm",)),
-    ("norm and other reductions", ("norm", "welford", "reduce")),
-    ("softmax", ("softmax",)),
-    ("elementwise", ("elementwise", "vectorized", "unrolled", "pointwise")),
-)
-
-
-def profile_step(fn, top: int = 0) -> dict:
-    """One call of ``fn`` (one step, ending in a synchronize) under
-    torch.profiler: wall ms, the device's busy share (the union of kernel
-    intervals over the wall time), kernel time in ms and kernels per bucket;
-    with ``top``, the ``top`` kernels by total time (ms, launches)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    buckets: dict = {}
-    launches: dict = {}
-    for e in kernels:
-        name = e.name.lower()
-        bucket = next((b for b, keys in PROFILE_BUCKETS if any(k in name for k in keys)),
-                      "other")
-        buckets[bucket] = buckets.get(bucket, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-        launches[bucket] = launches.get(bucket, 0) + 1
-    busy = union_seconds([(e.time_range.start, e.time_range.end) for e in kernels]) / wall
-    out = {"wall_ms": wall * 1e3, "busy_share": busy, "kernel_ms": sum(buckets.values()),
-           "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
-           "launches": launches}
-    if top:
-        by_name: dict = {}
-        for e in kernels:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
-        out["top_kernels"] = {name[:80]: v for name, v in
-                              sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]}
-    return out
 
 
 def sass_mma_counts(library) -> dict:
@@ -5132,7 +5197,12 @@ def main() -> int:
         f"{k13['ms']:.3f} ms; CUDA-core bodies {k2['cuda_core_ms']:.3f} and "
         f"{k13['cuda_core_ms']:.3f} ms; SDPA over the 5N injected keys "
         f"{k2['library_ms']:.3f} and {k13['library_ms']:.3f} ms")
-    launches, ms_per_step, slice_profile = phase_slice(device)
+    launches, ms_per_step, slice_profile, slice_step = phase_slice(device)
+    t0 = time.perf_counter()
+    flops_metrics = phase_flops(device, slice_step, ms_per_step, smi)
+    del slice_step
+    torch.cuda.empty_cache()
+    log(f"[flops] done in {time.perf_counter() - t0:.1f} s")
     phase_check(device)
     phase_null_check(device)
     paths, null_metrics = phase_null_text(device)
@@ -5247,7 +5317,8 @@ def main() -> int:
                if k.startswith(("scaled_", "ms_", "bound_ms_", "library_ms_", "gate_"))
                or k.endswith("_32x32")},
         })
-    print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, **null_metrics,
+    print(json.dumps({"kernels": kernels, "slice_ms_per_step": ms_per_step, "flops": flops_metrics,
+                      **null_metrics,
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
                       "p2p": p2p_metrics, "eval": eval_metrics, "weights": weights_metrics,
                       "prep": prep_metrics, "masks": masks_metrics,

@@ -1,7 +1,11 @@
 """VideoDataset, the host-side loader for the data/case-N layout (a copy of
-motioneditor_tpu/data/dataset.py for the port, on its PIL decode path;
-the native frame loader is not ported). PIL is imported when frames are
-read. Produces channel-last numpy arrays:
+motioneditor_tpu/data/dataset.py for the port). Frames are decoded and
+resized through the host frame loader (data/native_loader.py) as JAX's
+default path does; where it cannot be built, through PIL and
+``F.interpolate``, which resize alike (bilinear, align_corners=False, no
+antialias; masks nearest). ``decoder`` records which ran for the last
+item: "native" or "pil". PIL is imported only on that path. Produces
+channel-last numpy arrays:
 
   pixel_values      [F, H, W, 3] in [-1, 1]   (bilinear resize)
   source_conditions {cond: [F, H, W, 3] in [0, 1]}
@@ -22,24 +26,27 @@ from glob import glob
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from motioneditor_tpu_torch.data import native_loader as nl
 
 
 def _bilinear_resize(img: np.ndarray, size) -> np.ndarray:
-    """Per-channel PIL bilinear resize of an [H, W, C] float image."""
-    from PIL import Image
-
-    h, w = size
-    chans = [
-        np.asarray(Image.fromarray(img[..., c]).resize((w, h), Image.BILINEAR), np.float32)
-        for c in range(img.shape[-1])
-    ]
-    return np.stack(chans, axis=-1)
+    """Bilinear resize of an [H, W, C] float image with align_corners=False
+    and no antialias (the reference's F.interpolate and the frame loader's
+    resize; PIL's BILINEAR antialiases when it shrinks), fp32 on the CPU."""
+    x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).permute(2, 0, 1)[None]
+    y = F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False, antialias=False)
+    return y[0].permute(1, 2, 0).numpy()
 
 
 def _nearest_resize(img: np.ndarray, size) -> np.ndarray:
+    """Nearest resize selecting source row floor(y * H / h), in integers as
+    the frame loader does."""
     h, w = size
-    rows = np.floor(np.arange(h) * (img.shape[0] / h)).astype(np.int64)
-    cols = np.floor(np.arange(w) * (img.shape[1] / w)).astype(np.int64)
+    rows = np.arange(h) * img.shape[0] // h
+    cols = np.arange(w) * img.shape[1] // w
     return img[rows][:, cols]
 
 
@@ -105,6 +112,7 @@ class VideoDataset:
         self.n_sample_frames = n_sample_frames
         self.sample_start_idx = sample_start_idx
         self.sample_frame_rate = sample_frame_rate
+        self.decoder: Optional[str] = None  # "native" or "pil", set by __getitem__
 
     def __len__(self) -> int:
         return 1
@@ -117,27 +125,36 @@ class VideoDataset:
         sample_index = video_indices[start:start + self.n_sample_frames]
         names = [self.frame_list[fi] for fi in sample_index]
         size = (self.height, self.width)
+        decoders = set()
 
-        def load_rgb(paths):
+        def load(paths, mode=nl.MODE_RGB_BILINEAR):
+            arr = nl.load_frames(paths, *size, mode=mode) if nl.available() else None
+            decoders.add("pil" if arr is None else "native")
+            if arr is not None:
+                return arr
+            if mode == nl.MODE_GRAY_NEAREST:
+                return np.stack([_nearest_resize(_read_image(p, "L"), size)[..., None]
+                                 for p in paths])
             return np.stack([_bilinear_resize(_read_image(p), size) for p in paths])
 
-        frames = load_rgb([osp.join(self.video_path, n + self.video_suffix) for n in names])
+        frames = load([osp.join(self.video_path, n + self.video_suffix) for n in names])
         if self.source_mask_dir:
-            masks = np.stack([
-                _nearest_resize(_read_image(osp.join(self.source_mask_dir, n + ".png"), "L"), size)
-                for n in names
-            ]) / 255.0
+            masks = load([osp.join(self.source_mask_dir, n + ".png") for n in names],
+                         nl.MODE_GRAY_NEAREST)[..., 0] / 255.0
         else:
             masks = np.ones((len(names),) + size, np.float32)
 
         def load_conditions(dirs):
-            return {c: load_rgb([osp.join(dirs[c], n + self.condition_suffix) for n in names])
+            return {c: load([osp.join(dirs[c], n + self.condition_suffix) for n in names])
                     / 255.0 for c in self.condition}
 
+        source_conditions = load_conditions(self.source_condition_path)
+        target_conditions = load_conditions(self.target_condition_path)
+        self.decoder = "pil" if "pil" in decoders else "native"
         return {
             "pixel_values": frames / 127.5 - 1.0,
-            "source_conditions": load_conditions(self.source_condition_path),
-            "target_conditions": load_conditions(self.target_condition_path),
+            "source_conditions": source_conditions,
+            "target_conditions": target_conditions,
             "source_masks": masks,
             "sample_indices": np.asarray(sample_index, np.int64),
             "prompt": self.prompt,

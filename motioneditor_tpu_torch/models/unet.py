@@ -39,7 +39,7 @@ from motioneditor_tpu_torch.models.layers import (
     upsample_conv3d_2x,
     zero_init,
 )
-from motioneditor_tpu_torch.ops import fused_norm
+from motioneditor_tpu_torch.ops import flop_count, fused_norm
 from motioneditor_tpu_torch.ops.attention import (
     DENSE,
     MOTION_FRAME,
@@ -409,7 +409,9 @@ def unet_apply(
     def checkpointed(fn):
         if not remat:
             return fn
-        return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        # the recompute in the backward counts no kernel flops (ops/flop_count.py)
+        return lambda *args: torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=flop_count.checkpoint_contexts)
 
     @checkpointed
     def res(rp, hh):

@@ -44,6 +44,7 @@ from typing import Optional
 import torch
 
 from motioneditor_tpu_torch import _build
+from motioneditor_tpu_torch.ops import flop_count
 from motioneditor_tpu_torch.ops.attention import sdpa
 from motioneditor_tpu_torch.ops.video_flash import (
     KernelWithPlainVJP,
@@ -132,6 +133,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     over q's lead dims. Returns q's shape and dtype; differentiable."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    # 4 prod(lead) nq kv_len d
+    flop_count.add_kernel_flops(4 * q.numel() * k.shape[-2], "flash_attention")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     if needs_grad(q, k, v):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from motioneditor_tpu_torch import _build
+from motioneditor_tpu_torch.ops import flop_count
 from motioneditor_tpu_torch.models.layers import layer_norm_affine
 from motioneditor_tpu_torch.ops.video_flash import KernelWithPlainVJP, needs_grad
 from motioneditor_tpu_torch.utils.runtime import env_flag
@@ -43,6 +44,8 @@ def add_layer_norm(norm, tokens: torch.Tensor, delta: torch.Tensor, eps: float =
     """(tokens + delta, LayerNorm(tokens + delta)) over [B, F, N, C], with the
     LayerNorm module ``norm``'s weight and bias; differentiable."""
     w, b = norm.weight, norm.bias
+    # the add + statistics + normalize this replaces: ~8 elementwise flops an element
+    flop_count.add_kernel_flops(8 * tokens.numel(), "add_layer_norm")
     if tokens.device.type == "cpu":
         return add_layer_norm_plain(tokens, delta, w, b, eps)
     name = "add_layer_norm"

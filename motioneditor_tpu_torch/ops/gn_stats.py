@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from motioneditor_tpu_torch import _build
+from motioneditor_tpu_torch.ops import flop_count
 from motioneditor_tpu_torch.utils.runtime import env_flag
 
 
@@ -149,6 +150,8 @@ def channel_pair_stats(a: torch.Tensor, b: torch.Tensor):
     (views of one [2, B, C] buffer). Pass ``b is a`` for the forward
     statistics: the kernel then reads the input once. One launch; counts
     ``channel_pair_stats`` and, on the 16-byte body, ``.vec``."""
+    # JAX's count: 1 add for sum a, a mul and an add for sum a*b, per element
+    flop_count.add_kernel_flops(3 * a.numel(), "channel_pair_stats")
     if a.device.type == "cpu":
         return channel_pair_stats_plain(a, b)
     return _pair_stats_kernel(a, b)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from motioneditor_tpu_torch import _build
+from motioneditor_tpu_torch.ops import flop_count
 from motioneditor_tpu_torch.ops.attention import sdpa
 from motioneditor_tpu_torch.ops.flash_attention import _INJECTION_CODE, launch_split_attention
 from motioneditor_tpu_torch.ops.video_flash import KernelWithPlainVJP, needs_grad
@@ -57,6 +58,10 @@ def fused_injection_attention(q, k_src, v_src, mask, k_tgt, v_tgt, scale: float)
     source-row motion-frame keys; mask [F, Ns] fg mask over the source keys
     of each frame; k_tgt / v_tgt [B, F, H, Nt, D] the edit rows' current-frame
     keys. Returns q's shape and dtype; differentiable."""
+    # score + P.V over the [2 Ns fg/bg-src + Nt tgt] virtual concatenation:
+    # 4 b f h nq (2 ns + nt) d
+    flop_count.add_kernel_flops(4 * q.numel() * (2 * k_src.shape[-2] + k_tgt.shape[-2]),
+                                "fused_injection_attention")
     if q.device.type == "cpu":
         return fused_injection_attention_plain(q, k_src, v_src, mask, k_tgt, v_tgt, scale)
     name = "fused_injection_attention"

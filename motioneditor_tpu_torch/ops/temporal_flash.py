@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from motioneditor_tpu_torch import _build
+from motioneditor_tpu_torch.ops import flop_count
 
 MAX_FRAMES = 32
 MAX_HEAD_DIM = 160
@@ -216,6 +217,8 @@ def temporal_flash_attention(q, k, v, scale: float, heads: int,
                              causal: bool = True) -> torch.Tensor:
     """Temporal attention over [B, F, N, C] in the native token layout;
     differentiable."""
+    # per site F x F over all heads: 4 b n f f c
+    flop_count.add_kernel_flops(4 * q.numel() * q.shape[1], "temporal_flash_attention")
     if q.device.type == "cpu":
         return temporal_flash_attention_plain(q, k, v, scale, heads, causal)
     _check("temporal_flash_attention", q, heads, k, v)

@@ -55,6 +55,7 @@ import torch
 import torch.utils.checkpoint
 
 from motioneditor_tpu_torch import _build
+from motioneditor_tpu_torch.ops import flop_count
 from motioneditor_tpu_torch.ops.attention import (
     DENSE,
     MOTION_FRAME,
@@ -170,6 +171,10 @@ class KernelWithPlainVJP(torch.autograd.Function):
 def video_flash_attention(q, k, v, mode: str, scale: float, heads: int) -> torch.Tensor:
     """Spatial video attention on [B, F, N, C] with in-kernel head packing
     and frame-selected K/V. Returns q's shape and dtype; differentiable."""
+    # score + P.V: 4 b f n kv c, kv = (F for dense, 2 for the frame-selection
+    # modes, 1 for normal) x N keys
+    kv = (q.shape[1] if mode == DENSE else 1 if mode == NORMAL else 2) * q.shape[2]
+    flop_count.add_kernel_flops(4 * q.numel() * kv, "video_flash_attention")
     if q.device.type == "cpu":
         return video_flash_attention_plain(q, k, v, mode, scale, heads)
     name = "video_flash_attention"
@@ -239,6 +244,9 @@ def video_injection_attention(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale: fl
     """Fused fg/bg injection attention of the edit rows on [B, F, N, C];
     ``mask`` is the [F, N] fg mask, indexed by the key's frame.
     Differentiable through the plain version's VJP."""
+    # over the [2N fg/bg-src + N tgt] keys: 4 b f n 3n c
+    flop_count.add_kernel_flops(4 * q_tgt.numel() * 3 * q_tgt.shape[2],
+                                "video_injection_attention")
     if q_tgt.device.type == "cpu":
         return video_injection_attention_plain(
             q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale, heads)
@@ -331,6 +339,8 @@ def video_flash_attention_kv(q, k, v, scale: float, heads: int) -> torch.Tensor:
     """Packed-head attention of q [B, F, N, C] over an explicit K/V source
     [B, Fk, M, C], Fk in {1, F}: query frame f reads K/V frame
     (Fk == 1 ? 0 : f). Returns q's shape and dtype; differentiable."""
+    # 4 b f n m c
+    flop_count.add_kernel_flops(4 * q.numel() * k.shape[2], "video_flash_attention_kv")
     if q.device.type == "cpu":
         return video_flash_attention_kv_plain(q, k, v, scale, heads)
     name = "video_flash_attention_kv"
@@ -403,6 +413,8 @@ def video_injection_attention_kv(q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale:
     with the source tokens (the halo-built [prev | cur] of the frame-sharded
     path), then the target-row K/V [B, F, N, C] of the current frame.
     Differentiable through the plain version's VJP."""
+    flop_count.add_kernel_flops(4 * q_tgt.numel() * (k_src.shape[2] + q_tgt.shape[2]),
+                                "video_injection_attention_kv")  # JAX's 4 b f n (m_src + n) c
     if q_tgt.device.type == "cpu":
         return video_injection_attention_kv_plain(
             q_tgt, k_src, v_src, k_tgt, v_tgt, mask, scale, heads)
