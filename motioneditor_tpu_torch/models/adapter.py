@@ -37,6 +37,7 @@ from motioneditor_tpu_torch.ops.attention import (
     split_heads,
     temporal_self_attention_video,
 )
+from motioneditor_tpu_torch.utils.profiling import spanned
 
 ADAPTER_HEADS = 8
 NUM_ADAPTER_BLOCKS = 12
@@ -126,6 +127,7 @@ def adapter_block_apply(p: AdapterBlock, x, source_hidden, use_flash: bool = Tru
     return tokens.reshape(b, f, h, w, c) + conv
 
 
+@spanned("me.adapter")
 def control_adapter_apply(p: ControlAdapter, x_list: Sequence[torch.Tensor],
                           source_hidden_states: Sequence[torch.Tensor],
                           use_flash: bool = True, shard=None) -> List[torch.Tensor]:

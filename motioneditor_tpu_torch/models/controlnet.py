@@ -28,6 +28,7 @@ from motioneditor_tpu_torch.models.unet import (
     transformer2d,
 )
 from motioneditor_tpu_torch.ops.attention import NORMAL
+from motioneditor_tpu_torch.utils.profiling import spanned
 
 COND_EMBED_CHANNELS = (16, 32, 96, 256)
 
@@ -87,6 +88,7 @@ def precompute_cond_embedding(model: ControlNetModel, controlnet_cond: torch.Ten
     return emb.reshape(b, f, *emb.shape[1:])
 
 
+@spanned("me.controlnet")
 def controlnet_apply(
     model: ControlNetModel,
     config: UNetConfig,

@@ -49,6 +49,7 @@ from motioneditor_tpu_torch.ops.attention import (
     spatial_self_attention,
     temporal_self_attention_video,
 )
+from motioneditor_tpu_torch.utils.profiling import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,6 +348,7 @@ def time_embedding(m: nn.Module, config: UNetConfig, timesteps, batch: int, dtyp
     return timestep_embedding_mlp(m.time_embedding, t_emb.to(dtype))
 
 
+@spanned("me.unet")
 def unet_apply(
     model: UNet3DConditionModel,
     config: UNetConfig,

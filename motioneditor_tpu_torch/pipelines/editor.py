@@ -69,6 +69,7 @@ from motioneditor_tpu_torch.parallel.mesh import FrameShardingCtx, gather_video,
 from motioneditor_tpu_torch.parallel.tp import broadcast_from_model
 from motioneditor_tpu_torch.schedulers import DiffusionSchedule, ddim_inverse_step, ddim_step
 from motioneditor_tpu_torch.training.common import mse
+from motioneditor_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -98,11 +99,12 @@ def ddim_invert(
     lat = latents
     all_latents = [latents]
     for i in range(num_steps):
-        t = int(ts[num_steps - i - 1])
-        eps = unet_apply(unet, unet_config, lat, t, cond_b, normal_infer=normal_infer,
-                         use_flash=use_flash, shard_ctx=shard_ctx)
-        lat = ddim_inverse_step(schedule, eps, t, lat, num_steps)
-        all_latents.append(lat)
+        with span("me.invert_step"):
+            t = int(ts[num_steps - i - 1])
+            eps = unet_apply(unet, unet_config, lat, t, cond_b, normal_infer=normal_infer,
+                             use_flash=use_flash, shard_ctx=shard_ctx)
+            lat = ddim_inverse_step(schedule, eps, t, lat, num_steps)
+            all_latents.append(lat)
     return lat, torch.stack(all_latents)
 
 
@@ -330,33 +332,34 @@ def denoise_segment(
     f = latents.shape[1]
     lat = latents
     for idx, t in enumerate(seg_ts):
-        t = int(t)
-        u = uncond if seg_uncond is None else seg_uncond[idx].expand(cond.shape).to(cond.dtype)
-        latent_in = torch.cat([lat, lat], dim=0)
-        text_in = torch.cat([u, cond], dim=0)
-        edit_rows = [1, 3]  # ControlNet runs on the edit rows only
-        down_res, mid_res = controlnet_apply(
-            controlnet, controlnet_config, latent_in[edit_rows], t, text_in[edit_rows],
-            cond_embedding, conditioning_scale=controlnet_scale, use_flash=use_flash)
-        zero_mid = torch.zeros_like(mid_res[:1])
-        mid4 = torch.cat([zero_mid, mid_res[:1], zero_mid, mid_res[1:2]], dim=0)
-        step_maps = [] if local_blend is not None else None
-        editor = None if p2p_controller is None else p2p_controller.prob_editor(seg_lo + idx)
-        eps = unet_apply(
-            unet, unet_config, latent_in, t, text_in,
-            injection=injection_spec, injection_masks=masks,
-            down_block_additional_residuals=down_res,
-            mid_block_additional_residual=mid4, use_flash=use_flash, shard_ctx=shard_ctx,
-            prob_editor=editor, cross_maps_out=step_maps)
-        if local_blend is not None:
-            maps_sum += torch.stack(step_maps)
-        eps_u, eps_c = eps.chunk(2, dim=0)
-        eps_g = eps_u + guidance_scale * (eps_c - eps_u)
-        lat = ddim_step(schedule, eps_g, t, lat, num_steps)
-        if local_blend is not None:
-            # the conditional rows [recon_c, edit_c]: the map store sees only
-            # the conditional half
-            lat = local_blend(lat, list(maps_sum[:, 2 * f:]))
+        with span("me.denoise_step"):
+            t = int(t)
+            u = uncond if seg_uncond is None else seg_uncond[idx].expand(cond.shape).to(cond.dtype)
+            latent_in = torch.cat([lat, lat], dim=0)
+            text_in = torch.cat([u, cond], dim=0)
+            edit_rows = [1, 3]  # ControlNet runs on the edit rows only
+            down_res, mid_res = controlnet_apply(
+                controlnet, controlnet_config, latent_in[edit_rows], t, text_in[edit_rows],
+                cond_embedding, conditioning_scale=controlnet_scale, use_flash=use_flash)
+            zero_mid = torch.zeros_like(mid_res[:1])
+            mid4 = torch.cat([zero_mid, mid_res[:1], zero_mid, mid_res[1:2]], dim=0)
+            step_maps = [] if local_blend is not None else None
+            editor = None if p2p_controller is None else p2p_controller.prob_editor(seg_lo + idx)
+            eps = unet_apply(
+                unet, unet_config, latent_in, t, text_in,
+                injection=injection_spec, injection_masks=masks,
+                down_block_additional_residuals=down_res,
+                mid_block_additional_residual=mid4, use_flash=use_flash, shard_ctx=shard_ctx,
+                prob_editor=editor, cross_maps_out=step_maps)
+            if local_blend is not None:
+                maps_sum += torch.stack(step_maps)
+            eps_u, eps_c = eps.chunk(2, dim=0)
+            eps_g = eps_u + guidance_scale * (eps_c - eps_u)
+            lat = ddim_step(schedule, eps_g, t, lat, num_steps)
+            if local_blend is not None:
+                # the conditional rows [recon_c, edit_c]: the map store sees only
+                # the conditional half
+                lat = local_blend(lat, list(maps_sum[:, 2 * f:]))
     return lat
 
 

@@ -32,6 +32,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 import torch
 from torch import nn
 
+from motioneditor_tpu_torch.utils.profiling import spanned
+
 
 def module_path(name: str) -> str:
     """Drop the leaf parameter name (weight / bias) -> module path."""
@@ -98,6 +100,7 @@ class ClippedOptimizer:
     def params(self) -> List[torch.Tensor]:
         return [p for g in self.inner.param_groups for p in g["params"]]
 
+    @spanned("me.optimizer")
     def step(self, shard_ctx=None) -> torch.Tensor:
         """Clip and step; returns the gradients' global norm before clipping.
         A trainable that the loss does not reach gets a zero gradient, so it

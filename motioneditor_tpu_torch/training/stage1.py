@@ -34,6 +34,7 @@ from motioneditor_tpu_torch.training.common import (
     mse,
     sum_step_over_shards,
 )
+from motioneditor_tpu_torch.utils.profiling import span, spanned
 
 TRAINABLE_MODULES = ("attn1.to_q", "attn2.to_q", "attn_temp")
 
@@ -58,6 +59,7 @@ def stage1_loss(model: UNet3DConditionModel, unet_config: UNetConfig, latents: t
     return mse(pred, target, shard_ctx)
 
 
+@spanned("me.train_step")
 def train_step_stage1(
     state: TrainState,
     latents: torch.Tensor,
@@ -85,15 +87,17 @@ def train_step_stage1(
     state.optimizer.zero_grad()
     total = 0.0
     for _ in range(accum_steps):
-        if shard_ctx is None:
-            noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)
-        else:
-            noise, t = draw_noise_sharded(latents, generator, schedule.num_train_timesteps,
-                                          shard_ctx, draw_noise)
-        loss = stage1_loss(state.model, unet_config, latents, encoder_hidden_states, noise, t,
-                           schedule, prediction_type, use_flash, remat, compute_dtype,
-                           shard_ctx)
-        (loss / accum_steps).backward()
+        with span("me.forward"):
+            if shard_ctx is None:
+                noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)
+            else:
+                noise, t = draw_noise_sharded(latents, generator, schedule.num_train_timesteps,
+                                              shard_ctx, draw_noise)
+            loss = stage1_loss(state.model, unet_config, latents, encoder_hidden_states, noise,
+                               t, schedule, prediction_type, use_flash, remat, compute_dtype,
+                               shard_ctx)
+        with span("me.backward"):
+            (loss / accum_steps).backward()
         total = total + loss.detach()
     if shard_ctx is not None:
         total = sum_step_over_shards(total, state.optimizer, shard_ctx)

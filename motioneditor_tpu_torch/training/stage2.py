@@ -39,6 +39,7 @@ from motioneditor_tpu_torch.training.common import (
     mse,
     sum_step_over_shards,
 )
+from motioneditor_tpu_torch.utils.profiling import span, spanned
 
 TRAINABLE_MODULES = ("controlnet_adapter",)
 
@@ -70,6 +71,7 @@ def stage2_loss(model: UNet3DConditionModel, controlnet: ControlNetModel,
     return mse(pred, target, shard_ctx)
 
 
+@spanned("me.train_step")
 def train_step_stage2(
     state: TrainState,
     controlnet: ControlNetModel,
@@ -94,15 +96,17 @@ def train_step_stage2(
     ``controlnet`` come split by parallel/tp.py ``shard_params_tp``, and every
     model rank passes the same blocks and generator state."""
     state.optimizer.zero_grad()
-    if shard_ctx is None:
-        noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)
-    else:
-        noise, t = draw_noise_sharded(latents, generator, schedule.num_train_timesteps,
-                                      shard_ctx, draw_noise)
-    loss = stage2_loss(state.model, controlnet, unet_config, controlnet_config, latents,
-                       source_skeleton, encoder_hidden_states, noise, t, schedule,
-                       prediction_type, use_flash, remat, compute_dtype, shard_ctx)
-    loss.backward()
+    with span("me.forward"):
+        if shard_ctx is None:
+            noise, t = draw_noise(latents, generator, schedule.num_train_timesteps)
+        else:
+            noise, t = draw_noise_sharded(latents, generator, schedule.num_train_timesteps,
+                                          shard_ctx, draw_noise)
+        loss = stage2_loss(state.model, controlnet, unet_config, controlnet_config, latents,
+                           source_skeleton, encoder_hidden_states, noise, t, schedule,
+                           prediction_type, use_flash, remat, compute_dtype, shard_ctx)
+    with span("me.backward"):
+        loss.backward()
     loss = loss.detach()
     if shard_ctx is not None:
         loss = sum_step_over_shards(loss, state.optimizer, shard_ctx)

@@ -1,7 +1,8 @@
 """Tracing and profiling utilities (the port of
 motioneditor_tpu/utils/profiling.py): torch.profiler in place of
-jax.profiler, the same per-op-family summary, and the per-step profile
-chip_smoke.py prints (``profile_step`` over ``PROFILE_BUCKETS``).
+jax.profiler, the same per-op-family summary, the per-step profile
+chip_smoke.py prints (``profile_step`` over ``PROFILE_BUCKETS``), and the
+program's spans (``span``).
 
 Typical use:
 
@@ -13,19 +14,39 @@ Typical use:
 ``trace`` synchronizes the card before it stops, so the trace holds every
 kernel of the block; ``timeit`` synchronizes the output's device and reads
 no value back to the host.
+
+Spans mark the program's layers: the steps of the denoise loop, the
+inversion and training (``STEP_SPANS``), training's ``me.forward``,
+``me.backward`` and ``me.optimizer``, and the ``me.unet``,
+``me.controlnet`` and ``me.adapter`` forwards.
+Outside a torch profiler ``span`` is one flag check and a shared null
+context. Inside one (``trace`` or any ``torch.profiler.profile``) a span
+is a host-only range of the profiler's trace (function scope: the
+profiler gives it no device-side copy), and ``span_records()`` returns
+each span's record with its device time between two CUDA events:
+
+    with trace("build/my_trace"):
+        step(...)
+    for r in span_records():
+        print(r.name, r.parent, r.step, r.device_ms)
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import functools
 import glob
 import gzip
 import json
 import re
+import threading
 import time
+from typing import List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # the chrome-trace categories of work on the card; a trace with none of
 # them (a CPU run) has its operators summarized instead
@@ -49,6 +70,119 @@ def trace(log_dir: str):
         yield
         if cuda:
             torch.cuda.synchronize()
+
+
+# the spans around one step of the denoise loop, the inversion and training;
+# the spans inside one share its ordinal
+STEP_SPANS = ("me.denoise_step", "me.invert_step", "me.train_step")
+
+_NULL_SPAN = contextlib.nullcontext()
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One span entered under a profiler: its name, the name of the span it
+    opened in (None at the top), the ordinal of its step span (shared by the
+    step's spans; None outside a step), its host interval
+    (``time.perf_counter_ns``) and, on the card, the device milliseconds
+    between CUDA events recorded on the current stream at its entry and exit
+    (``span_records`` resolves them)."""
+
+    name: str
+    parent: Optional[str]
+    step: Optional[int]
+    host_start_ns: int
+    host_end_ns: int = 0
+    device_ms: Optional[float] = None
+    events: Optional[tuple] = dataclasses.field(default=None, repr=False)
+
+
+class _SpanState(threading.local):
+    def __init__(self):
+        self.open: List[SpanRecord] = []
+
+
+_records: List[SpanRecord] = []
+_state = _SpanState()
+_step = 0  # step spans entered since the last clear_span_records()
+
+
+class _Span:
+    """A profiled span: a function-scope ``_RecordFunctionFast`` range and a
+    ``SpanRecord``."""
+
+    __slots__ = ("name", "range", "record")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _step
+        open_ = _state.open
+        parent = open_[-1] if open_ else None
+        if self.name in STEP_SPANS:
+            _step += 1
+            step = _step
+        else:
+            step = parent.step if parent is not None else None
+        self.range = torch._C._profiler._RecordFunctionFast(self.name)
+        self.range.__enter__()
+        rec = SpanRecord(self.name, parent.name if parent is not None else None, step, 0)
+        if torch.cuda.is_initialized():
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        rec.host_start_ns = time.perf_counter_ns()
+        open_.append(rec)
+        _records.append(rec)
+        self.record = rec
+
+    def __exit__(self, *exc):
+        rec = self.record
+        rec.host_end_ns = time.perf_counter_ns()
+        if rec.events is not None:
+            rec.events[1].record()
+        _state.open.pop()
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one layer of the program. Outside a torch
+    profiler: a shared null context. Under one: a host-only range named
+    ``name`` in the profiler's trace, and a ``SpanRecord``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorates a function to run inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def span_records() -> List[SpanRecord]:
+    """The records of the spans entered under a profiler since the last
+    ``clear_span_records()``, in order of entry, each closed span's device
+    milliseconds resolved (waiting for its exit event)."""
+    for rec in _records:
+        if rec.events is not None and rec.device_ms is None and rec.host_end_ns:
+            rec.events[1].synchronize()
+            rec.device_ms = rec.events[0].elapsed_time(rec.events[1])
+    return list(_records)
+
+
+def clear_span_records() -> None:
+    """Forget the records and restart the step ordinals."""
+    global _step
+    _records.clear()
+    _step = 0
 
 
 def summarize_trace(log_dir: str, top: int = 20) -> str:
