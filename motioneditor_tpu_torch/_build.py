@@ -241,6 +241,15 @@ def kernels() -> ctypes.CDLL:
         i32, ptr,                           # dtype, stream
     ]
     lib.me_add_layer_norm.restype = i32
+    lib.me_group_norm.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # x, w, b, y, work, tickets
+        i32, i32, i32, i32, f32, i32,       # B, S, C, G, eps, silu
+        i32, i32,                           # dtype, weight dtype
+        i32, i32, i32, i32, i32,            # K10's plan: vec, cols, ctas, rows, threads
+        i32, i32,                           # the apply plan: threads, ctas
+        ptr,                                # stream
+    ]
+    lib.me_group_norm.restype = i32
     return lib
 
 

@@ -105,28 +105,32 @@ def temporal_conv(p: nn.Conv1d, video: torch.Tensor, padding="SAME", shard=None)
 
 
 def group_norm(p: nn.Module, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-6,
-               shard=None):
+               shard=None, silu: bool = False):
     """GroupNorm over [B, ..., C]: fp32 stats per group over every interior
-    axis (so on a [B, F, H, W, C] video the stats pool across frames).
-    With MOTIONEDITOR_FUSED_GN on, the statistics and the gradient's
-    reductions run in the pair-stats kernel (ops/gn_stats.py). ``shard`` (a
-    FrameShardingCtx over more than one frame rank): ``x`` holds the local
-    frames and the statistics pool over every rank's (parallel/frame_ops.py)."""
+    axis (so on a [B, F, H, W, C] video the stats pool across frames), then
+    the SiLU when ``silu``. With MOTIONEDITOR_FUSED_GN on, the statistics
+    and the gradient's reductions run in the pair-stats kernel
+    (ops/gn_stats.py). Otherwise a call off the CPU through which autograd
+    records no graph runs in two hand-written launches, the SiLU with them
+    (ops/group_norm.py ``takes``), and every other call runs the plain
+    version. ``shard`` (a FrameShardingCtx over more than one frame rank):
+    ``x`` holds the local frames and the statistics pool over every rank's
+    (parallel/frame_ops.py)."""
     from motioneditor_tpu_torch.ops import gn_stats
+    from motioneditor_tpu_torch.ops import group_norm as gn_kernel
 
+    c = x.shape[-1]
     if shard is not None and shard.fp > 1:
         from motioneditor_tpu_torch.parallel import frame_ops
 
-        return frame_ops.group_norm(p, x, num_groups, eps, shard)
-
-    b, c = x.shape[0], x.shape[-1]
-    if gn_stats.enabled() and c % num_groups == 0:
-        return gn_stats.group_norm_fused(p, x, num_groups, eps)
-    xf = x.float().reshape(b, -1, num_groups, c // num_groups)
-    var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, unbiased=False)
-    out = (xf - mean) * torch.rsqrt(var + eps)
-    out = out.reshape(x.shape) * p.weight.float() + p.bias.float()
-    return out.to(x.dtype)
+        out = frame_ops.group_norm(p, x, num_groups, eps, shard)
+    elif gn_stats.enabled() and c % num_groups == 0:
+        out = gn_stats.group_norm_fused(p, x, num_groups, eps)
+    elif gn_kernel.takes(x, p.weight, p.bias, num_groups):
+        return gn_kernel.group_norm(x, p.weight, p.bias, num_groups, eps, silu)
+    else:
+        out = gn_kernel.group_norm_plain(x, p.weight, p.bias, num_groups, eps)
+    return F.silu(out) if silu else out
 
 
 def layer_norm(p: nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -218,9 +218,10 @@ class UNet3DConditionModel(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _gn_per_frame(p, video, groups, eps):
+def _gn_per_frame(p, video, groups, eps, silu=False):
     b, f, h, w, ch = video.shape
-    return group_norm(p, video.reshape(b * f, h, w, ch), groups, eps).reshape(video.shape)
+    return group_norm(p, video.reshape(b * f, h, w, ch), groups, eps,
+                      silu=silu).reshape(video.shape)
 
 
 def resnet_block(p: ResnetBlock, video, temb, *, groups=32, eps=1e-5,
@@ -230,18 +231,18 @@ def resnet_block(p: ResnetBlock, video, temb, *, groups=32, eps=1e-5,
     (the per-frame 2D ControlNet). ``shard``: ``video`` holds the local
     frames of a frame-sharded run; the pooled GroupNorms and the temporal
     convs communicate (parallel/frame_ops.py)."""
-    def gn(norm, x):
+    def gn_silu(norm, x):
         if per_frame_gn:
-            return _gn_per_frame(norm, x, groups, eps)
-        return group_norm(norm, x, groups, eps, shard=shard)
+            return _gn_per_frame(norm, x, groups, eps, silu=True)
+        return group_norm(norm, x, groups, eps, shard=shard, silu=True)
 
-    h = inflated_conv3d(p.conv1, silu(gn(p.norm1, video)), padding=1)
+    h = inflated_conv3d(p.conv1, gn_silu(p.norm1, video), padding=1)
     if hasattr(p, "temp_conv1"):
         h = h + temporal_conv(p.temp_conv1, h, shard=shard)
     if temb is not None and hasattr(p, "time_emb_proj"):
         t = linear(p.time_emb_proj, silu(temb))  # [B, C]
         h = h + t[:, None, None, None, :]
-    h = inflated_conv3d(p.conv2, silu(gn(p.norm2, h)), padding=1)
+    h = inflated_conv3d(p.conv2, gn_silu(p.norm2, h), padding=1)
     if hasattr(p, "temp_conv2"):
         h = h + temporal_conv(p.temp_conv2, h, shard=shard)
     skip = video
@@ -480,6 +481,6 @@ def unet_apply(
             h = upsample_conv3d_2x(block.upsamplers[0].conv, h)
 
     # the final GN pools across frames too
-    h = silu(group_norm(model.conv_norm_out, h, c.norm_num_groups, c.norm_eps,
-                        shard=shard_ctx))
+    h = group_norm(model.conv_norm_out, h, c.norm_num_groups, c.norm_eps, shard=shard_ctx,
+                   silu=True)
     return inflated_conv3d(model.conv_out, h, padding=1)

@@ -25,7 +25,6 @@ from motioneditor_tpu_torch.models.layers import (
     downsample_conv2d_2x,
     group_norm,
     linear,
-    silu,
     upsample_conv2d_2x,
 )
 from motioneditor_tpu_torch.models.unet import ConvHolder
@@ -119,8 +118,10 @@ class AutoencoderKL(nn.Module):
 
 
 def _resnet(p: VAEResnet, x, c: VAEConfig):
-    h = conv2d(p.conv1, silu(group_norm(p.norm1, x, c.norm_num_groups, c.norm_eps)), padding=1)
-    h = conv2d(p.conv2, silu(group_norm(p.norm2, h, c.norm_num_groups, c.norm_eps)), padding=1)
+    h = conv2d(p.conv1, group_norm(p.norm1, x, c.norm_num_groups, c.norm_eps, silu=True),
+               padding=1)
+    h = conv2d(p.conv2, group_norm(p.norm2, h, c.norm_num_groups, c.norm_eps, silu=True),
+               padding=1)
     skip = conv2d(p.conv_shortcut, x, padding=0) if hasattr(p, "conv_shortcut") else x
     return skip + h
 
@@ -152,7 +153,7 @@ def vae_encode_moments(vae: AutoencoderKL, images: torch.Tensor,
         if hasattr(block, "downsamplers"):
             x = downsample_conv2d_2x(block.downsamplers[0].conv, x)
     x = _mid(e.mid_block, x, c)
-    x = silu(group_norm(e.conv_norm_out, x, c.norm_num_groups, c.norm_eps))
+    x = group_norm(e.conv_norm_out, x, c.norm_num_groups, c.norm_eps, silu=True)
     moments = conv2d(vae.quant_conv, conv2d(e.conv_out, x, padding=1), padding=0)
     mean, logvar = moments.chunk(2, dim=-1)
     return mean, logvar.clamp(-30.0, 20.0)
@@ -190,7 +191,7 @@ def vae_decode(vae: AutoencoderKL, latents: torch.Tensor,
             x = _resnet(rp, x, c)
         if hasattr(block, "upsamplers"):
             x = upsample_conv2d_2x(block.upsamplers[0].conv, x)
-    x = silu(group_norm(d.conv_norm_out, x, c.norm_num_groups, c.norm_eps))
+    x = group_norm(d.conv_norm_out, x, c.norm_num_groups, c.norm_eps, silu=True)
     return conv2d(d.conv_out, x, padding=1)
 
 

@@ -77,7 +77,8 @@ def test_port_step_counts_the_closed_form(closed_form, monkeypatch):
                             empty(2, 77, 768), empty(2, 77, 768),
                             precompute_cond_embedding(cn, empty(2, F, 8 * LAT, 8 * LAT, 3)),
                             prepare_injection_masks(empty(F, LAT, LAT), F))
-        launched = {k for k, v in _build.launch_counts.items() if v and not k.endswith(".tc")}
+        launched = {k for k, v in _build.launch_counts.items() if v and not k.endswith(".tc")
+                    and not k.startswith(cs.UNCOUNTED_KERNELS)}
         launches = dict(_build.launch_counts)
     finally:
         _build.reset_launch_counts()  # leave no stand-in launch for later tests
@@ -85,7 +86,9 @@ def test_port_step_counts_the_closed_form(closed_form, monkeypatch):
     assert kc.flops == sum(closed_form.values())
     assert set(kc.by_entry) == launched
     assert {k: launches[k] for k in launched} == {
-        k: v for k, v in cs.EXPECTED_PER_STEP.items() if not k.endswith(".tc")}
+        k: v for k, v in cs.EXPECTED_PER_STEP.items()
+        if not k.endswith(".tc") and not k.startswith(cs.UNCOUNTED_KERNELS)}
+    assert {k: launches[k] for k in cs.UNET_CONTROLNET_GROUP_NORMS} == cs.UNET_CONTROLNET_GROUP_NORMS
 
 
 def test_jax_step_counts_the_closed_form(closed_form):

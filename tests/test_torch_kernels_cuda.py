@@ -46,10 +46,18 @@ Gradients: fp32 rtol 1e-4, atol 1e-3; bf16 max error relative to the max
 import pytest
 import torch
 
-from chip_smoke import LOGIT_CAP, fg_mask, logit_bound, scaled_error
+from chip_smoke import (
+    LOGIT_CAP,
+    bf16_ulps,
+    fg_mask,
+    logit_bound,
+    scaled_error,
+    unet_group_norm_shapes,
+)
 from motioneditor_tpu_torch import _build
 from motioneditor_tpu_torch.ops.attention import split_heads
 from motioneditor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from motioneditor_tpu_torch.ops import group_norm as gn_kernel
 from motioneditor_tpu_torch.ops.fused_norm import add_layer_norm, add_layer_norm_plain
 from motioneditor_tpu_torch.ops.gn_stats import (
     channel_pair_stats,
@@ -813,6 +821,108 @@ def test_group_norm_function_gradients(device, dtype, shape, groups):
     fwd_tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else TOL[dtype]
     torch.testing.assert_close(outs["1"][0].float(), outs["0"][0].float(), **fwd_tol)
     assert_grads_close(outs["1"][1:], outs["0"][1:], dtype)
+
+
+# every GroupNorm [B, S, C] of the cells: the UNet at batch 1 and 24 frames
+# (the inversion, stage 1) and at the edit's 4 rows and 8 frames, the
+# ControlNet's per-frame ones (2 rows x 8 frames), a VAE resnet's at 512 px
+CONTROLNET_GROUP_NORM_SHAPES = [(16, 4096, 320), (16, 1024, 320), (16, 1024, 640),
+                                (16, 256, 640), (16, 256, 1280), (16, 64, 1280)]
+GROUP_NORM_SHAPES = sorted(set(unet_group_norm_shapes(batch=1, frames=24))
+                           | set(unet_group_norm_shapes(batch=4, frames=8))
+                           | set(CONTROLNET_GROUP_NORM_SHAPES) | {(1, 262144, 128)})
+
+
+def _group_norm_case(shape, dtype, device, gen, shift=0.0):
+    c = shape[-1]
+    x = (2 * torch.randn(shape, generator=gen, device=device) + 0.5 + shift).to(dtype)
+    w = (1 + 0.3 * torch.randn(c, generator=gen, device=device)).to(dtype)
+    b = (0.2 * torch.randn(c, generator=gen, device=device)).to(dtype)
+    return x, w, b
+
+
+def _assert_within_ulps(got, ref):
+    ulps = bf16_ulps(got, ref)
+    within = (ulps <= 1).float().mean().item()
+    assert ulps.max().item() <= 2 and within >= 0.999, (ulps.max().item(), within)
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GROUP_NORM_SHAPES, ids=str)
+def test_group_norm_kernel(device, dtype, silu, shape):
+    """The GroupNorm pair (ops/group_norm.py) against the plain chain at
+    every GroupNorm of the cells: the norm at most 1 bf16 ulp off on 99.9%
+    of elements and 2 anywhere (chip_smoke.bf16_ulps); with the SiLU, the
+    output is F.silu of the kernel's own norm bit for bit (the SiLU rounds
+    where the plain version's does) and within 1 ulp of the chain's on
+    99.9% of elements (not 2 anywhere: where the norm's output is below
+    about -3, one ulp of it moves the SiLU's by more than 2 of its own);
+    two calls bit-identical; one launch counted, and one ".silu" with the
+    SiLU."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    x, w, b = _group_norm_case(shape, dtype, device, gen)
+    before = dict(_build.launch_counts)
+    got = gn_kernel.group_norm(x, w, b, 32, 1e-5, silu=silu)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["group_norm"] == before.get("group_norm", 0) + 1
+    assert _build.launch_counts["group_norm.silu"] == before.get("group_norm.silu", 0) + silu
+    ref = gn_kernel.group_norm_plain(x, w, b, 32, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    if silu:
+        normed = gn_kernel.group_norm(x, w, b, 32, 1e-5)
+        _assert_within_ulps(normed, ref)
+        assert torch.equal(got, torch.nn.functional.silu(normed))
+        ulps = bf16_ulps(got, torch.nn.functional.silu(ref))
+        assert (ulps <= 1).float().mean().item() >= 0.999
+    else:
+        _assert_within_ulps(got, ref)
+    assert torch.equal(got, gn_kernel.group_norm(x, w, b, 32, 1e-5, silu=silu))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 98304, 320), (32, 4096, 320), (2, 300, 64)], ids=str)
+def test_group_norm_kernel_shifted_input(device, dtype, shape):
+    """An input whose mean is 30x its spread: the kernel's fp64 sums lose
+    nothing to cancellation (the same limit as above)."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    x, w, b = _group_norm_case(shape, dtype, device, gen, shift=60.0)  # std 2, mean 60.5
+    _assert_within_ulps(gn_kernel.group_norm(x, w, b, 32, 1e-5),
+                        gn_kernel.group_norm_plain(x, w, b, 32, 1e-5))
+
+
+@pytest.mark.parametrize("case", ["rows_of_8_bytes", "off_16_bytes", "strided", "fp32_weight"])
+def test_group_norm_route_on_the_card(device, case):
+    """models/layers.py group_norm without grad: rows the 16-byte rule
+    refuses keep the plain chain (no launch), a strided input is copied to
+    fresh rows and taken, fp32 weights with bf16 activations are taken."""
+    from motioneditor_tpu_torch.models.layers import group_norm
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    c, groups = (36, 4) if case == "rows_of_8_bytes" else (320, 32)
+    flat = _rand((2 * 64 * c + 4,), torch.bfloat16, device, gen)
+    x = flat[4 if case == "off_16_bytes" else 0:][: 2 * 64 * c].view(2, 64, c)
+    if case == "strided":
+        x = x.reshape(2, 8, 8, c).permute(0, 2, 1, 3)
+    p = torch.nn.GroupNorm(groups, c, device=device)
+    with torch.no_grad():
+        p.weight.normal_(1.0, 0.3, generator=gen)
+        p.bias.normal_(0.0, 0.2, generator=gen)
+    if case != "fp32_weight":
+        p = p.to(torch.bfloat16)
+    taken = case in ("strided", "fp32_weight")
+    before = _build.launch_counts["group_norm"]
+    with torch.no_grad():
+        got = group_norm(p, x, groups, 1e-5, silu=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["group_norm"] == before + taken
+    ref = torch.nn.functional.silu(gn_kernel.group_norm_plain(x, p.weight, p.bias, groups, 1e-5))
+    if taken:
+        assert torch.equal(got, torch.nn.functional.silu(gn_kernel.group_norm(
+            x, p.weight, p.bias, groups, 1e-5)))
+        assert (bf16_ulps(got, ref) <= 1).float().mean().item() >= 0.999
+    else:
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

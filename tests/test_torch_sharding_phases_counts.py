@@ -139,7 +139,8 @@ def pipeline_inversion(m, sharded):
 
 def pipeline_edit(m, sharded):
     """The edit over 2 steps from start_step 1: one vanilla step, one
-    injected, with masks and per-step embeddings, then the decode."""
+    injected, with masks and per-step embeddings, then the decode (its
+    GroupNorms launch too)."""
     pipeline(m, sharded)(["a man", "a woman"], empty(2, F, LAT, LAT, 4),
                          empty(F, 8 * LAT, 8 * LAT, 3), source_masks=empty(F, 8 * LAT, 8 * LAT),
                          uncond_embeddings=empty(2, 1, 77, 768, dtype=torch.float32),
@@ -176,10 +177,12 @@ CASES = {
                       cs.scaled(cs.EXPECTED_PER_SHARDED_NULL_STEP, 2))),
     "sharded_pipeline_edit": (
         lambda m: pipeline_edit(m, True),
-        cs.add_counts(cs.EXPECTED_PER_SHARDED_VANILLA_STEP, cs.EXPECTED_PER_SHARDED_STEP)),
+        cs.add_counts(cs.EXPECTED_PER_SHARDED_VANILLA_STEP, cs.EXPECTED_PER_SHARDED_STEP,
+                      cs.VAE_DECODE_GROUP_NORMS)),
     "sharded_p2p_pipeline_edit": (
         lambda m: p2p_pipeline_edit(m, True),
-        cs.add_counts(cs.EXPECTED_PER_SHARDED_VANILLA_STEP, cs.EXPECTED_PER_SHARDED_STEP)),
+        cs.add_counts(cs.EXPECTED_PER_SHARDED_VANILLA_STEP, cs.EXPECTED_PER_SHARDED_STEP,
+                      cs.VAE_DECODE_GROUP_NORMS)),
     # phases 4, 6 and 7: the unsharded paths they stand beside
     "inversion": (lambda m: inversion(m, False), cs.EXPECTED_PER_INVERSION_STEP),
     "null_text": (lambda m: null_text(m, False), cs.EXPECTED_PER_NULL_STEP),
@@ -190,10 +193,12 @@ CASES = {
         cs.add_counts(cs.scaled(cs.EXPECTED_PER_INVERSION_STEP, 2),
                       cs.scaled(cs.EXPECTED_PER_NULL_STEP, 2))),
     "pipeline_edit": (lambda m: pipeline_edit(m, False),
-                      cs.add_counts(cs.EXPECTED_PER_VANILLA_STEP, cs.EXPECTED_PER_STEP)),
+                      cs.add_counts(cs.EXPECTED_PER_VANILLA_STEP, cs.EXPECTED_PER_STEP,
+                                    cs.VAE_DECODE_GROUP_NORMS)),
     # phase 12: the p2p edit
     "p2p_pipeline_edit": (lambda m: p2p_pipeline_edit(m, False),
-                          cs.add_counts(cs.EXPECTED_PER_VANILLA_STEP, cs.EXPECTED_PER_STEP)),
+                          cs.add_counts(cs.EXPECTED_PER_VANILLA_STEP, cs.EXPECTED_PER_STEP,
+                                        cs.VAE_DECODE_GROUP_NORMS)),
 }
 
 

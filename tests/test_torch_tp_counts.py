@@ -11,7 +11,8 @@ The UNet with its adapter and the ControlNet are split for a model group
 of T = 2 and 4 (this process standing for model rank 0): on a (1, 1, T)
 layout the segment and inversion take the unsharded routes, on (1, F, T)
 the frame-sharded ones (the one-rank frame group stands for every frame
-rank: the launches per rank do not depend on the frame split). Both
+rank: the launches per rank do not depend on the frame split, but for the
+pooled GroupNorms, which a one-rank frame group runs through the kernel). Both
 launch what the full width launches (chip_smoke.tp_expected), every K1,
 K2, K12 and K13 launch on the tensor-core body at the head-local width,
 and all-reduce over the model group once per split attention module
@@ -136,7 +137,7 @@ def test_tp_launches_and_all_reduces_per_step(sd15, t, frames, path):
     _build.reset_launch_counts()
     tp.reset_collective_counts()
     (edit_step if path == "denoise" else inversion)(unet, cn, shard)
-    assert dict(_build.launch_counts) == cs.tp_expected((1, frames, t))[path]
+    assert dict(_build.launch_counts) == cs.tp_expected((1, frames, t), shard.fp)[path]
     assert tp.collective_counts["all_reduce"] == cs.TP_ALL_REDUCES_PER_STEP[path]
     assert "all_gather" not in tp.collective_counts
     assert unet.down_blocks[0].attentions[0].transformer_blocks[0].attn1.to_q.weight.shape == (
