@@ -491,6 +491,18 @@ NORM_KERNELS = ("channel_pair_stats", "add_layer_norm")
 # the forward and the recompute); stage 2 the ControlNet's 27 and the
 # UNet's down path ahead of the adapter's first residual
 KNOBS_OFF_GROUP_NORMS = {"stage1": group_norms(4, 2), "stage2": group_norms(54, 40)}
+# per stage-1 step of SDXL's video UNet (models/unet.py SDXL_BASE; the
+# benchmark's train-sdxl-8f: 8 frames of 128x128 latents, knobs off,
+# checkpointing): its 70 attn1 sites (1,024 and 4,096 queries a frame, heads
+# of 64) take K4 in the forward and the recompute, K5 and K6 once; its 70
+# attn_temp sites K3 twice and K7; the GroupNorms ahead of the first
+# trainable attn1.to_q (level 0's two resnets and level 1's first, six with
+# the SiLU, then transformer 0's in the forward and the recompute)
+SDXL_FRAMES, SDXL_LATENT = 8, 128
+EXPECTED_PER_SDXL_STAGE1_STEP = tc({
+    "video_flash_fwd_res": 140, "video_flash_bwd_dq": 70, "video_flash_bwd_dkv": 70,
+    "temporal_flash_attention": 140, "temporal_flash_attention_bwd": 70, **group_norms(8, 6),
+})
 KV_KERNELS = ("video_flash_attention_kv", "video_injection_attention_kv",
               "temporal_flash_attention_global")
 SHARDED_KERNELS = ("video_flash_attention",) + KV_KERNELS  # a sharded edit's kernels
@@ -3451,6 +3463,212 @@ def phase_train(device):
     return paths, metrics, profiles["stage1"]
 
 
+# SDXL's attention sites at 1024 px (models/unet.py SDXL_BASE), (N, C, heads)
+# a frame at heads of 64: the 1280-wide stacks on 32x32 latents, the 640-wide
+# ones on 64x64
+SDXL_KERNEL_SHAPES = ((1024, 1280, 20), (4096, 640, 10))
+
+
+def phase_sdxl(device):
+    """SDXL's attention kernels at heads of 64 against their plain versions,
+    bf16, B = 1, SDXL_FRAMES frames at SDXL_KERNEL_SHAPES: K1 in normal mode
+    (the inversion's) and motion_frame, K4, K5 and K6 in motion_frame (stage
+    1's attn1), K3 and K7 (attn_temp); each with its time beside its bound.
+    Then one stage-1 step of SDXL_BASE at train-sdxl-8f's shapes (knobs off,
+    checkpointing), its launches held to EXPECTED_PER_SDXL_STAGE1_STEP."""
+    import torch
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.models.unet import SDXL_BASE, UNet3DConditionModel
+    from motioneditor_tpu_torch.ops.temporal_flash import (
+        temporal_flash_attention,
+        temporal_flash_attention_bwd,
+        temporal_flash_attention_bwd_plain,
+        temporal_flash_attention_plain,
+    )
+    from motioneditor_tpu_torch.ops.video_flash import (
+        video_flash_attention,
+        video_flash_attention_plain,
+    )
+    from motioneditor_tpu_torch.ops.video_flash_bwd import (
+        _delta,
+        combine_partials,
+        video_flash_bwd_dkv,
+        video_flash_bwd_dkv_plain,
+        video_flash_bwd_dq,
+        video_flash_bwd_plain,
+        video_flash_fwd_res,
+        video_flash_fwd_res_plain,
+    )
+    from motioneditor_tpu_torch.training import stage1
+    from motioneditor_tpu_torch.training.common import make_optimizer, make_train_state
+
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    r = {}
+
+    def keep(name, at, ms, plain_ms, err, b, scaled=None):
+        r[f"{name} {at}"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                             **b, **({"scaled": scaled} if scaled else {})}
+        return (f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}), {100 * b['bound_ms'] / ms:.1f}% of it")
+
+    for n, c, heads in SDXL_KERNEL_SHAPES:
+        q, k, v, do = (torch.randn((1, SDXL_FRAMES, n, c), generator=gen, device=device).to(dtype)
+                       for _ in range(4))
+        scale = (c // heads) ** -0.5
+        if logit_bound(q, k, heads, scale) >= LOGIT_CAP:
+            raise AssertionError(f"bf16 inputs reach logit >= {LOGIT_CAP}")
+        shape = f"B=1 F={SDXL_FRAMES} N={n} C={c} heads={heads}"
+        for mode in ("normal", "motion_frame"):  # K1
+            kernel_fn = lambda m=mode: video_flash_attention(q, k, v, m, scale, heads)  # noqa: E731
+            plain_fn = lambda m=mode: video_flash_attention_plain(  # noqa: E731
+                q, k, v, m, scale, heads)
+            out = kernel_fn()
+            torch.cuda.synchronize()
+            ref = plain_fn()
+            torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
+            err = (out.float() - ref.float()).abs().max().item()
+            got = scaled_error(out, ref)
+            del out, ref
+            line = keep("video_flash_attention", f"{shape} {mode}", time_ms(kernel_fn),
+                        time_ms(plain_fn), err,
+                        bound(video_work("video_flash_attention", mode, q), nbytes(q, k, v, q),
+                              dtype), got)
+            log(f"[sdxl] K1 {mode} {shape}: max_abs_err {err:.3e}, scaled max {got['max']:.3e} "
+                f"rms {got['rms']:.3e}; {line}")
+            torch.cuda.empty_cache()
+
+        mode = "motion_frame"  # K4, K5, K6
+        fwd = lambda: video_flash_fwd_res(q, k, v, mode, scale, heads)  # noqa: E731
+        fwd_plain = lambda: video_flash_fwd_res_plain(q, k, v, mode, scale, heads)  # noqa: E731
+        out, lse = fwd()
+        torch.cuda.synchronize()
+        out_ref, lse_ref = fwd_plain()
+        torch.testing.assert_close(out.float(), out_ref.float(), **tolerance(dtype))
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+        err = max((out.float() - out_ref.float()).abs().max().item(),
+                  (lse - lse_ref).abs().max().item())
+        got = scaled_error(out, out_ref)
+        del out, lse
+        work, lse_bytes = video_work("video_flash_attention", mode, q), nbytes(lse_ref)
+        line = keep("video_flash_fwd_res", f"{shape} {mode}", time_ms(fwd), time_ms(fwd_plain),
+                    err, bound(work, nbytes(q, k, v, q) + lse_bytes, dtype), got)
+        log(f"[sdxl] K4 {mode} {shape}: max_abs_err {err:.3e}, scaled max {got['max']:.3e} "
+            f"rms {got['rms']:.3e}; {line}")
+
+        dq_fn = lambda: video_flash_bwd_dq(  # noqa: E731
+            q, k, v, out_ref, lse_ref, do, mode, scale, heads)
+        dq, delta = dq_fn()
+        dkv_fn = lambda: video_flash_bwd_dkv(  # noqa: E731
+            q, k, v, lse_ref, delta, do, mode, scale, heads)
+        dkp, dvp = dkv_fn()
+        torch.cuda.synchronize()
+        plain_delta = _delta(out_ref, do, heads)
+        torch.testing.assert_close(delta, plain_delta, atol=1e-5, rtol=1e-5)
+        dq_ref = video_flash_bwd_plain(*(t.float() for t in (q, k, v, out_ref)), lse_ref,
+                                       do.float(), mode, scale, heads)[0]
+        got_dq = scaled_error(dq, dq_ref)
+        del dq_ref
+        got_dkv = {"max": 0.0, "rms": 0.0}
+        for part, ref_part in zip((dkp, dvp), video_flash_bwd_dkv_plain(
+                q, k, v, lse_ref, plain_delta, do, mode, scale, heads)):
+            for key, value in scaled_error(part, ref_part).items():
+                got_dkv[key] = max(got_dkv[key], value)
+        bwd_plain = lambda: video_flash_bwd_plain(  # noqa: E731
+            q, k, v, out_ref, lse_ref, do, mode, scale, heads)
+        err = grad_error((dq, combine_partials(dkp, mode).to(dtype),
+                          combine_partials(dvp, mode).to(dtype)), bwd_plain(), dtype)
+        del dq, dkp, dvp, plain_delta
+        torch.cuda.empty_cache()
+        plain_ms = time_ms(bwd_plain)
+        line_dq = keep("video_flash_bwd_dq", f"{shape} {mode}", time_ms(dq_fn), plain_ms, err,
+                       bound(1.5 * work, nbytes(q, k, v, q, do, q) + 2 * lse_bytes, dtype),
+                       got_dq)
+        line_dkv = keep("video_flash_bwd_dkv", f"{shape} {mode}", time_ms(dkv_fn), plain_ms, err,
+                        bound(2.0 * work, nbytes(q, k, v, do) + 2 * lse_bytes
+                              + 4 * q.numel() * 4, dtype), got_dkv)
+        log(f"[sdxl] K5 / K6 {mode} {shape}: gradients vs plain max_abs_err {err:.3e}, dq "
+            f"scaled max {got_dq['max']:.3e} rms {got_dq['rms']:.3e}, dk / dv partials "
+            f"{got_dkv['max']:.3e} / {got_dkv['rms']:.3e}; K5 {line_dq}; K6 {line_dkv} (the "
+            f"plain time is the whole backward's)")
+        del out_ref, lse_ref, delta
+        torch.cuda.empty_cache()
+
+        k3 = lambda: temporal_flash_attention(q, k, v, scale, heads, causal=True)  # noqa: E731
+        k3_plain = lambda: temporal_flash_attention_plain(  # noqa: E731
+            q, k, v, scale, heads, causal=True)
+        out = k3()
+        torch.cuda.synchronize()
+        ref = k3_plain()
+        torch.testing.assert_close(out.float(), ref.float(), **tolerance(dtype))
+        err = (out.float() - ref.float()).abs().max().item()
+        del out, ref
+        line = keep("temporal_flash_attention", f"{shape} causal", time_ms(k3, KERNEL_REPS),
+                    time_ms(k3_plain, 20), err,
+                    bound(video_work("temporal_flash_attention", "causal", q),
+                          nbytes(q, k, v, q), dtype))
+        log(f"[sdxl] K3 causal {shape}: max_abs_err {err:.3e}; {line} ({KERNEL_REPS} launches)")
+
+        k7 = lambda: temporal_flash_attention_bwd(q, k, v, do, scale, heads)  # noqa: E731
+        k7_plain = lambda: temporal_flash_attention_bwd_plain(  # noqa: E731
+            q, k, v, do, scale, heads)
+        err = grad_error(k7(), k7_plain(), dtype)
+        line = keep("temporal_flash_attention_bwd", f"{shape} causal", time_ms(k7, KERNEL_REPS),
+                    time_ms(k7_plain, 20), err,
+                    bound(2.5 * video_work("temporal_flash_attention", "causal", q),
+                          7 * nbytes(q), dtype))
+        log(f"[sdxl] K7 causal {shape}: max_abs_err {err:.3e}; {line} ({KERNEL_REPS} launches)")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    # one stage-1 step of the whole model at train-sdxl-8f's shapes
+    lat = 0.13025 * torch.randn((1, SDXL_FRAMES, SDXL_LATENT, SDXL_LATENT, 4), generator=gen,
+                                device=device)
+    enc = torch.randn((1, 77, SDXL_BASE.cross_attention_dim), generator=gen, device=device)
+    pooled = SDXL_BASE.projection_class_embeddings_input_dim - 6 * SDXL_BASE.addition_time_embed_dim
+    added = {"text_embeds": torch.randn((1, pooled), generator=gen, device=device),
+             "time_ids": torch.tensor([[1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0]],
+                                      device=device)}
+    with torch.device(device):
+        unet = UNet3DConditionModel(SDXL_BASE, include_adapter=False)
+    init_params(unet, torch.Generator(device=device).manual_seed(SEED + 61))
+    state = make_train_state(unet, stage1.TRAINABLE_MODULES, make_optimizer(3e-5),
+                             frozen_dtype=dtype)
+    before = {n: p.detach().clone() for n, p in unet.named_parameters()
+              if n not in state.trainable}
+
+    def step(i):
+        g = torch.Generator(device=device).manual_seed(SEED + 62 + i)
+        return stage1.train_step_stage1(state, lat, enc, g, SDXL_BASE, remat=True,
+                                        compute_dtype=dtype, added_cond_kwargs=added)[1]["loss"]
+
+    with norm_knobs(False):
+        step(0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(step(1))
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[sdxl] stage-1 step of SDXL_BASE, {SDXL_FRAMES} frames at {8 * SDXL_LATENT} px: "
+        f"{ms:.1f} ms (one step, synchronized), loss {loss:.6f}, peak "
+        f"{peak / 2**30:.2f} GiB, launches {launches}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"sdxl stage 1: loss {loss} is not finite")
+    moved = [n for n, p in before.items() if not torch.equal(unet.get_parameter(n), p)]
+    if moved:
+        raise AssertionError(f"sdxl stage 1: frozen parameters moved: {moved[:5]}")
+    expect_counts("sdxl stage1", launches, EXPECTED_PER_SDXL_STAGE1_STEP, 1)
+    r["stage1_step"] = {"ms": ms, "loss": loss, "peak_bytes": peak, "launches": launches}
+    del state, unet, before
+    torch.cuda.empty_cache()
+    return r
+
+
 def k10_in_step(profile: dict, histogram: list) -> dict:
     """K10's kernels in a profiled step: launches and device ms, beside the
     byte bound summed over the step's calls (``histogram``, recorded on
@@ -5443,6 +5661,10 @@ def main() -> int:
     paths.update(train_paths)
     log(f"[train] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    sdxl_metrics = phase_sdxl(device)
+    paths["sdxl_stage1"] = sdxl_metrics["stage1_step"]["launches"]
+    log(f"[sdxl] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     import torch.distributed as dist
 
     from motioneditor_tpu_torch.parallel.mesh import init_frame_sharding
@@ -5516,7 +5738,8 @@ def main() -> int:
                       "auto_ms_per_step": auto_ms, "pipeline": pipe_metrics,
                       "p2p": p2p_metrics, "eval": eval_metrics, "weights": weights_metrics,
                       "prep": prep_metrics, "masks": masks_metrics,
-                      "train": train_metrics, "norm_yardsticks": yardsticks,
+                      "train": train_metrics, "sdxl": sdxl_metrics,
+                      "norm_yardsticks": yardsticks,
                       "sharded": shard_metrics, "sharded_vs_unsharded": beside,
                       "tp": tp_metrics, "tp_grad": tp_grad_metrics, "tp_gloo": tp_gloo_metrics,
                       "profiles": {"denoise": slice_profile, "auto": auto_profile,

@@ -23,6 +23,7 @@ from motioneditor_tpu_torch.models.unet import (
     AttnContext,
     UNetConfig,
     build_encoder,
+    refuse_text_time,
     resnet_block,
     time_embedding,
     transformer2d,
@@ -34,6 +35,7 @@ COND_EMBED_CHANNELS = (16, 32, 96, 256)
 
 
 def controlnet_config(unet_config: UNetConfig = UNetConfig()) -> UNetConfig:
+    refuse_text_time(unet_config, "the ControlNet")
     return dataclasses.replace(unet_config, video=False, use_sc_attn=False,
                                use_st_attn=False)
 
@@ -57,6 +59,7 @@ class ControlNetModel(nn.Module):
         super().__init__()
         if config.video:
             raise ValueError("the ControlNet is 2D: use controlnet_config()")
+        refuse_text_time(config, "the ControlNet")
         build_encoder(self, config)
         c0 = config.block_out_channels[0]
         self.controlnet_cond_embedding = CondEmbedding(c0)
@@ -105,8 +108,7 @@ def controlnet_apply(
     c = config
     b = sample.shape[0]
     temb = time_embedding(model, c, timesteps, b, sample.dtype)
-    ctx = AttnContext(encoder_hidden_states=encoder_hidden_states, heads=c.attention_heads,
-                      use_flash=use_flash)
+    ctx = AttnContext(encoder_hidden_states=encoder_hidden_states, use_flash=use_flash)
 
     def res(rp, hh):
         return resnet_block(rp, hh, temb, groups=c.norm_num_groups, eps=c.norm_eps,

@@ -1,5 +1,7 @@
 """Video-inflated SD-1.5 UNet with ControlNet residuals and the motion
-adapter (port of motioneditor_tpu/models/unet.py).
+adapter (port of motioneditor_tpu/models/unet.py), and SDXL's UNet
+inflated the same way (per-level transformer depth and heads, linear
+projections, the text_time added conditioning; no adapter).
 
 ``UNet3DConditionModel`` holds the parameters under diffusers key names
 (plus the reference's temporal modules ``temp_conv1/2``, ``attn_temp``,
@@ -52,10 +54,22 @@ from motioneditor_tpu_torch.ops.attention import (
 from motioneditor_tpu_torch.utils.profiling import spanned
 
 
+SD15_DOWN_BLOCKS = ("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",)
+_UP_OF = {"CrossAttnDownBlock2D": "CrossAttnUpBlock2D", "DownBlock2D": "UpBlock2D"}
+
+
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """Static architecture config: the same fields and defaults as the JAX
-    ``UNetConfig`` (SD-1.5 plus the video flags)."""
+    """Static architecture config: the fields and defaults of the JAX
+    ``UNetConfig`` (SD-1.5 plus the video flags), then the fields of the
+    diffusers UNet config that SDXL sets, each defaulting to SD-1.5's
+    architecture: ``down_block_types`` (the up path mirrors it),
+    ``transformer_layers_per_block`` and ``num_attention_heads`` per level
+    (empty: 1 block and ``attention_heads`` at every level; the mid block
+    takes the last level's), the Linear ``proj_in`` / ``proj_out``, and the
+    ``text_time`` added embedding (the pooled text embedding and the 6 time
+    ids, their 256-wide sinusoids concatenated into an MLP of
+    ``projection_class_embeddings_input_dim`` inputs)."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -70,14 +84,29 @@ class UNetConfig:
     use_st_attn: bool = False
     st_attn_idx: int = 0
     video: bool = True  # include temporal modules
-
-    @property
-    def down_block_types(self) -> Tuple[str, ...]:
-        return ("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",)
+    down_block_types: Tuple[str, ...] = SD15_DOWN_BLOCKS
+    transformer_layers_per_block: Tuple[int, ...] = ()
+    num_attention_heads: Tuple[int, ...] = ()
+    use_linear_projection: bool = False
+    addition_embed_type: Optional[str] = None  # None or "text_time"
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 0
 
     @property
     def up_block_types(self) -> Tuple[str, ...]:
-        return ("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3
+        return tuple(_UP_OF[t] for t in reversed(self.down_block_types))
+
+    @property
+    def text_time(self) -> bool:
+        return self.addition_embed_type == "text_time"
+
+    def depth(self, level: int) -> int:
+        """Transformer blocks in each ``Transformer2D`` of down level ``level``."""
+        return self.transformer_layers_per_block[level] if self.transformer_layers_per_block else 1
+
+    def heads(self, level: int) -> int:
+        """Attention heads at down level ``level``."""
+        return self.num_attention_heads[level] if self.num_attention_heads else self.attention_heads
 
     def attn1_mode(self, use_st: bool) -> str:
         if use_st:
@@ -85,6 +114,21 @@ class UNetConfig:
         if self.use_sc_attn:
             return MOTION_FRAME
         return NORMAL
+
+
+# stabilityai/stable-diffusion-xl-base-1.0 unet/config.json, inflated to video
+SDXL_BASE = UNetConfig(
+    block_out_channels=(320, 640, 1280), cross_attention_dim=2048,
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+    transformer_layers_per_block=(1, 2, 10), num_attention_heads=(5, 10, 20),
+    use_linear_projection=True, addition_embed_type="text_time", addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2816)
+
+
+def refuse_text_time(config: UNetConfig, what: str) -> None:
+    """Raise for a path that is not ported to SDXL's text_time configuration."""
+    if config.text_time:
+        raise NotImplementedError(f"{what} is not ported to a text_time (SDXL) configuration")
 
 
 # ---------------------------------------------------------------------------
@@ -125,14 +169,19 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
+    """``depth`` transformer blocks at ``heads`` heads between a 1x1-conv or
+    (``linear``) a Linear ``proj_in`` and ``proj_out``."""
+
     def __init__(self, channels: int, cross_dim: int, heads: int, groups: int, eps: float,
-                 video: bool):
+                 video: bool, depth: int = 1, linear: bool = False):
         super().__init__()
         self.norm = nn.GroupNorm(groups, channels, eps)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        proj = (lambda: nn.Linear(channels, channels)) if linear else (
+            lambda: nn.Conv2d(channels, channels, 1))
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, cross_dim, heads, video)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+            [BasicTransformerBlock(channels, cross_dim, heads, video) for _ in range(depth)])
+        self.proj_out = proj()
 
 
 class ConvHolder(nn.Module):
@@ -152,12 +201,23 @@ class Block(nn.Module):
         self.attentions = nn.ModuleList()
 
 
+def transformer_for(c: UNetConfig, channels: int, level: int) -> Transformer2D:
+    """The ``Transformer2D`` of down level ``level`` (the up path passes its
+    mirror level, the mid block the last)."""
+    return Transformer2D(channels, c.cross_attention_dim, c.heads(level), c.norm_num_groups,
+                         c.transformer_norm_eps, c.video, c.depth(level),
+                         c.use_linear_projection)
+
+
 def build_encoder(m: nn.Module, c: UNetConfig) -> None:
-    """conv_in, time_embedding, down_blocks, mid_block (shared with ControlNet)."""
+    """conv_in, time_embedding (add_embedding), down_blocks, mid_block
+    (shared with ControlNet)."""
     time_dim = c.block_out_channels[0] * 4
-    g, eps, teps = c.norm_num_groups, c.norm_eps, c.transformer_norm_eps
+    g, eps = c.norm_num_groups, c.norm_eps
     m.conv_in = nn.Conv2d(c.in_channels, c.block_out_channels[0], 3)
     m.time_embedding = TimestepEmbedding(c.block_out_channels[0], time_dim)
+    if c.text_time:
+        m.add_embedding = TimestepEmbedding(c.projection_class_embeddings_input_dim, time_dim)
     m.down_blocks = nn.ModuleList()
     out_ch = c.block_out_channels[0]
     for i, btype in enumerate(c.down_block_types):
@@ -167,8 +227,7 @@ def build_encoder(m: nn.Module, c: UNetConfig) -> None:
             block.resnets.append(ResnetBlock(in_ch if j == 0 else out_ch, out_ch, time_dim,
                                              g, eps, c.video))
             if btype == "CrossAttnDownBlock2D":
-                block.attentions.append(Transformer2D(
-                    out_ch, c.cross_attention_dim, c.attention_heads, g, teps, c.video))
+                block.attentions.append(transformer_for(c, out_ch, i))
         if i < len(c.block_out_channels) - 1:
             block.downsamplers = nn.ModuleList([ConvHolder(out_ch)])
         m.down_blocks.append(block)
@@ -176,8 +235,7 @@ def build_encoder(m: nn.Module, c: UNetConfig) -> None:
     m.mid_block = Block()
     for _ in range(2):
         m.mid_block.resnets.append(ResnetBlock(mid_ch, mid_ch, time_dim, g, eps, c.video))
-    m.mid_block.attentions.append(Transformer2D(
-        mid_ch, c.cross_attention_dim, c.attention_heads, g, teps, c.video))
+    m.mid_block.attentions.append(transformer_for(c, mid_ch, len(c.block_out_channels) - 1))
 
 
 class UNet3DConditionModel(nn.Module):
@@ -186,9 +244,11 @@ class UNet3DConditionModel(nn.Module):
         from motioneditor_tpu_torch.models.adapter import ControlAdapter
 
         c = config
+        if include_adapter and c.video:
+            refuse_text_time(c, "the motion adapter")
         build_encoder(self, c)
         time_dim = c.block_out_channels[0] * 4
-        g, eps, teps = c.norm_num_groups, c.norm_eps, c.transformer_norm_eps
+        g, eps = c.norm_num_groups, c.norm_eps
         rev = list(reversed(c.block_out_channels))
         self.up_blocks = nn.ModuleList()
         out_ch = rev[0]
@@ -202,8 +262,7 @@ class UNet3DConditionModel(nn.Module):
                 block.resnets.append(ResnetBlock(r_in + res_skip, out_ch, time_dim, g, eps,
                                                  c.video))
                 if btype == "CrossAttnUpBlock2D":
-                    block.attentions.append(Transformer2D(
-                        out_ch, c.cross_attention_dim, c.attention_heads, g, teps, c.video))
+                    block.attentions.append(transformer_for(c, out_ch, len(rev) - 1 - i))
             if i < len(rev) - 1:
                 block.upsamplers = nn.ModuleList([ConvHolder(out_ch)])
             self.up_blocks.append(block)
@@ -256,7 +315,6 @@ class AttnContext:
     """Per-call context threaded through the transformer blocks."""
 
     encoder_hidden_states: torch.Tensor  # [B, L, D_text]
-    heads: int
     injection: Optional[InjectionSpec] = None
     injection_masks: Optional[Dict[Tuple[int, int], torch.Tensor]] = None
     use_flash: bool = True
@@ -274,7 +332,9 @@ class AttnContext:
 
 def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
                             layer_idx: int, hw: Tuple[int, int], attn1_mode: str):
-    """tokens: [B, F, N, C]. attn1 -> attn2 -> ff -> temporal attention."""
+    """tokens: [B, F, N, C]. attn1 -> attn2 -> ff -> temporal attention, at
+    the block's heads."""
+    heads = p.attn1.heads
     inj = ctx.injection
     spatial_gate = inj is not None and inj.active and inj.spatial_layers[layer_idx]
     temporal_gate = inj is not None and inj.active and inj.temporal_layers[layer_idx]
@@ -285,16 +345,16 @@ def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
         if inj.mask_mode == "auto":
             # no kernel for auto mode under a shard, as in JAX (unet.py:333-336)
             attn1_out = injected_spatial_attention_auto(
-                p.attn1, h, ctx.heads, mask_n, ctx.cross_maps or [], inj.auto_token_idx,
+                p.attn1, h, heads, mask_n, ctx.cross_maps or [], inj.auto_token_idx,
                 inj.auto_thres, use_flash=ctx.use_flash and ctx.shard is None,
                 shard=ctx.shard)
         else:
-            attn1_out = injected_spatial_attention(p.attn1, h, ctx.heads, mask_n,
+            attn1_out = injected_spatial_attention(p.attn1, h, heads, mask_n,
                                                    inj.mask_fgbg, use_flash=ctx.use_flash,
                                                    shard=ctx.shard)
     else:
         attn1_out = spatial_self_attention(
-            p.attn1, h, attn1_mode, ctx.heads, use_flash=ctx.use_flash, shard=ctx.shard,
+            p.attn1, h, attn1_mode, heads, use_flash=ctx.use_flash, shard=ctx.shard,
             prob_editor=ctx.prob_editor if attn1_mode == NORMAL else None)
     # the residual add and the next LayerNorm: fused in one kernel with
     # MOTIONEDITOR_FUSED_LN on, at JAX's call-site gate (flash on, N >= 512,
@@ -310,7 +370,7 @@ def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
 
     tokens, h = add_norm(p.norm2, tokens, attn1_out)
     collect = ctx.cross_maps is not None and tokens.shape[2] == 256
-    attn2_out = cross_attention(p.attn2, h, ctx.encoder_hidden_states, ctx.heads,
+    attn2_out = cross_attention(p.attn2, h, ctx.encoder_hidden_states, heads,
                                 collect_maps_into=ctx.cross_maps if collect else None,
                                 prob_editor=ctx.prob_editor)
     tokens, h = add_norm(p.norm3, tokens, attn2_out)
@@ -319,34 +379,59 @@ def basic_transformer_block(p: BasicTransformerBlock, tokens, ctx: AttnContext,
         tokens, ht = add_norm(p.norm_temp, tokens, ff_out)
         kv_override = injected_temporal_kv(ht) if temporal_gate else None
         tokens = tokens + temporal_self_attention_video(
-            p.attn_temp, ht, ctx.heads, causal=True, kv_override=kv_override,
+            p.attn_temp, ht, heads, causal=True, kv_override=kv_override,
             use_kernel=ctx.use_flash, shard=ctx.shard)
     else:
         tokens = tokens + ff_out
     return tokens
 
 
+@spanned("me.transformer")
 def transformer2d(p: Transformer2D, video, ctx: AttnContext, layer_idx: int,
                   attn1_mode: str, groups=32, eps=1e-6):
-    """Per-frame GN -> 1x1 conv in -> transformer block -> 1x1 conv out + residual."""
+    """Per-frame GN -> proj in (1x1 conv or Linear) -> the transformer
+    blocks at the stack's heads -> proj out + residual."""
     b, f, h, w, c = video.shape
     x = _gn_per_frame(p.norm, video, groups, eps)
-    x = inflated_conv3d(p.proj_in, x, padding=0)
+    if isinstance(p.proj_in, nn.Linear):
+        x = linear(p.proj_in, x.reshape(b, f, h * w, c))
+    else:
+        x = inflated_conv3d(p.proj_in, x, padding=0)
     tokens = x.reshape(b, f, h * w, c)
     for bp in p.transformer_blocks:
         tokens = basic_transformer_block(bp, tokens, ctx, layer_idx, (h, w), attn1_mode)
-    x = inflated_conv3d(p.proj_out, tokens.reshape(b, f, h, w, c), padding=0)
+    if isinstance(p.proj_out, nn.Linear):
+        x = linear(p.proj_out, tokens).reshape(b, f, h, w, c)
+    else:
+        x = inflated_conv3d(p.proj_out, tokens.reshape(b, f, h, w, c), padding=0)
     return x + video
 
 
-def time_embedding(m: nn.Module, config: UNetConfig, timesteps, batch: int, dtype):
-    """Sinusoidal embedding + MLP for an int or a [B] tensor of timesteps."""
+def time_embedding(m: nn.Module, config: UNetConfig, timesteps, batch: int, dtype,
+                   added_cond_kwargs: Optional[Dict[str, torch.Tensor]] = None):
+    """Sinusoidal embedding + MLP for an int or a [B] tensor of timesteps;
+    for a text_time configuration plus ``add_embedding`` of the pooled text
+    embedding ``text_embeds`` [B, D] and the sinusoids of the ``time_ids``
+    [B, 6] (diffusers' SDXL conditioning), which it must be given."""
     device = m.conv_in.weight.device
     t = torch.as_tensor(timesteps, device=device)
     if t.dim() == 0:
         t = t.expand(batch)
     t_emb = sinusoidal_timestep_embedding(t, config.block_out_channels[0])
-    return timestep_embedding_mlp(m.time_embedding, t_emb.to(dtype))
+    temb = timestep_embedding_mlp(m.time_embedding, t_emb.to(dtype))
+    if not config.text_time:
+        if added_cond_kwargs is not None:
+            raise ValueError("added conditioning given to a configuration without text_time")
+        return temb
+    if added_cond_kwargs is None or not {"text_embeds", "time_ids"} <= set(added_cond_kwargs):
+        raise ValueError("a text_time configuration needs added_cond_kwargs with "
+                         "'text_embeds' and 'time_ids'")
+    text_embeds, time_ids = added_cond_kwargs["text_embeds"], added_cond_kwargs["time_ids"]
+    time_embeds = sinusoidal_timestep_embedding(time_ids.reshape(-1),
+                                                config.addition_time_embed_dim)
+    add = torch.cat([text_embeds.to(dtype),
+                     time_embeds.reshape(text_embeds.shape[0], -1).to(dtype)], dim=-1)
+    return temb + timestep_embedding_mlp(m.add_embedding, add)
 
 
 @spanned("me.unet")
@@ -367,6 +452,7 @@ def unet_apply(
     shard_ctx=None,
     prob_editor=None,
     cross_maps_out: Optional[list] = None,
+    added_cond_kwargs: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Full UNet forward. sample: [B, F, H, W, C_in]; timesteps: scalar or
     [B]; encoder_hidden_states: [B, L, D_text]. ``remat`` is gradient
@@ -383,7 +469,10 @@ def unet_apply(
     prob_editor``). ``cross_maps_out``: a list that receives the 16x16
     cross-attention maps [(B F), 256, L] of this forward, in forward order
     (JAX's ``_cross_maps_out``); with auto-mask injection on too, the same
-    list serves the injection, as JAX unet.py:461-470.
+    list serves the injection, as JAX unet.py:461-470. ``added_cond_kwargs``:
+    a text_time configuration's ``text_embeds`` and ``time_ids``
+    (``time_embedding``); such a configuration runs no ControlNet residuals,
+    injection, p2p or cross-map collection, and no shard layout.
 
     ControlNet residuals: 12 down + mid. With a 4-row branch axis and a
     4-row mid residual, the residuals are the 2-row edit-branch ControlNet
@@ -393,18 +482,24 @@ def unet_apply(
     from motioneditor_tpu_torch.models.adapter import control_adapter_apply
 
     c = config
+    if c.text_time:
+        for what, given in (("ControlNet residuals", down_block_additional_residuals),
+                            ("the injection", injection), ("p2p control", prob_editor),
+                            ("cross-attention map collection", cross_maps_out),
+                            ("a shard layout", shard_ctx)):
+            if given is not None:
+                refuse_text_time(c, what)
     if shard_ctx is not None and not shard_ctx.shards_frames:
         shard_ctx = None
     b = sample.shape[0]
-    temb = time_embedding(model, c, timesteps, b, sample.dtype)
+    temb = time_embedding(model, c, timesteps, b, sample.dtype, added_cond_kwargs)
     cross_maps = cross_maps_out
     if cross_maps is None and (injection is not None and injection.active
                                and injection.collect_cross_maps):
         cross_maps = []
-    ctx = AttnContext(encoder_hidden_states=encoder_hidden_states, heads=c.attention_heads,
-                      injection=injection, injection_masks=injection_masks,
-                      use_flash=use_flash, cross_maps=cross_maps, shard=shard_ctx,
-                      prob_editor=prob_editor)
+    ctx = AttnContext(encoder_hidden_states=encoder_hidden_states, injection=injection,
+                      injection_masks=injection_masks, use_flash=use_flash,
+                      cross_maps=cross_maps, shard=shard_ctx, prob_editor=prob_editor)
 
     def mode_for(use_st: bool) -> str:
         return NORMAL if normal_infer else c.attn1_mode(use_st)

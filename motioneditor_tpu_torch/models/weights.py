@@ -6,7 +6,10 @@ into this package's modules (port of motioneditor_tpu/models/weights.py).
   package's own reader, so no ``safetensors`` package is needed.
 - ``load_sd15_unet``, ``load_sd15_vae``, ``load_sd15_text_encoder``:
   the ``unet`` / ``vae`` / ``text_encoder`` subfolders of a diffusers
-  SD-1.5 directory; ``load_controlnet``: a diffusers ControlNet directory
+  SD-1.5 directory; ``load_sdxl_unet``: the ``unet`` subfolder of a
+  diffusers SDXL directory (Linear ``proj_in`` / ``proj_out``,
+  ``add_embedding``), into the video UNet without the adapter;
+  ``load_controlnet``: a diffusers ControlNet directory
   (sd-controlnet-openpose); ``load_adapter_checkpoint``: the stand-alone
   adapter ``.pth`` of the reference's train_adaptor.py:397-399.
 
@@ -156,6 +159,26 @@ def load_sd15_unet(pretrained_model_path: str, config=None,
     path = find_model_file(osp.join(pretrained_model_path, "unet"))
     with torch.device(device):
         unet = UNet3DConditionModel(config or UNetConfig())
+    init_params(unet, generator or torch.Generator(device=device).manual_seed(0))
+    return load_into(unet, _attention_out(load_state_dict(path)), path, _video_group)
+
+
+def load_sdxl_unet(pretrained_model_path: str, config=None,
+                   generator: Optional[torch.Generator] = None, device="cuda") -> nn.Module:
+    """SDXL's UNet inflated to video (``config``: ``unet.SDXL_BASE`` by
+    default, a text_time configuration), without the motion adapter, on
+    ``device``, fp32: initialized from ``generator`` (seed 0 without one),
+    then filled from ``<path>/unet``. The temporal modules keep their init
+    where the file has none of their keys, as in ``load_sd15_unet``."""
+    from motioneditor_tpu_torch.inference import resolve_device
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.models.unet import SDXL_BASE, UNet3DConditionModel
+
+    device = resolve_device(device)  # before any file is read
+
+    path = find_model_file(osp.join(pretrained_model_path, "unet"))
+    with torch.device(device):
+        unet = UNet3DConditionModel(config or SDXL_BASE, include_adapter=False)
     init_params(unet, generator or torch.Generator(device=device).manual_seed(0))
     return load_into(unet, _attention_out(load_state_dict(path)), path, _video_group)
 

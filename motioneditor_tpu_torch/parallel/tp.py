@@ -177,6 +177,9 @@ def shard_params_tp(module: nn.Module, ctx) -> Dict[str, int]:
     Returns the plan; a one-rank model group changes nothing."""
     if ctx.tp == 1:
         return {}
+    if hasattr(module, "add_embedding"):
+        raise NotImplementedError("tensor parallelism is not ported to a text_time (SDXL) "
+                                  "configuration")
     sites = split_sites(module, ctx.tp)
     if any(m.tp_size != 1 for _, m in sites):
         raise ValueError("the module is already split over a model group")

@@ -85,10 +85,13 @@ def ddim_invert(
     normal_infer: bool = True,
     use_flash: bool = True,
     shard_ctx=None,
+    added_cond_kwargs: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain DDIM inversion of ``latents`` [B, F, h, w, 4] under the text
     embedding ``cond`` [1 or B, L, D], run in the latents' dtype;
-    ``normal_infer`` turns the video attention variants off. Returns
+    ``normal_infer`` turns the video attention variants off;
+    ``added_cond_kwargs``: a text_time configuration's pooled text and time
+    ids (models/unet.py ``time_embedding``). Returns
     (x_T, all_latents [num_steps + 1, ...]) with all_latents[i] the latent
     after i inversion steps (x_0 first). ``shard_ctx``: ``latents`` holds
     this rank's frames, and so do both results; the UNet communicates over
@@ -102,7 +105,8 @@ def ddim_invert(
         with span("me.invert_step"):
             t = int(ts[num_steps - i - 1])
             eps = unet_apply(unet, unet_config, lat, t, cond_b, normal_infer=normal_infer,
-                             use_flash=use_flash, shard_ctx=shard_ctx)
+                             use_flash=use_flash, shard_ctx=shard_ctx,
+                             added_cond_kwargs=added_cond_kwargs)
             lat = ddim_inverse_step(schedule, eps, t, lat, num_steps)
             all_latents.append(lat)
     return lat, torch.stack(all_latents)

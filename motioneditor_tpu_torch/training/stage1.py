@@ -20,7 +20,7 @@ moments' scales are reduced over the model group
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -43,19 +43,21 @@ def stage1_loss(model: UNet3DConditionModel, unet_config: UNetConfig, latents: t
                 encoder_hidden_states: torch.Tensor, noise: torch.Tensor,
                 timesteps: torch.Tensor, schedule: DiffusionSchedule = DiffusionSchedule(),
                 prediction_type: str = "epsilon", use_flash: bool = True, remat: bool = True,
-                compute_dtype: Optional[torch.dtype] = None, shard_ctx=None) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = None, shard_ctx=None,
+                added_cond_kwargs: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """The denoising loss of one micro-batch (stage1.py:58-75): noise the
     latents at ``timesteps``, run the UNet in ``compute_dtype`` (the
     parameters' dtype when None), and take the fp32 mean squared error
     against the noise or the velocity; with ``shard_ctx``, this rank's share
-    of it from its local blocks."""
+    of it from its local blocks. ``added_cond_kwargs``: a text_time
+    configuration's pooled text and time ids (models/unet.py)."""
     noisy = ddpm_add_noise(schedule, latents, noise, timesteps)
     target = diffusion_target(schedule, latents, noise, timesteps, prediction_type)
     x_in, enc_in = noisy, encoder_hidden_states
     if compute_dtype is not None:
         x_in, enc_in = noisy.to(compute_dtype), enc_in.to(compute_dtype)
     pred = unet_apply(model, unet_config, x_in, timesteps, enc_in, use_flash=use_flash,
-                      remat=remat, shard_ctx=shard_ctx)
+                      remat=remat, shard_ctx=shard_ctx, added_cond_kwargs=added_cond_kwargs)
     return mse(pred, target, shard_ctx)
 
 
@@ -73,6 +75,7 @@ def train_step_stage1(
     compute_dtype: Optional[torch.dtype] = None,
     accum_steps: int = 1,
     shard_ctx=None,
+    added_cond_kwargs: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[TrainState, dict]:
     """One optimizer step on ``state`` (updated in place and returned).
     latents: [B, F, h, w, 4] (VAE latents x 0.18215); encoder_hidden_states:
@@ -83,7 +86,9 @@ def train_step_stage1(
     ``shard_ctx``: latents and encoder_hidden_states are this rank's blocks
     (see the module docstring); under a model group ``state.model`` comes
     split by parallel/tp.py ``shard_params_tp`` before ``make_train_state``,
-    and every model rank passes the same blocks and generator state."""
+    and every model rank passes the same blocks and generator state.
+    ``added_cond_kwargs``: a text_time (SDXL) configuration's ``text_embeds``
+    [B, D] and ``time_ids`` [B, 6], the same for every micro-batch."""
     state.optimizer.zero_grad()
     total = 0.0
     for _ in range(accum_steps):
@@ -95,7 +100,7 @@ def train_step_stage1(
                                               shard_ctx, draw_noise)
             loss = stage1_loss(state.model, unet_config, latents, encoder_hidden_states, noise,
                                t, schedule, prediction_type, use_flash, remat, compute_dtype,
-                               shard_ctx)
+                               shard_ctx, added_cond_kwargs)
         with span("me.backward"):
             (loss / accum_steps).backward()
         total = total + loss.detach()

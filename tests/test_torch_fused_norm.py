@@ -108,7 +108,7 @@ def test_block_call_site_gate(monkeypatch, n, use_flash, knob, fused_sites):
     block = _block(c, 54)
     rng = np.random.default_rng(55)
     tokens = tensor(normal(rng, (1, 2, n, c))).requires_grad_()
-    ctx = U.AttnContext(encoder_hidden_states=tensor(normal(rng, (1, 7, 16))), heads=4,
+    ctx = U.AttnContext(encoder_hidden_states=tensor(normal(rng, (1, 7, 16))),
                         use_flash=use_flash)
     hw = (n // 16, 16)
     out = U.basic_transformer_block(block, tokens, ctx, 0, hw, "motion_frame")

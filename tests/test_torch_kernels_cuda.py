@@ -1246,3 +1246,15 @@ def test_launch_from_a_new_thread(device):
     assert "error" not in got, got.get("error")
     torch.testing.assert_close(got["out"], ref, atol=0, rtol=0)
     torch.testing.assert_close(got["res"], ref, **TOL[torch.bfloat16])
+
+
+def test_sdxl_kernels_and_stage1_step(device):
+    """SDXL's attention sites at heads of 64 (chip_smoke.py ``phase_sdxl``):
+    K1, K4-K7 and K3 in bf16 at [1, 8, 1024, 1280] with 20 heads and [1, 8,
+    4096, 640] with 10 against their plain versions, then one stage-1 step of
+    SDXL_BASE at 8 frames of 128x128 latents under
+    EXPECTED_PER_SDXL_STAGE1_STEP; the phase raises on any miss."""
+    from chip_smoke import EXPECTED_PER_SDXL_STAGE1_STEP, phase_sdxl
+
+    r = phase_sdxl(device)
+    assert r["stage1_step"]["launches"] == EXPECTED_PER_SDXL_STAGE1_STEP

@@ -3,7 +3,8 @@ profiler; under a CPU torch.profiler, host-only ranges (function scope, no
 user annotation) nested as the layers nest, with records that carry their
 parent and step ordinal; and the exact spans each step of the benchmarked
 entries emits at a tiny size, with the UNet's span once per training step
-under gradient checkpointing (the recompute does not re-enter it)."""
+under gradient checkpointing (the recompute does not re-enter it) and a
+``me.transformer`` span for each Transformer2D call, the recompute's too."""
 
 import pytest
 import torch
@@ -72,6 +73,11 @@ def me_parent(event):
     return None if p is None else p.name
 
 
+def stacks(parent, n):
+    """``n`` Transformer2D spans inside ``parent``."""
+    return [("me.transformer", parent)] * n
+
+
 def by_step(records):
     steps = {}
     for r in records:
@@ -130,8 +136,11 @@ def test_denoise_segment_spans():
                             1.0, latents(2), ts[:2], text(2), text(2), cond_emb, None)
 
     records, prof = profiled(fn)
+    # the ControlNet's 7 stacks; the UNet's 6 down stacks, the adapter, the
+    # mid and up stacks
     step = [("me.denoise_step", None), ("me.controlnet", "me.denoise_step"),
-            ("me.unet", "me.denoise_step"), ("me.adapter", "me.unet")]
+            *stacks("me.controlnet", 7), ("me.unet", "me.denoise_step"),
+            *stacks("me.unet", 6), ("me.adapter", "me.unet"), *stacks("me.unet", 10)]
     assert by_step(records) == {1: step, 2: step}
     profiler_spans(prof, records)
 
@@ -139,7 +148,7 @@ def test_denoise_segment_spans():
 def test_ddim_invert_spans():
     unet, _ = models()
     records, prof = profiled(lambda: ddim_invert(unet, TINY, SCHEDULE, latents(1), text(1), 3))
-    step = [("me.invert_step", None), ("me.unet", "me.invert_step")]
+    step = [("me.invert_step", None), ("me.unet", "me.invert_step"), *stacks("me.unet", 16)]
     assert by_step(records) == {1: step, 2: step, 3: step}
     profiler_spans(prof, records)
 
@@ -151,7 +160,9 @@ def train_state(unet, modules):
 @pytest.mark.parametrize("stage", [1, 2])
 def test_train_step_spans(stage):
     """Two steps of each stage with gradient checkpointing: one forward,
-    backward and optimizer span a step, and the UNet's span once."""
+    backward and optimizer span a step, and the UNet's span once; the
+    backward recomputes the stacks that lead to a trainable (stage 1: all
+    16; stage 2: the 9 up stacks, which take the adapted skips)."""
     unet, cn = models()
     g = torch.Generator().manual_seed(3)
     lat, txt = latents(1), text(1)
@@ -171,10 +182,15 @@ def test_train_step_spans(stage):
                                          controlnet_config(TINY), SCHEDULE, remat=True)
 
     records, prof = profiled(fn)
-    models_ = [("me.unet", "me.forward")]
+    models_ = [("me.unet", "me.forward"), *stacks("me.unet", 16)]
+    recomputed = 16
     if stage == 2:
-        models_ = [("me.controlnet", "me.forward"), *models_, ("me.adapter", "me.unet")]
+        models_ = [("me.controlnet", "me.forward"), *stacks("me.controlnet", 7),
+                   ("me.unet", "me.forward"), *stacks("me.unet", 6), ("me.adapter", "me.unet"),
+                   *stacks("me.unet", 10)]
+        recomputed = 9
     step = [("me.train_step", None), ("me.forward", "me.train_step"), *models_,
-            ("me.backward", "me.train_step"), ("me.optimizer", "me.train_step")]
+            ("me.backward", "me.train_step"), *stacks("me.backward", recomputed),
+            ("me.optimizer", "me.train_step")]
     assert by_step(records) == {1: step, 2: step}
     profiler_spans(prof, records)  # so the profiler too holds one me.unet a step

@@ -93,12 +93,24 @@ def test_controlnet_keys_match_openpose_manifest():
     assert port == _manifest("controlnet_openpose")
 
 
+def _jax_fields(cfg) -> dict:
+    """The fields of the port's config that JAX's UNetConfig has; the rest
+    (SDXL's, models/unet.py) must hold their SD-1.5 defaults."""
+    jax_names = [f.name for f in dataclasses.fields(JaxUNetConfig)]
+    extra = [f for f in dataclasses.fields(cfg) if f.name not in jax_names]
+    assert all(getattr(cfg, f.name) == f.default for f in extra)
+    return {n: getattr(cfg, n) for n in jax_names}
+
+
 def test_configs_match_jax():
-    assert ([(f.name, f.default) for f in dataclasses.fields(UNetConfig)]
-            == [(f.name, f.default) for f in dataclasses.fields(JaxUNetConfig)])
-    assert dataclasses.asdict(controlnet_config()) == dataclasses.asdict(jax_controlnet_config())
+    jax_fields = [(f.name, f.default) for f in dataclasses.fields(JaxUNetConfig)]
+    port_fields = [(f.name, f.default) for f in dataclasses.fields(UNetConfig)]
+    assert port_fields[:len(jax_fields)] == jax_fields
+    # the port's own fields describe SD-1.5's architecture at their defaults
+    assert UNetConfig().down_block_types == JaxUNetConfig().down_block_types
+    assert _jax_fields(controlnet_config()) == dataclasses.asdict(jax_controlnet_config())
     for cfg in (UNetConfig(), UNetConfig(use_st_attn=True), UNetConfig(use_sc_attn=False)):
-        jcfg = JaxUNetConfig(**dataclasses.asdict(cfg))
+        jcfg = JaxUNetConfig(**_jax_fields(cfg))
         assert cfg.down_block_types == jcfg.down_block_types
         assert cfg.up_block_types == jcfg.up_block_types
         assert [cfg.attn1_mode(s) for s in (False, True)] == [
