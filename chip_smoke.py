@@ -177,12 +177,16 @@ Phases, each raising on failure:
               Function's
               dx, dscale and dbias against autograd of the plain group_norm;
               F.group_norm and add + F.layer_norm timed as yardsticks
-  3e. group_norm  (run after 3c) the GroupNorm + SiLU pair where no
-              gradient is recorded (ops/group_norm.py) at the pooled 24-frame
-              [1, 98304, 320] and the edit's per-frame [32, 4096, 320] in
-              bf16: ms beside the 6-byte bound, the plain chain and F.group_norm
-              + F.silu, held to the chain; one call's host time through
-              models/layers.py group_norm against the chain's ("[group_norm]")
+  3e. group_norm  (run after 3c) the GroupNorm + SiLU pair
+              (ops/group_norm.py) at the pooled 24-frame [1, 98304, 320] and
+              the edit's per-frame [32, 4096, 320] in bf16: ms beside the
+              6-byte bound, the plain chain and F.group_norm + F.silu, held to
+              the chain; one call's host time through models/layers.py
+              group_norm against the chain's ("[group_norm]"); then its
+              backward (GroupNormKernelFn) at GROUP_NORM_BWD_SHAPES: ms beside
+              the 10-byte bound and the chain's autograd backward, dx, dw and
+              db held to autograd of the chain in fp32 ("[group_norm]
+              backward")
   9. train check  a tiny fp32 stage-1 step and stage-2 step with
               MOTIONEDITOR_FUSED_GN / _LN on and the kernels (K1, K3-K7, K10
               forward and backward, K11), against the plain path with both
@@ -337,10 +341,14 @@ def tc(per_step: dict) -> dict:
     return {**per_step, **{f"{k}.tc": n for k, n in per_step.items() if k in TC_KERNELS}}
 
 
-def group_norms(calls: int, silu: int) -> dict:
-    """Launches of ops/group_norm.py: ``calls`` GroupNorms, ``silu`` of them
-    with the SiLU."""
-    return {"group_norm": calls, **({"group_norm.silu": silu} if silu else {})}
+def group_norms(calls: int, silu: int, grad: int = 0, bwd: int = 0) -> dict:
+    """Launches of ops/group_norm.py: ``calls`` GroupNorm forwards, ``silu``
+    of them with the SiLU, ``grad`` of them recording a gradient
+    (GroupNormKernelFn: a checkpoint's recompute records again), and
+    ``bwd`` backward calls."""
+    counts = {"group_norm": calls, "group_norm.silu": silu, "group_norm.grad": grad,
+              "group_norm.bwd": bwd}
+    return {k: n for k, n in counts.items() if n}
 
 
 # the GroupNorms of a forward without gradient (ops/group_norm.py): the
@@ -379,9 +387,11 @@ EXPECTED_PER_INVERSION_STEP = tc({"video_flash_attention": 10,
 # block 0's attn1 precedes every cross-attention, so nothing there depends on
 # the embedding and it launches K1; the other 9 attn1 sites and all 10
 # attn_temp sites (each after a cross-attention) take the grad path. The
-# GroupNorms: the two forwards without grad (61 each), and in the grad
-# forward those ahead of the first cross-attention (resnet 0's two,
-# transformer 0's)
+# GroupNorms: 61 in each of the three forwards (45 with the SiLU), and in
+# the grad forward (no checkpointing) all but those ahead of the first
+# cross-attention (resnet 0's two, transformer 0's) record: 58 recorded
+# forwards, 58 backward calls
+NULL_GROUP_NORMS = group_norms(3 * 61, 3 * 45, 61 - 3, 61 - 3)
 EXPECTED_PER_NULL_STEP = tc({
     "video_flash_attention": 21,
     "video_flash_fwd_res": 9,
@@ -389,7 +399,7 @@ EXPECTED_PER_NULL_STEP = tc({
     "video_flash_bwd_dkv": 9,
     "temporal_flash_attention": 30,
     "temporal_flash_attention_bwd": 10,
-    **group_norms(125, 92),
+    **NULL_GROUP_NORMS,
 })
 # per auto-mode segment step: UNet blocks 0-3 (4) + ControlNet 0-3 (4) + adapter
 # 0-5 x 2 (12); blocks 10-15 run K8 three times each (source rows, fg, bg)
@@ -417,6 +427,14 @@ ADD_LN_SHAPES = ((1, 8, 4096, 320), (1, 8, 1024, 640))
 GROUP_NORM_SHAPES = ((1, 98304, 320), (32, 4096, 320))
 GROUP_NORM_HOST_SHAPE = (24, 64, 1280)
 GROUP_NORM_HOST_CALLS = 1000
+# the GroupNorm pair's backward [B, S, C]: the pooled level-1 norm at 24
+# frames, the per-frame one, the pooled level-3 one
+GROUP_NORM_BWD_SHAPES = ((1, 98304, 320), (24, 4096, 320), (1, 6144, 1280))
+# the backward's gradients against autograd of the chain in fp32, each as
+# ||got - ref|| / ||ref||: in fp32 at most this; in bf16 at most
+# GROUP_NORM_BWD_RATIO times the bf16 chain's own, plus this
+GROUP_NORM_BWD_FLOOR = {"float32": 2e-5, "bfloat16": 1e-4}
+GROUP_NORM_BWD_RATIO = 1.25
 ULP_FLOOR = 2.0 ** -8  # bf16_ulps' floor, for outputs of unit scale
 TRAIN_STEPS = 3
 
@@ -485,23 +503,38 @@ EXPECTED_PER_STAGE2_STEP = tc({
     "channel_pair_stats.vec": 155, "add_layer_norm": 56,
 })
 NORM_KERNELS = ("channel_pair_stats", "add_layer_norm")
-# with the knobs off, the GroupNorms through which no gradient flows
-# (ops/group_norm.py) per training step: stage 1 those ahead of the first
-# trainable attn1.to_q (resnet 0's two in the forward, transformer 0's in
-# the forward and the recompute); stage 2 the ControlNet's 27 and the
-# UNet's down path ahead of the adapter's first residual
-KNOBS_OFF_GROUP_NORMS = {"stage1": group_norms(4, 2), "stage2": group_norms(54, 40)}
+# with the knobs off, the GroupNorms (ops/group_norm.py) per training step,
+# gradient checkpointing on: the UNet's 61 in the forward (45 with the
+# SiLU), then again in the recompute those inside a checkpointed block
+# whose output records a gradient, and a backward call for each recorded
+# forward of the pass (not of the recompute).
+# - Stage 1: resnet 0's two norms lie ahead of the first trainable
+#   attn1.to_q and record nothing, nor are they recomputed; transformer 0's
+#   is recomputed but records nothing; conv_norm_out is not checkpointed.
+#   Forwards 61 + 58 recomputed (45 + 42 with the SiLU); recorded 58 + 57;
+#   58 backward.
+# - Stage 2: the ControlNet's 27 (20 with the SiLU) and the UNet's down
+#   path and mid block, 27 (20), ahead of the adapter's first residual run
+#   without grad; the up path's 33 (24) and conv_norm_out record: forwards
+#   54 + 34 + 33 recomputed (40 + 25 + 24 with the SiLU); recorded 34 + 33;
+#   34 backward.
+KNOBS_OFF_GROUP_NORMS = {"stage1": group_norms(61 + 58, 45 + 42, 58 + 57, 58),
+                         "stage2": group_norms(54 + 34 + 33, 40 + 25 + 24, 34 + 33, 34)}
 # per stage-1 step of SDXL's video UNet (models/unet.py SDXL_BASE; the
 # benchmark's train-sdxl-8f: 8 frames of 128x128 latents, knobs off,
 # checkpointing): its 70 attn1 sites (1,024 and 4,096 queries a frame, heads
 # of 64) take K4 in the forward and the recompute, K5 and K6 once; its 70
-# attn_temp sites K3 twice and K7; the GroupNorms ahead of the first
-# trainable attn1.to_q (level 0's two resnets and level 1's first, six with
-# the SiLU, then transformer 0's in the forward and the recompute)
+# attn_temp sites K3 twice and K7. The GroupNorms: 46 in the forward (17
+# resnets' 34 and conv_norm_out with the SiLU, 11 stacks' one each); the 6
+# of level 0's two resnets and level 1's first lie ahead of the first
+# trainable attn1.to_q and are neither recorded nor recomputed; transformer
+# 0's is recomputed unrecorded; conv_norm_out is not checkpointed. Forwards
+# 46 + 39 recomputed (35 + 28 with the SiLU); recorded 39 + 38; 39 backward
 SDXL_FRAMES, SDXL_LATENT = 8, 128
 EXPECTED_PER_SDXL_STAGE1_STEP = tc({
     "video_flash_fwd_res": 140, "video_flash_bwd_dq": 70, "video_flash_bwd_dkv": 70,
-    "temporal_flash_attention": 140, "temporal_flash_attention_bwd": 70, **group_norms(8, 6),
+    "temporal_flash_attention": 140, "temporal_flash_attention_bwd": 70,
+    **group_norms(46 + 39, 35 + 28, 39 + 38, 39),
 })
 KV_KERNELS = ("video_flash_attention_kv", "video_injection_attention_kv",
               "temporal_flash_attention_global")
@@ -537,7 +570,7 @@ EXPECTED_PER_SHARDED_INVERSION_STEP = tc({"video_flash_attention_kv": 10,
 # step's backward takes K12's and K14's plain VJPs, no kernel
 EXPECTED_PER_SHARDED_NULL_STEP = tc({"video_flash_attention_kv": 30,
                                      "temporal_flash_attention_global": 30,
-                                     **group_norms(125, 92)})
+                                     **NULL_GROUP_NORMS})
 # a sharded vanilla edit step launches what an injected one does
 # (EXPECTED_PER_SHARDED_STEP) but for K13: blocks 10-15 run K12 on all rows
 EXPECTED_PER_SHARDED_VANILLA_STEP = tc({"video_flash_attention": 10,
@@ -561,12 +594,19 @@ EXPECTED_PER_SHARDED_AUTO_STEP = tc({"video_flash_attention": 10,
                                      "video_flash_attention_kv": 10,
                                      "temporal_flash_attention_global": 16,
                                      **UNET_CONTROLNET_GROUP_NORMS})
-# the pooled GroupNorms per step of each path, every one with the SiLU (the
-# UNet's resnets' and conv_norm_out, in the forwards without grad), which
-# a frame group of more than one rank runs through parallel/frame_ops.py's
-# plain version instead of ops/group_norm.py (``frame_split``)
-POOLED_GROUP_NORMS = {"denoise": 45, "vanilla": 45, "inversion": 45, "null_text": 92,
-                      "auto": 45, "p2p": 45, "stage1": 2, "stage2": 20}
+# the pooled GroupNorms' launches per step of each path, every one with the
+# SiLU (the UNet's 44 resnet norms and conv_norm_out), which a frame group
+# of more than one rank runs through parallel/frame_ops.py's plain version
+# instead of ops/group_norm.py (``frame_split``). Null-text: three forwards,
+# the grad forward's all but resnet 0's two recorded. Stage 1: 45 + 42
+# recomputed, recorded 43 + 42, 43 backward; stage 2: the down path's and
+# mid block's 20 without grad, the up path's 24 and conv_norm_out recorded,
+# 24 recomputed
+POOLED_GROUP_NORMS = {path: group_norms(45, 45) for path in ("denoise", "vanilla", "inversion",
+                                                             "auto", "p2p")}
+POOLED_GROUP_NORMS.update(null_text=group_norms(3 * 45, 3 * 45, 43, 43),
+                          stage1=group_norms(45 + 42, 45 + 42, 43 + 42, 43),
+                          stage2=group_norms(20 + 25 + 24, 20 + 25 + 24, 25 + 24, 25))
 # tensor parallelism (parallel/tp.py): the model group's all-reduces per step
 # and rank, one per split attention module called: the UNet's 16 blocks x
 # (attn1, attn2, attn_temp), and in the edit also the adapter's 12 blocks x 3
@@ -608,8 +648,7 @@ def frame_split(per_step: dict, path: str, fp: int) -> dict:
     parallel/frame_ops.py's plain version."""
     if fp == 1:
         return per_step
-    pooled = POOLED_GROUP_NORMS[path]
-    out = add_counts(per_step, {"group_norm": -pooled, "group_norm.silu": -pooled})
+    out = add_counts(per_step, {k: -n for k, n in POOLED_GROUP_NORMS[path].items()})
     return {k: n for k, n in out.items() if n}
 
 
@@ -3061,6 +3100,100 @@ def sum_tolerance(terms, got, ref, what: str) -> float:
     if (err > 1e-4 * terms).any():
         raise AssertionError(f"{what}: off by {(err / terms).max().item():.3e} of |terms|")
     return err.max().item()
+
+
+def group_norm_backward_errors(x, w, b, dy, silu: bool) -> dict:
+    """dx, dw and db of ops/group_norm.py group_norm (GroupNormKernelFn; x,
+    w and b all recording) and of the plain chain (+ F.silu) in x's dtype, each
+    against autograd of the chain on fp32 copies: ||got - ref|| / ||ref|| per
+    gradient for "kernel" and "chain", and the launches of the kernel
+    route's forward and backward; raises where the kernel's error passes
+    its limit (GROUP_NORM_BWD_FLOOR, GROUP_NORM_BWD_RATIO)."""
+    import torch
+    import torch.nn.functional as F
+
+    from motioneditor_tpu_torch import _build
+    from motioneditor_tpu_torch.ops import group_norm as gn_kernel
+
+    def grads(route, *inputs):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        if route == "kernel":
+            y = gn_kernel.group_norm(*leaves, 32, 1e-5, silu=silu)
+        else:
+            y = gn_kernel.group_norm_plain(*leaves, 32, 1e-5)
+            y = F.silu(y) if silu else y
+        return torch.autograd.grad(y, leaves, dy.to(y.dtype))
+
+    before = dict(_build.launch_counts)
+    got = grads("kernel", x, w, b)
+    launched = {k: _build.launch_counts[k] - before.get(k, 0)
+                for k in ("group_norm.grad", "group_norm.bwd")}
+    chain = grads("chain", x, w, b)
+    ref = grads("chain", x.float(), w.float(), b.float())
+    torch.cuda.synchronize()
+
+    def err(a, r):
+        return ((a.double() - r.double()).norm() / r.double().norm()).item()
+
+    dt = str(x.dtype).replace("torch.", "")
+    out = {"launched": launched}
+    for name, g, c, r in zip(("dx", "dw", "db"), got, chain, ref):
+        if g.dtype != c.dtype or g.shape != c.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"group_norm backward {name}: {g.dtype} {tuple(g.shape)}")
+        out[name] = {"kernel": err(g, r), "chain": err(c, r)}
+        limit = GROUP_NORM_BWD_FLOOR[dt] + (GROUP_NORM_BWD_RATIO * out[name]["chain"]
+                                            if dt == "bfloat16" else 0.0)
+        if out[name]["kernel"] > limit:
+            raise AssertionError(f"group_norm backward {dt} {list(x.shape)} silu={silu} {name}: "
+                                 f"{out[name]} against the fp32 chain, limit {limit:.3e}")
+    if launched != {"group_norm.grad": 1, "group_norm.bwd": 1}:
+        raise AssertionError(f"group_norm backward launched {launched}")
+    return out
+
+
+def phase_group_norm_backward(device):
+    """The GroupNorm pair's backward (ops/group_norm.py GroupNormKernelFn:
+    K10's kernel on (dy, x) with the SiLU's derivative, then the apply
+    kernel) at GROUP_NORM_BWD_SHAPES in bf16 with the SiLU: one backward's
+    ms (autograd.grad of x, the weight frozen as in the training cells,
+    over KERNEL_REPS calls, CUDA events) beside its 10-byte bound (dy and x
+    read twice, dx written), and the chain's autograd backward (the plain
+    version + F.silu); dx, dw and db held to autograd of the chain in fp32
+    (group_norm_backward_errors)."""
+    import torch
+    import torch.nn.functional as F
+
+    from motioneditor_tpu_torch.ops import group_norm as gn_kernel
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 25)
+    dtype, groups, eps = torch.bfloat16, 32, 1e-5
+    r = {"at": [list(s) for s in GROUP_NORM_BWD_SHAPES]}
+    for i, shape in enumerate(GROUP_NORM_BWD_SHAPES):
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5).to(dtype)
+        dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+        w = (1 + 0.3 * torch.randn(c, generator=gen, device=device)).to(dtype)
+        b = (0.2 * torch.randn(c, generator=gen, device=device)).to(dtype)
+        errors = group_norm_backward_errors(x, w, b, dy, silu=True)
+        xk, xc = x.clone().requires_grad_(), x.clone().requires_grad_()
+        yk = gn_kernel.group_norm(xk, w, b, groups, eps, silu=True)
+        yc = F.silu(gn_kernel.group_norm_plain(xc, w, b, groups, eps))
+        ms = time_ms(lambda: torch.autograd.grad(yk, xk, dy, retain_graph=True),
+                     reps=KERNEL_REPS)
+        plain_ms = time_ms(lambda: torch.autograd.grad(yc, xc, dy, retain_graph=True), reps=20)
+        # per element: the pre-activation and silu' (~15 flops) and the sums
+        # (3), again in the apply with dx (~8); bytes: dy and x twice, dx once
+        bd = bound(41.0 * x.numel(), 5 * nbytes(x), dtype)
+        key = "" if i == 0 else f"_{'x'.join(map(str, shape))}"
+        r.update({f"ms{key}": ms, f"plain_ms{key}": plain_ms, f"bound_ms{key}": bd["bound_ms"],
+                  f"errors{key}": errors})
+        log(f"[group_norm] backward bf16 {list(shape)} + SiLU: {ms:.4f} ms ({KERNEL_REPS} "
+            f"calls), {100 * bd['bound_ms'] / ms:.1f}% of the {bd['bound_ms']:.4f} ms "
+            f"{bd['bound_by']} bound; the chain's autograd backward {plain_ms:.4f} ms; "
+            f"||err|| / ||ref|| against the fp32 chain, kernel / bf16 chain: "
+            + ", ".join(f"{k} {v['kernel']:.3e} / {v['chain']:.3e}"
+                        for k, v in errors.items() if k != "launched"))
+    return {"group_norm.bwd": r}
 
 
 def phase_group_norm(device):
@@ -5570,6 +5703,8 @@ def main() -> int:
         f"{json.dumps(ptxas_usage(build_log, 'pair_stats_kernel'))}")
     log(f"[build] ptxas registers and spills of group_norm_apply_kernel: "
         f"{json.dumps(ptxas_usage(build_log, 'group_norm_apply_kernel'))}")
+    log(f"[build] ptxas registers and spills of group_norm_bwd_apply_kernel: "
+        f"{json.dumps(ptxas_usage(build_log, 'group_norm_bwd_apply_kernel'))}")
     log(f"[build] tensor-core instructions in the SASS of attention_tc: "
         f"{json.dumps(sass_mma_counts(path)) or 'cuobjdump not on this host'}")
 
@@ -5590,6 +5725,7 @@ def main() -> int:
     log(f"[norm] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     results.update(phase_group_norm(device))
+    results.update(phase_group_norm_backward(device))
     log(f"[group_norm] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     results.update(phase_kv_kernels(device))

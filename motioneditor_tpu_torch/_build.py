@@ -242,7 +242,8 @@ def kernels() -> ctypes.CDLL:
     ]
     lib.me_add_layer_norm.restype = i32
     lib.me_group_norm.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,       # x, w, b, y, work, tickets
+        ptr, ptr, ptr, ptr, ptr,            # x, w, b, y, stats (or null)
+        ptr, ptr,                           # work, tickets
         i32, i32, i32, i32, f32, i32,       # B, S, C, G, eps, silu
         i32, i32,                           # dtype, weight dtype
         i32, i32, i32, i32, i32,            # K10's plan: vec, cols, ctas, rows, threads
@@ -250,6 +251,16 @@ def kernels() -> ctypes.CDLL:
         ptr,                                # stream
     ]
     lib.me_group_norm.restype = i32
+    lib.me_group_norm_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,            # dy, x, w, b, stats
+        ptr, ptr, ptr, ptr, ptr,            # dx, dw, db (each or null), work, tickets
+        i32, i32, i32, i32, i32,            # B, S, C, G, silu
+        i32, i32,                           # dtype, weight dtype
+        i32, i32, i32, i32, i32,            # K10's plan of (dy, x): vec, cols, ctas, rows, threads
+        i32, i32,                           # the apply plan: threads, ctas
+        ptr,                                # stream
+    ]
+    lib.me_group_norm_bwd.restype = i32
     return lib
 
 

@@ -1,13 +1,15 @@
 // K10's kernel, the per-channel pair statistics (sum a, sum a*b) over the
 // middle axis of [B, S, C], and its plan check and launch: shared by
 // csrc/norm_stats.cu (me_pair_stats, sums rounded to fp32) and
-// csrc/group_norm.cu (me_group_norm's statistics, sums kept in fp64). The
+// csrc/group_norm.cu (me_group_norm's statistics, sums kept in fp64, and
+// me_group_norm_bwd's, where a is first mapped elementwise: an Op). The
 // design is norm_stats.cu's notes.
 #pragma once
 
 #include <stdint.h>
 
 #include <cuda/atomic>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -21,6 +23,18 @@ struct Plan {
   int cols, lanes, slices;  // column groups per slice, row lanes, slices
   int ctas, rows;           // blocks along S per (batch row, slice), rows per block
   int chs;                  // channels per slice, cols * vec
+};
+
+// The map of a before it is summed, (sum f(a, b), sum f(a, b) * b): a
+// itself here. An Op's Lane<VEC> holds what a thread needs for its VEC
+// channels c0.. of batch row bi; init runs once before the rows. Any other
+// Op reads two inputs (a != b).
+struct SumA {
+  template <int VEC>
+  struct Lane {
+    __device__ __forceinline__ void init(const SumA&, int, int) {}
+    __device__ __forceinline__ float operator()(int, float a, float) const { return a; }
+  };
 };
 
 // 16-byte and 1-element loads, converted to fp32
@@ -190,13 +204,17 @@ __device__ __forceinline__ void load_rows(typename L::Raw* ra, typename L::Raw* 
   }
 }
 
-template <typename T, int VEC, bool SAME, typename O>
+template <typename T, int VEC, bool SAME, typename O, typename Op = SumA>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     pair_stats_kernel(const T* __restrict__ a, const T* __restrict__ b, O* __restrict__ out,
-                      double* __restrict__ work, unsigned int* __restrict__ tickets, Plan p) {
+                      double* __restrict__ work, unsigned int* __restrict__ tickets, Plan p,
+                      Op op) {
   using L = Loader<T, VEC>;
   using Raw = typename L::Raw;
-  constexpr int U = SAME ? 8 : 4;
+  constexpr bool MAPPED = !std::is_same<Op, SumA>::value;
+  static_assert(!(SAME && MAPPED), "a mapped a reads a second input");
+  // a map's per-channel registers leave room for 2 rows of each input in flight
+  constexpr int U = SAME ? 8 : (MAPPED ? 2 : 4);
   constexpr int V = VEC > 1 ? 2 : 1;  // doubles a load in the combine
   // one sum at a time: the threads' (hi, lo) pairs [v][thread], each row
   // padded by 64 bytes so that a half-warp's loads of 2 rows hit distinct
@@ -212,6 +230,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 #pragma unroll
   for (int v = 0; v < VEC; ++v) h1[v] = l1[v] = h2[v] = l2[v] = 0.f;
   if (c0 < p.C) {
+    typename Op::template Lane<VEC> f;
+    f.init(op, bi, c0);
     const size_t base = (size_t)bi * p.S * p.C + c0;
     const T* pa = a + base;
     const T* pb = b + base;
@@ -232,8 +252,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
           if (!SAME) L::to_float(cb[u], y);
 #pragma unroll
           for (int v = 0; v < VEC; ++v) {
-            t1[v] += x[v];
-            t2[v] = fmaf(x[v], SAME ? x[v] : y[v], t2[v]);
+            const float g = SAME ? x[v] : f(v, x[v], y[v]);
+            t1[v] += g;
+            t2[v] = fmaf(g, SAME ? x[v] : y[v], t2[v]);
           }
         }
       }
@@ -325,17 +346,26 @@ inline int pair_stats_plan(const void* a, const void* b, const void* work, int B
   return 0;
 }
 
-// One launch on stream st: the sums of a (and a * b) rounded to O into out
-template <typename T, int VEC, typename O>
+// One launch on stream st: the sums of a (and a * b) rounded to O into out;
+// with an Op, the sums of op(a, b) (and op(a, b) * b), a != b
+template <typename T, int VEC, typename O, typename Op = SumA>
 cudaError_t pair_stats_launch(const void* a, const void* b, O* out, double* work,
-                              unsigned int* tickets, const Plan& p, int threads, cudaStream_t st) {
+                              unsigned int* tickets, const Plan& p, int threads, cudaStream_t st,
+                              Op op = Op()) {
   const dim3 grid(p.ctas, p.slices, p.B);
   const T* ta = static_cast<const T*>(a);
   const T* tb = static_cast<const T*>(b);
-  if (a == b)
-    pair_stats_kernel<T, VEC, true, O><<<grid, threads, 0, st>>>(ta, tb, out, work, tickets, p);
-  else
-    pair_stats_kernel<T, VEC, false, O><<<grid, threads, 0, st>>>(ta, tb, out, work, tickets, p);
+  if constexpr (std::is_same<Op, SumA>::value) {
+    if (a == b) {
+      pair_stats_kernel<T, VEC, true, O>
+          <<<grid, threads, 0, st>>>(ta, tb, out, work, tickets, p, SumA());
+      return cudaGetLastError();
+    }
+  } else if (a == b) {
+    return cudaErrorInvalidValue;
+  }
+  pair_stats_kernel<T, VEC, false, O, Op><<<grid, threads, 0, st>>>(ta, tb, out, work, tickets, p,
+                                                                   op);
   return cudaGetLastError();
 }
 

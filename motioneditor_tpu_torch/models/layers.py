@@ -110,10 +110,11 @@ def group_norm(p: nn.Module, x: torch.Tensor, num_groups: int = 32, eps: float =
     axis (so on a [B, F, H, W, C] video the stats pool across frames), then
     the SiLU when ``silu``. With MOTIONEDITOR_FUSED_GN on, the statistics
     and the gradient's reductions run in the pair-stats kernel
-    (ops/gn_stats.py). Otherwise a call off the CPU through which autograd
-    records no graph runs in two hand-written launches, the SiLU with them
-    (ops/group_norm.py ``takes``), and every other call runs the plain
-    version. ``shard`` (a FrameShardingCtx over more than one frame rank):
+    (ops/gn_stats.py). Otherwise a call off the CPU runs in two
+    hand-written launches, the SiLU with them, and where autograd records a
+    gradient its backward in two more (ops/group_norm.py ``takes``); every
+    other call runs the plain version. ``shard`` (a FrameShardingCtx over
+    more than one frame rank):
     ``x`` holds the local frames and the statistics pool over every rank's
     (parallel/frame_ops.py)."""
     from motioneditor_tpu_torch.ops import gn_stats

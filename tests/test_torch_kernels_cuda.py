@@ -47,10 +47,15 @@ import pytest
 import torch
 
 from chip_smoke import (
+    GROUP_NORM_BWD_FLOOR,
+    GROUP_NORM_BWD_RATIO,
+    GROUP_NORM_BWD_SHAPES,
     LOGIT_CAP,
     bf16_ulps,
     fg_mask,
+    group_norm_backward_errors,
     logit_bound,
+    phase_group_norm_backward,
     scaled_error,
     unet_group_norm_shapes,
 )
@@ -786,12 +791,15 @@ def test_channel_pair_stats_kernel(device, dtype, same, b, s, c, offset):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,groups", [((1, 8, 64, 64, 320), 32), ((8, 32, 32, 640), 32),
                                           ((2, 3, 5, 7, 64), 8)])
-def test_group_norm_function_gradients(device, dtype, shape, groups):
+def test_group_norm_function_gradients(device, dtype, shape, groups, monkeypatch):
     """The GroupNorm Function (K10 forward on (x, x), backward on (dy, x))
-    against autograd of the plain group_norm: output, dx, dscale, dbias."""
+    against autograd of the plain group_norm (the knob off, the two-launch
+    pair's route closed): output, dx, dscale, dbias."""
     import os
 
     from motioneditor_tpu_torch.models.layers import group_norm
+
+    monkeypatch.setattr(gn_kernel, "takes", lambda *args: False)
 
     gen = torch.Generator(device=device).manual_seed(11)
     x = (2 * torch.randn(shape, generator=gen, device=device) + 0.5).to(dtype)
@@ -923,6 +931,89 @@ def test_group_norm_route_on_the_card(device, case):
         assert (bf16_ulps(got, ref) <= 1).float().mean().item() >= 0.999
     else:
         assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GROUP_NORM_BWD_SHAPES, ids=str)
+def test_group_norm_backward_kernel(device, dtype, silu, shape):
+    """The GroupNorm pair's backward (GroupNormKernelFn) at the pooled
+    level-1 norm of 24 frames, the per-frame one and the pooled level-3 one:
+    dx, dw and db, x, the weight and the bias all recording, against
+    autograd of the plain chain on fp32 copies (chip_smoke
+    group_norm_backward_errors: fp32 within GROUP_NORM_BWD_FLOOR, bf16
+    within GROUP_NORM_BWD_RATIO of the bf16 chain's own error plus the
+    floor); one recorded forward and one backward call launched."""
+    gen = torch.Generator(device=device).manual_seed(15)
+    x, w, b = _group_norm_case(shape, dtype, device, gen)
+    dy = _rand(shape, dtype, device, gen)
+    r = group_norm_backward_errors(x, w, b, dy, silu)
+    assert r["launched"] == {"group_norm.grad": 1, "group_norm.bwd": 1}
+
+
+def test_group_norm_backward_phase(device):
+    """chip_smoke.py ``phase_group_norm_backward``: the backward's ms at
+    GROUP_NORM_BWD_SHAPES beside its byte bound and the chain's autograd
+    backward ("[group_norm] backward" lines); raises on a gradient off its
+    limit."""
+    r = phase_group_norm_backward(device)["group_norm.bwd"]
+    assert r["ms"] > 0 and r["bound_ms"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_backward_in_a_checkpointed_resnet(device, dtype, monkeypatch):
+    """A video resnet block (models/unet.py resnet_block, 320 -> 640, its
+    temporal convs nonzero) under non-reentrant checkpointing, as
+    models/unet.py ``checkpointed`` runs it, every parameter and the input
+    recording: each norm records in the pass and the recompute and runs one
+    backward; every gradient of the kernel route against the plain route's
+    in fp32, ||got - ref|| / ||ref|| within chip_smoke's
+    GROUP_NORM_BWD_FLOOR, in bf16 plus GROUP_NORM_BWD_RATIO times the bf16
+    plain route's own."""
+    import copy
+
+    from motioneditor_tpu_torch.models.layers import init_params
+    from motioneditor_tpu_torch.models.unet import ResnetBlock, resnet_block
+    from motioneditor_tpu_torch.ops import group_norm as gn_kernel
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    block = init_params(ResnetBlock(320, 640, 1280, 32, 1e-5, video=True).to(device), gen)
+    with torch.no_grad():
+        for conv in (block.temp_conv1, block.temp_conv2):
+            conv.weight.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn((1, 4, 32, 32, 320), generator=gen, device=device)
+    temb = torch.randn((1, 1280), generator=gen, device=device)
+    dy = torch.randn((1, 4, 32, 32, 640), generator=gen, device=device)
+
+    def grads(blk):
+        blk_dtype = next(blk.parameters()).dtype
+        xi = x.to(blk_dtype).requires_grad_()
+        blk.zero_grad(set_to_none=True)
+        y = torch.utils.checkpoint.checkpoint(
+            lambda t: resnet_block(blk, t, temb.to(blk_dtype)), xi, use_reentrant=False)
+        y.backward(dy.to(blk_dtype))
+        torch.cuda.synchronize()
+        return [xi.grad] + [q.grad for q in blk.parameters()]
+
+    low = copy.deepcopy(block).to(dtype)
+    before = dict(_build.launch_counts)
+    got = grads(low)
+    launched = {k: _build.launch_counts[k] - before.get(k, 0)
+                for k in ("group_norm", "group_norm.grad", "group_norm.bwd")}
+    assert launched == {"group_norm": 4, "group_norm.grad": 4, "group_norm.bwd": 2}
+    monkeypatch.setattr(gn_kernel, "takes", lambda *args: False)
+    plain, ref = grads(low), grads(block)
+    assert _build.launch_counts["group_norm"] == before.get("group_norm", 0) + 4
+
+    def err(a, r):
+        return ((a.double() - r.double()).norm() / r.double().norm()).item()
+
+    dt = str(dtype).replace("torch.", "")
+    for g, q, r in zip(got, plain, ref):
+        assert g.dtype == dtype and g.shape == r.shape and torch.isfinite(g).all()
+        limit = GROUP_NORM_BWD_FLOOR[dt] + (GROUP_NORM_BWD_RATIO * err(q, r)
+                                            if dtype == torch.bfloat16 else 0.0)
+        assert err(g, r) <= limit, (tuple(g.shape), err(g, r), err(q, r))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
